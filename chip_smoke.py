@@ -28,6 +28,36 @@ without the package, it exits non-zero and prints no result. Phases:
 5. A first number for the lomgrid sweep shape: 3,541 x 3 s int16
    utterances staged on the card, batch 256, 20,000 gathered cosine trials,
    by CUDA events after a warm-up sweep.
+6. The fused train-mode BN+PReLU kernels (K3 forward, K4 backward) against
+   their plain versions at the five activation shapes of a bs 128 x 29-frame
+   Lipreading step, in f32 and bf16: y, mean, var and dx within atol/rtol
+   1e-5 (f32; y and dx 2e-2 / 1e-2 in bf16), dscale, dbias and dalpha within
+   1e-4 of the plain version's largest. Kernel, plain and library
+   (``F.batch_norm`` + ``F.prelu``, two calls) times by CUDA events, beside
+   the least time the card could take (3|x| bytes forward, 5|x| backward).
+7. The video main path through the user's entry points at the flagship
+   Lipreading width (``conf/video_config.json``, seeded random weights): a
+   synthetic 32-speaker x 8-clip 96x96 uint8 ``.npz`` corpus of 21-29 frames
+   → ``scan_clip_dir`` → ``VideoClipBatches`` (batch 128, bucket 8) →
+   ``VideoTrainer.train`` (one epoch) → ``extract_clip_embeddings``. K3/K4
+   launch counts are zeroed just before training and read just after: three
+   launches per site and pass (partial, finalize, apply), nine sites, so 27
+   forward and 27 backward per step. K3/K4 are then held against their
+   plain versions, with the bars of phase 6, at every shape the training
+   epoch gave them.
+8. One bs 128 x 29 step through the kernels against one through the plain
+   BN+PReLU (``plain_bn_prelu``) from the same state, FP32 and cuDNN
+   deterministic: loss within 1e-5 relative; the batch mean and variance
+   at every fused site within 1e-5 (the mean in sigmas, the variance
+   relative); the gradients no further from the plain step's than 3x what
+   a 1e-6 relative nudge of the input frames moves the plain step's own
+   (their norm over the whole network); K4 alone, on bit-equal
+   activations, within 1e-4 of that norm. Planted K3 faults (the batch
+   variance off by 1e-6, 1e-5 and 1e-4 relative; the statistics held in
+   bf16) run through the same bars, and the last two must fail one of
+   them. Then ms per train step and clips/s after
+   warm-up, the kernels' share of a step, and one profiled step's device
+   time by kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``kernels`` JSON record.
@@ -36,10 +66,12 @@ the ``kernels`` JSON record.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -58,12 +90,16 @@ from deeplip_tpu_torch.data.audio_pipeline import (EvalUtterance,  # noqa: E402
 from deeplip_tpu_torch.eval.scoring import cosine_scores  # noqa: E402
 from deeplip_tpu_torch.ops import features as F  # noqa: E402
 from deeplip_tpu_torch.ops import spectral  # noqa: E402
-from deeplip_tpu_torch.ops.cuda import build, fbank  # noqa: E402
+from deeplip_tpu_torch.data.video_dataset import (VideoClipBatches, load_clip,  # noqa: E402
+                                                   scan_clip_dir)
+from deeplip_tpu_torch.ops import video as V  # noqa: E402
+from deeplip_tpu_torch.ops.cuda import bn_prelu, build, fbank  # noqa: E402
 from deeplip_tpu_torch.ops.cuda.fbank import (audio_features,  # noqa: E402
                                               audio_features_reference)
 from deeplip_tpu_torch.ops.framing import (num_frames, preemphasis,  # noqa: E402
                                            samples_for_frames)
 from deeplip_tpu_torch.train.audio import AudioExtractor, fp32_math, masked_cmvn  # noqa: E402
+from deeplip_tpu_torch.train.video import VideoTrainer  # noqa: E402
 
 ATOL, RTOL = 2e-4, 1e-3          # kernel vs plain (tests/test_pallas_features.py bar)
 EMB_TOL = 1e-4                   # kernel-path vs plain-path embeddings
@@ -483,6 +519,561 @@ def sweep_phase(extractor: AudioExtractor) -> dict:
             "tdnn_gflop": flops / 1e9}
 
 
+# ---------------------------------------------------------------- phase 6
+def bn_site_shapes(b: int, t: int) -> list:
+    """(shape, sites per train step) of the nine BN+PReLU sites of a
+    Lipreading step on a (b, t)-frame batch at the 88x88 crop: the frontend,
+    then two bn1 sites per trunk stage (time folded into the batch)."""
+    n = b * t
+    return [((b, t, 44, 44, 64), 1), ((n, 22, 22, 64), 2), ((n, 11, 11, 128), 2),
+            ((n, 6, 6, 256), 2), ((n, 3, 3, 512), 2)]
+
+
+BN_SHAPES = bn_site_shapes(128, 29)
+BN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}  # y, dx: atol, rtol
+STAT_TOL = (1e-5, 1e-5)          # mean, var in both types: f32 statistics
+PARAM_GRAD_RTOL = 1e-4           # dscale, dbias, dalpha vs the plain largest
+# flops per element, counted from the kernels' arithmetic: forward 3 for the
+# sums + 6 to apply; backward 11 for the sums + 11 to apply
+BN_FLOPS = {"fwd": 9, "bwd": 22}
+BN_BYTES = {"fwd": 3, "bwd": 5}  # |x| multiples: the least traffic for exact batch statistics
+
+
+def compare_tol(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float,
+                what: str) -> float:
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite kernel output")
+    err = (got.float() - want.float()).abs()
+    bad = err > atol + rtol * want.float().abs()
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements outside atol {atol} / "
+          f"rtol {rtol}, max abs err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def bn_bound_ms(n: int, itemsize: int, peaks, kind: str) -> tuple[float, str]:
+    fp32, _, bw = peaks
+    bytes_ms = BN_BYTES[kind] * n * itemsize / bw * 1e3
+    ops_ms = BN_FLOPS[kind] * n / fp32 * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def library_bn_prelu_ms(x, dy, scale, bias, alpha, eps) -> dict:
+    """The library yardstick: ``F.batch_norm(training=True)`` then
+    ``F.prelu`` (two calls; no single PyTorch call fuses them) on the
+    channels-last activation, and their autograd backward."""
+    lib_x = x.movedim(-1, 1).detach().requires_grad_(True)
+    lib_p = [t.detach().clone().requires_grad_(True) for t in (scale, bias, alpha)]
+
+    def fwd():
+        z = torch.nn.functional.batch_norm(lib_x, None, None, lib_p[0], lib_p[1], True, 0.1, eps)
+        return torch.nn.functional.prelu(z, lib_p[2])
+
+    out, dy_nc = fwd(), dy.movedim(-1, 1)
+    return {"fwd_library": time_ms(fwd),
+            "bwd_library": time_ms(lambda: torch.autograd.grad(
+                out, [lib_x, *lib_p], dy_nc, retain_graph=True))}
+
+
+def bn_inputs(shape, dtype, seed: int):
+    """Seeded ``(x, dy, scale, bias, alpha)`` on the card: conv outputs
+    shifted by 1.5 sigma (the single-pass variance's cancellation case the
+    JAX package guards), scale in [0.5, 1.5), alpha 0.25."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device="cuda") + 1.5).to(dtype)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    scale = 0.5 + torch.rand(c, generator=g, device="cuda")
+    bias = 0.3 * torch.randn(c, generator=g, device="cuda")
+    return x, dy, scale, bias, torch.full((c,), 0.25, device="cuda")
+
+
+def bn_prelu_check(x, dy, scale, bias, alpha, eps: float, what: str):
+    """K3 and K4 against their plain versions on one input, and K3's
+    statistics bit-equal on a rerun. Returns the errors and the forward's
+    ``(mean, inv)``."""
+    atol, rtol = BN_TOL[x.dtype]
+    y, mean, var, inv = bn_prelu.bn_prelu_forward(x, scale, bias, alpha, eps)
+    y_p, mean_p, var_p = bn_prelu.bn_prelu_reference(x, scale, bias, alpha, eps)
+    err = {"y": compare_tol(y, y_p, atol, rtol, what + " y"),
+           "mean": compare_tol(mean, mean_p, *STAT_TOL, what + " mean"),
+           "var": compare_tol(var, var_p, *STAT_TOL, what + " var")}
+    again = bn_prelu.bn_prelu_forward(x, scale, bias, alpha, eps)
+    check(torch.equal(again[1], mean) and torch.equal(again[2], var)
+          and torch.equal(again[0], y), f"{what}: statistics not bit-equal on a rerun")
+    del y, y_p, again
+    grads = bn_prelu.bn_prelu_backward(x, dy, mean, inv, scale, bias, alpha)
+    grads_p = bn_prelu.bn_prelu_backward_reference(x, dy, mean, inv, scale, bias, alpha)
+    err["dx"] = compare_tol(grads[0], grads_p[0], atol, rtol, what + " dx")
+    for name, got, want in zip(("dscale", "dbias", "dalpha"), grads[1:], grads_p[1:]):
+        big = float(want.abs().max())
+        rel = float((got - want).abs().max()) / big
+        check(rel <= PARAM_GRAD_RTOL, f"{what} {name}: {rel:.3e} of the plain "
+              f"largest ({big:.3e}), bar {PARAM_GRAD_RTOL}")
+        err[name] = rel
+    return err, (mean, inv)
+
+
+def bn_prelu_phase(peaks) -> dict:
+    rows, eps = [], 1e-5
+    with fp32_math():
+        for i, (shape, sites) in enumerate(BN_SHAPES):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, dy, scale, bias, alpha = bn_inputs(shape, dtype, 100 + i)
+                what = f"bn_prelu {shape} {str(dtype)[6:]}"
+                err, (mean, inv) = bn_prelu_check(x, dy, scale, bias, alpha, eps, what)
+
+                times = {
+                    "fwd": time_ms(lambda: bn_prelu.bn_prelu_forward(x, scale, bias, alpha, eps)),
+                    "fwd_plain": time_ms(lambda: bn_prelu.bn_prelu_reference(
+                        x, scale, bias, alpha, eps), iters=5),
+                    "bwd": time_ms(lambda: bn_prelu.bn_prelu_backward(
+                        x, dy, mean, inv, scale, bias, alpha)),
+                    "bwd_plain": time_ms(lambda: bn_prelu.bn_prelu_backward_reference(
+                        x, dy, mean, inv, scale, bias, alpha), iters=5),
+                }
+                if dtype == torch.float32:
+                    times.update(library_bn_prelu_ms(x, dy, scale, bias, alpha, eps))
+                del x, dy
+                torch.cuda.empty_cache()
+                n = math.prod(shape)
+                for kind in ("fwd", "bwd"):
+                    times[f"{kind}_bound"], times[f"{kind}_bound_by"] = bn_bound_ms(
+                        n, dtype.itemsize, peaks, kind)
+                row = {"shape": list(shape), "dtype": str(dtype)[6:], "sites": sites,
+                       **{f"err_{k}": v for k, v in err.items()}, **times}
+                rows.append(row)
+                log(f"{what}: errs " + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+                    + "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()
+                                          if not k.endswith("_by")))
+    f32 = [r for r in rows if r["dtype"] == "float32"]
+    per_step = {k: sum(r["sites"] * r[k] for r in f32) for k in (
+        "fwd", "fwd_plain", "fwd_library", "fwd_bound", "bwd", "bwd_plain", "bwd_library",
+        "bwd_bound")}
+    log("bn_prelu per bs 128 x 29 train step (9 sites, f32): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in per_step.items()))
+    return {"rows": rows, "per_step": per_step}
+
+
+# ---------------------------------------------------------------- phase 7
+VIDEO_SPEAKERS, VIDEO_CLIPS, VIDEO_BATCH = 32, 8, 128
+
+
+def video_config() -> dict:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "conf", "video_config.json")) as fh:
+        return json.load(fh)
+
+
+def write_clip_corpus(root: str, seed: int = 0) -> None:
+    """32 speakers x 8 clips of 21-29 frames, 96x96 uint8: each speaker a
+    grating at its own spatial frequency and orientation that drifts over
+    time at its own rate, plus noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:96, 0:96].astype(np.float32) / 96.0
+    for spk in range(VIDEO_SPEAKERS):
+        freq, theta, rate = 2.0 + 0.25 * spk, np.pi * spk / VIDEO_SPEAKERS, 0.05 + 0.01 * spk
+        plane = freq * (np.cos(theta) * xx + np.sin(theta) * yy)
+        os.makedirs(os.path.join(root, f"s{spk:02d}"), exist_ok=True)
+        for c in range(VIDEO_CLIPS):
+            t = int(rng.integers(21, 30))
+            phase = rate * np.arange(t, dtype=np.float32)[:, None, None] + rng.random()
+            frames = 128 + 80 * np.sin(2 * np.pi * (plane[None] + phase))
+            frames += rng.normal(0, 12, frames.shape)
+            np.savez(os.path.join(root, f"s{spk:02d}", f"c{c}.npz"),
+                     data=np.clip(frames, 0, 255).astype(np.uint8))
+
+
+def full_clip_batch(clips) -> dict:
+    """One bs 128 x 29-frame batch of the corpus: four clips of each
+    speaker, zero-padded to 29 frames, with their lengths and labels."""
+    chosen = [c for c in clips if int(c.name[-1]) < VIDEO_BATCH // VIDEO_SPEAKERS]
+    batch = {"clips": np.zeros((len(chosen), 29, 96, 96), np.uint8),
+             "lengths": np.zeros(len(chosen), np.int32),
+             "labels": np.array([c.label for c in chosen], np.int64)}
+    for row, clip in enumerate(chosen):
+        data = load_clip(clip.path)
+        batch["clips"][row, :len(data)] = data
+        batch["lengths"][row] = len(data)
+    check(len(chosen) == VIDEO_BATCH, f"{len(chosen)} clips in the full batch")
+    return batch
+
+
+def zero_bn_counts() -> None:
+    bn_prelu.bn_prelu_forward.launches = 0
+    bn_prelu.bn_prelu_backward.launches = 0
+
+
+@contextlib.contextmanager
+def recording_bn_calls(record: list):
+    """Append ``(shape, dtype, mean, var)`` of every call of the fused
+    BN+PReLU op (through K3 or whatever stands in for it) to ``record``."""
+    inner = bn_prelu.bn_prelu_train
+
+    def recorded(x, *args):
+        y, mean, var = inner(x, *args)
+        record.append((tuple(x.shape), x.dtype, mean.clone(), var.clone()))
+        return y, mean, var
+
+    bn_prelu.bn_prelu_train = recorded
+    try:
+        yield
+    finally:
+        bn_prelu.bn_prelu_train = inner
+
+
+def bn_prelu_path_check(seen: set) -> dict:
+    """K3/K4 against their plain versions at every shape the main path gave
+    them (the bars of phase 6). Returns the largest y and dx errors."""
+    worst = {"y": 0.0, "dx": 0.0}
+    with fp32_math():
+        for i, (shape, dtype) in enumerate(sorted(seen, key=str)):
+            inputs = bn_inputs(shape, dtype, 200 + i)
+            err, _ = bn_prelu_check(*inputs, 1e-5, f"bn_prelu main-path {shape} "
+                                                   f"{str(dtype)[6:]}")
+            worst = {k: max(v, err[k]) for k, v in worst.items()}
+            del inputs
+            torch.cuda.empty_cache()
+    return worst
+
+
+def video_main_path_phase() -> dict:
+    with tempfile.TemporaryDirectory() as root:
+        write_clip_corpus(os.path.join(root, "clips"))
+        clips = scan_clip_dir(os.path.join(root, "clips"))
+        check(len(clips) == VIDEO_SPEAKERS * VIDEO_CLIPS, f"{len(clips)} clips scanned")
+        trainer = VideoTrainer(video_config(), num_classes=VIDEO_SPEAKERS,
+                               exp_root=os.path.join(root, "exp"))
+        batches = VideoClipBatches(clips, batch_size=VIDEO_BATCH, bucket_t=8, seed=0)
+        shapes = [b["clips"].shape for b in batches.epoch(1)]
+
+        calls: list = []
+        with recording_bn_calls(calls):
+            zero_bn_counts()
+            t0 = time.perf_counter()
+            losses = trainer.train(batches, epochs=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"bn_prelu_fwd": bn_prelu.bn_prelu_forward.launches,
+                        "bn_prelu_bwd": bn_prelu.bn_prelu_backward.launches}
+
+        check(len(losses) == len(shapes) == trainer.step, f"{len(losses)} losses for "
+              f"{len(shapes)} batches, step {trainer.step}")
+        check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
+        per_step = 3 * 9  # partial, finalize, apply at each of the nine sites
+        for name, n in launches.items():
+            check(n == per_step * len(losses), f"{name}: {n} launches for {len(losses)} "
+                  f"steps, {per_step} expected per step")
+        check(os.path.exists(os.path.join(trainer.exp_dir, "net_1")), "no net_1 checkpoint")
+        # the kernels saw the sites' shapes of each bucketed batch, and hold
+        # against their plain versions at every one of them
+        check(len(calls) == 9 * len(losses), f"{len(calls)} fused BN+PReLU calls for "
+              f"{len(losses)} steps")
+        seen = {(shape, dtype) for shape, dtype, _, _ in calls}
+        want = {(s, torch.float32) for b in shapes for s, _ in bn_site_shapes(b[0], b[1])}
+        check(seen == want, f"the main path gave K3 the shapes {sorted(seen, key=str)}, "
+              f"expected {sorted(want, key=str)}")
+        path_err = bn_prelu_path_check(seen)
+
+        full_batch = full_clip_batch(clips)
+        eval_batches = VideoClipBatches(clips, batch_size=VIDEO_BATCH, bucket_t=8,
+                                        shuffle=False, pre_crop=(88, 88))
+        t0 = time.perf_counter()
+        emb = trainer.extract_clip_embeddings(eval_batches)
+        torch.cuda.synchronize()
+        emb_wall = time.perf_counter() - t0
+    check(len(emb) == len(clips), f"{len(emb)} embeddings for {len(clips)} clips")
+    mat = torch.stack(list(emb.values()))
+    check(mat.device.type == "cuda" and tuple(mat.shape[1:]) == (512,),
+          f"embeddings {tuple(mat.shape)} on {mat.device}")
+    check(bool(torch.isfinite(mat).all()), "non-finite clip embeddings")
+    log(f"video main path: {len(clips)} clips, batches {shapes}, losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; launches {launches} "
+        f"({per_step} per step and pass); train {wall:.2f} s wall incl. header scan, "
+        f"decode and cuDNN's first calls; K3/K4 vs plain at its {len(seen)} site shapes: "
+        f"max err y {path_err['y']:.2e}, dx {path_err['dx']:.2e}; {len(emb)} embeddings {tuple(mat.shape[1:])} in "
+        f"{emb_wall:.2f} s")
+    return {"trainer": trainer, "full_batch": full_batch, "launches": launches, "losses": losses,
+            "path_err": path_err, "batches": [list(b) for b in shapes]}
+
+
+# ---------------------------------------------------------------- phase 8
+# device kernels by kind, first match wins: the six kernels of
+# csrc/bn_prelu_kernel.cu as the profiler names them, cuDNN/cuBLAS (the
+# convolutions, the TCN and the classifier), Adam, the rest of PyTorch's own
+KERNEL_KINDS = [
+    ("K3/K4 (bn_prelu_kernel.cu)", re.compile(
+        r"::(stats_partial|stats_finalize|apply|bwd_partial|bwd_finalize|bwd_apply)_kernel\b")),
+    ("cuDNN/cuBLAS", re.compile(r"cudnn|xmma|cublas|gemm|wgrad|dgrad|fprop|fft", re.I)),
+    ("Adam", re.compile(r"multi_tensor_apply|adam", re.I)),
+    ("max-pool", re.compile(r"max_pool", re.I)),
+    ("other PyTorch", re.compile(r"")),
+]
+def plain_bn_prelu_forward(x, scale, bias, alpha, eps):
+    y, mean, var = bn_prelu.bn_prelu_reference(x, scale, bias, alpha, eps)
+    return y, mean, var, torch.rsqrt(var + eps)
+
+
+def faulty_bn_prelu_forward(fault):
+    """A K3 with a planted fault, for the step bars to catch: the plain
+    forward with the batch variance scaled by ``1 + fault``, or, for
+    ``fault == "bf16"``, with the mean and variance held in bf16."""
+    def forward(x, scale, bias, alpha, eps):
+        _, mean, var = bn_prelu.bn_prelu_reference(x, scale, bias, alpha, eps)
+        if fault == "bf16":
+            mean, var = mean.bfloat16().float(), var.bfloat16().float()
+        else:
+            var = var * (1.0 + fault)
+        inv = torch.rsqrt(var + eps)
+        z = ((x - mean) * inv) * scale + bias
+        return torch.where(z >= 0, z, alpha * z), mean, var, inv
+    return forward
+
+
+@contextlib.contextmanager
+def plain_bn_prelu(forward=plain_bn_prelu_forward,
+                   backward=bn_prelu.bn_prelu_backward_reference):
+    """Route the fused BN+PReLU op's forward (K3) and backward (K4) through
+    the given functions, by default their plain versions, on the same
+    device and inside the same autograd op; ``None`` keeps that kernel."""
+    kernels = bn_prelu.bn_prelu_forward, bn_prelu.bn_prelu_backward
+    bn_prelu.bn_prelu_forward = forward or kernels[0]
+    bn_prelu.bn_prelu_backward = backward or kernels[1]
+    try:
+        yield
+    finally:
+        bn_prelu.bn_prelu_forward, bn_prelu.bn_prelu_backward = kernels
+
+
+STEP_LOSS_RTOL = 1e-5
+STEP_STAT_RTOL = 1e-5  # every site's batch mean (in sigmas) and variance (relative)
+NUDGE = 1e-6           # relative nudge of the input frames: the plain path's own sensitivity
+NUDGE_FACTOR = 3.0     # the kernel path may move the gradients this many times as far
+K4_GRAD_RTOL = 1e-4    # K4 alone (same forward): gradient norm, relative
+# planted K3 faults: the batch variance off by this much (relative), or the
+# statistics held in bf16. 1e-5 equals the statistics bar of phase 6 and of
+# the step, so it and 1e-6 are reported only; the others must be rejected
+PLANTED_FAULTS = (1e-6, 1e-5, 1e-4, "bf16")
+MUST_CATCH = (1e-4, "bf16")
+
+
+def grad_distance(a: dict, b: dict) -> float:
+    """``|a - b| / |b|`` over every gradient of the network at once."""
+    num = sum(float(((a[n] - b[n]).double() ** 2).sum()) for n in b)
+    return math.sqrt(num / sum(float((v.double() ** 2).sum()) for v in b.values()))
+
+
+def stat_distance(a: list, b: list) -> tuple[float, int]:
+    """The largest gap between two steps' batch statistics at the fused
+    sites, in forward order: a mean's in units of ``b``'s standard
+    deviation, a variance's relative to ``b``'s. Returns it and its site."""
+    check(len(a) == len(b) == 9, f"{len(a)} and {len(b)} fused sites recorded, 9 expected")
+    return max((max(float(((ma - mb).abs() / vb.sqrt()).max()),
+                    float(((va - vb).abs() / vb).max())), site)
+               for site, ((_, _, ma, va), (_, _, mb, vb)) in enumerate(zip(a, b)))
+
+
+def worst_tensor(a: dict, b: dict) -> tuple[float, str]:
+    """The largest ``max|a - b|`` of a tensor over its ``max|b|``, among the
+    tensors whose gradient is not zero in exact arithmetic (the biases of
+    the TCN convolutions feeding a train-mode BN hold rounding noise below
+    1e-3 of the network's largest gradient)."""
+    top = max(float(v.abs().max()) for v in b.values())
+    return max((float((a[n] - b[n]).abs().max()) / float(b[n].abs().max()), n)
+               for n in b if float(b[n].abs().max()) >= 1e-3 * top)
+
+
+def video_step_phase(trainer: VideoTrainer, batch: dict, bn: dict) -> dict:
+    clips, lengths, labels = (torch.from_numpy(batch[k]).cuda()
+                              for k in ("clips", "lengths", "labels"))
+    x = V.train_transform(clips, torch.Generator().manual_seed(1))[..., None]
+    x = V.mask_pad_frames(x, lengths)
+    state = (copy.deepcopy(trainer.model.state_dict()),
+             copy.deepcopy(trainer.optimizer.state_dict()), trainer.step)
+
+    def step(frames):
+        """One step from ``state``: its loss, gradients and batch statistics
+        at the fused sites; the state is restored after it."""
+        torch.manual_seed(0)   # the same dropout masks in every run
+        stats: list = []
+        with recording_bn_calls(stats):
+            loss = float(trainer.train_step_frames(frames, lengths, labels)["loss"])
+        grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
+        trainer.model.load_state_dict(state[0])
+        trainer.optimizer.load_state_dict(state[1])
+        trainer.step = state[2]
+        return loss, grads, stats
+
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        zero_bn_counts()
+        loss_k, grads_k, stats_k = step(x)
+        check(bn_prelu.bn_prelu_forward.launches == bn_prelu.bn_prelu_backward.launches == 27,
+              f"kernel step launched {bn_prelu.bn_prelu_forward.launches} forward and "
+              f"{bn_prelu.bn_prelu_backward.launches} backward kernels, 27 each expected")
+        zero_bn_counts()
+        with plain_bn_prelu():
+            loss_p, grads_p, stats_p = step(x)
+            loss_n, grads_n, stats_n = step(x * (1.0 + NUDGE))
+        check(bn_prelu.bn_prelu_forward.launches == bn_prelu.bn_prelu_backward.launches == 0,
+              "the plain steps launched the kernels")
+        # K4 alone: both runs of this comparison see bit-equal activations
+        with plain_bn_prelu(backward=None):
+            loss_h, grads_h, _ = step(x)
+        # The step's gradients are sums that cancel: a 1e-6 relative nudge
+        # of the input frames moves the plain path's own gradients by ~1e-3
+        # of their norm. The kernel path's gradients are held to that
+        # sensitivity, measured in this run; its forward, through the batch
+        # statistics of every fused site (averages, which do not cancel), to
+        # a fixed bar; K4 alone, on bit-equal activations, to a fixed bar.
+        # Planted K3 faults show what the bars reject.
+        d_np = grad_distance(grads_n, grads_p)
+        planted = {}
+        for fault in PLANTED_FAULTS:
+            with plain_bn_prelu(forward=faulty_bn_prelu_forward(fault)):
+                loss_f, grads_f, stats_f = step(x)
+            rel, dist = abs(loss_f - loss_p) / abs(loss_p), grad_distance(grads_f, grads_p)
+            stat = stat_distance(stats_f, stats_p)[0]
+            planted[str(fault)] = {
+                "loss_rel": rel, "grad_distance": dist, "nudge_ratio": dist / d_np,
+                "stat_distance": stat,
+                "caught_by": [name for name, hit in (
+                    ("loss", rel > STEP_LOSS_RTOL), ("gradients", dist > NUDGE_FACTOR * d_np),
+                    ("statistics", stat > STEP_STAT_RTOL)) if hit]}
+            del grads_f
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    d_kp, d_hp = (grad_distance(g, grads_p) for g in (grads_k, grads_h))
+    (s_kp, s_site), s_np = stat_distance(stats_k, stats_p), stat_distance(stats_n, stats_p)[0]
+    worst = {k: worst_tensor(g, grads_p) for k, g in (("kernel", grads_k), ("nudge", grads_n),
+                                                       ("k4", grads_h))}
+    log(f"kernel vs plain step at bs {VIDEO_BATCH} x 29 (corpus clips, speaker labels): loss "
+        f"{loss_k:.8f} vs {loss_p:.8f} ({loss_rel:.2e} relative; nudged input {loss_n:.8f}, "
+        f"K4 alone {loss_h:.8f}); batch statistics of the fused sites: kernel path "
+        f"{s_kp:.2e} from the plain path (site {s_site}; bar {STEP_STAT_RTOL}), nudged input "
+        f"{s_np:.2e}; gradient distance from the plain path: kernel path "
+        f"{d_kp:.3e}, plain path with the input nudged by {NUDGE} {d_np:.3e} (ratio "
+        f"{d_kp / d_np:.2f}, bar {NUDGE_FACTOR}), K4 alone {d_hp:.3e} (bar {K4_GRAD_RTOL}); "
+        "worst tensor, of its plain largest: " + ", ".join(
+            f"{k} {v:.2e} ({n})" for k, (v, n) in worst.items()))
+    log("planted K3 faults against the step bars (loss relative, statistics, gradient "
+        "distance, its ratio to the nudge's): " + "; ".join(
+            f"{k}: {v['loss_rel']:.2e}, {v['stat_distance']:.2e}, {v['grad_distance']:.3e}, "
+            f"{v['nudge_ratio']:.2f} (caught by {', '.join(v['caught_by']) or 'none'})"
+            for k, v in planted.items()))
+    del grads_k, grads_p, grads_n, grads_h, x
+    check(loss_rel <= STEP_LOSS_RTOL, f"kernel-path loss {loss_k} vs plain {loss_p}: "
+          f"{loss_rel:.3e} relative, bar {STEP_LOSS_RTOL}")
+    check(s_kp <= STEP_STAT_RTOL, f"kernel-path batch statistics {s_kp:.3e} from the plain "
+          f"path's at site {s_site}, bar {STEP_STAT_RTOL}")
+    check(d_kp <= NUDGE_FACTOR * d_np, f"kernel-path gradients {d_kp:.3e} of the plain norm "
+          f"from the plain path; a {NUDGE} nudge of the input moves them {d_np:.3e}; bar "
+          f"{NUDGE_FACTOR} x that")
+    check(d_hp <= K4_GRAD_RTOL, f"K4 alone: gradients {d_hp:.3e} of the plain norm from "
+          f"the plain path, bar {K4_GRAD_RTOL}")
+    for fault in MUST_CATCH:
+        check(planted[str(fault)]["caught_by"], f"a planted K3 fault ({fault}) passed the "
+              "step bars")
+
+    gen = torch.Generator().manual_seed(2)
+    for _ in range(2):
+        trainer.train_step(clips, lengths, labels, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        trainer.train_step(clips, lengths, labels, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = sorted(walls)[2]
+    kernel_ms = bn["per_step"]["fwd"] + bn["per_step"]["bwd"]
+    log(f"video train step at bs {VIDEO_BATCH} x 29 (FP32): {step_ms:.1f} ms median of 5 "
+        f"({', '.join(f'{w:.1f}' for w in walls)}), {VIDEO_BATCH / step_ms * 1e3:.1f} clips/s, "
+        f"peak {peak_gb:.1f} GB; K3+K4 at their measured times {kernel_ms:.3f} ms = "
+        f"{kernel_ms / step_ms:.1%} of the step")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(clips, lengths, labels, gen)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kernels, layers = {}, {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
+            kind = next(k for k, pat in KERNEL_KINDS if pat.search(ev.key))
+            layers[kind] = layers.get(kind, 0.0) + dev_us / 1e3
+    # device time of each convolution call, forward and backward, by shape
+    convs = sorted(((getattr(ev, "device_time_total", 0) / 1e3, ev.key, ev.input_shapes[:2])
+                    for ev in prof.key_averages(group_by_input_shape=True)
+                    if ev.key in ("aten::cudnn_convolution", "aten::convolution_backward")),
+                   key=lambda t: -t[0])[:8]
+    busy = sum(kernels.values())
+    ours = layers.get("K3/K4 (bn_prelu_kernel.cu)", 0.0)
+    top_k = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    if busy > 0:
+        log(f"profiled step: {prof_wall:.1f} ms wall, {busy:.1f} ms of device kernels "
+            f"({busy / prof_wall:.1%} busy, {1 - busy / prof_wall:.1%} idle), K3+K4 {ours:.3f} ms "
+            f"({ours / busy:.1%} of device time); by kind: " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in sorted(layers.items(), key=lambda kv: -kv[1])))
+        log("  top kernels:")
+        for name, ms in top_k:
+            log(f"  {ms:9.3f} ms  {name[:150]}")
+        log("  top convolution calls (device time incl. their kernels; input shapes):")
+        for ms, name, shapes in convs:
+            log(f"  {ms:9.3f} ms  {name} {shapes}")
+    else:
+        log("profiled step: the profiler saw no device time (not measured)")
+    return {"step_ms": step_ms, "step_walls": walls, "clips_per_sec": VIDEO_BATCH / step_ms * 1e3,
+            "kernel_share": kernel_ms / step_ms, "peak_gb": peak_gb, "loss_rel": loss_rel,
+            "stat_distance": s_kp, "grad_distance": d_kp, "nudge_distance": d_np,
+            "k4_distance": d_hp,
+            "planted_faults": planted, "worst_tensor": {k: list(v) for k, v in worst.items()}, "profiled_busy_ms": busy,
+            "profiled_wall_ms": prof_wall, "profiled_bn_prelu_ms": ours,
+            "profiled_by_kind_ms": layers}
+
+
+BN_REPLACES = {"fwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:56",
+                       "deeplip_tpu/ops/pallas/bn_prelu_kernel.py:70"),
+               "bwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:80",
+                       "deeplip_tpu/ops/pallas/bn_prelu_kernel.py:102")}
+
+
+def bn_entry(name: str, kind: str, bn: dict, video: dict) -> dict:
+    """A K3 or K4 line of the ``kernels`` record: times summed over the nine
+    sites of one bs 128 x 29 train step in f32, with each shape beside."""
+    err = "y" if kind == "fwd" else "dx"
+    per_step = bn["per_step"]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "deeplip_tpu_torch/csrc/bn_prelu_kernel.cu",
+        "replaces": BN_REPLACES[kind][0],
+        "also_replaces": BN_REPLACES[kind][1],
+        "launches": video["launches"][name],
+        "max_abs_err": max([r["err_" + err] for r in bn["rows"] if r["dtype"] == "float32"]
+                           + [video["path_err"][err]]),
+        "max_abs_err_bf16": max(r["err_" + err] for r in bn["rows"] if r["dtype"] == "bfloat16"),
+        "ms": per_step[kind],
+        "kernel_ms": per_step[kind],
+        "plain_ms": per_step[f"{kind}_plain"],
+        "bound_ms": per_step[f"{kind}_bound"],
+        "bound_by": bn["rows"][0][f"{kind}_bound_by"],
+        "library_ms": None,
+        "library_two_calls_ms": per_step[f"{kind}_library"],
+        "library_note": "no single PyTorch call computes it; library_two_calls_ms times "
+                        "F.batch_norm(training=True) then F.prelu" + (
+                            "" if kind == "fwd" else ", their autograd backward"),
+        "per": "one bs 128 x 29 Lipreading train step: 9 sites, f32",
+        "shapes": [{k: r[k] for k in ("shape", "dtype", "sites", kind, f"{kind}_plain",
+                                      f"{kind}_bound") + ((f"{kind}_library",)
+                                                          if f"{kind}_library" in r else ())}
+                   for r in bn["rows"]],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -494,6 +1085,11 @@ def main() -> int:
     kern = kernel_phase(peaks)
     main_path = main_path_phase()
     sweep = sweep_phase(main_path["extractor"])
+    del main_path["extractor"]
+    torch.cuda.empty_cache()
+    bn = bn_prelu_phase(peaks)
+    video = video_main_path_phase()
+    step = video_step_phase(video.pop("trainer"), video.pop("full_batch"), bn)
     kernels = {"kernels": [{
         "name": "fused_fbank",
         "route": "cuda",
@@ -513,7 +1109,7 @@ def main() -> int:
                         "-> log -> DCT; torch.stft needs a window, centring and a "
                         "separate mel/DCT",
         "shape": [BATCH, int(SECONDS * RATE)],
-    }]}
+    }, bn_entry("bn_prelu_fwd", "fwd", bn, video), bn_entry("bn_prelu_bwd", "bwd", bn, video)]}
     summary = {
         "card": dev["smi"],
         "peaks_part": part,
@@ -524,6 +1120,25 @@ def main() -> int:
         "lomgrid_front_end_ms": sweep["front_ms"],
         "lomgrid_tdnn_ms": sweep["tdnn_ms"],
         "lomgrid_tdnn_gflop": sweep["tdnn_gflop"],
+        "video_losses": video["losses"],
+        "video_batches": video["batches"],
+        "video_path_bn_prelu_err": video["path_err"],
+        "video_step_ms": step["step_ms"],
+        "video_step_walls_ms": step["step_walls"],
+        "video_clips_per_sec": step["clips_per_sec"],
+        "video_peak_gb": step["peak_gb"],
+        "video_bn_prelu_share": step["kernel_share"],
+        "video_kernel_vs_plain_loss_rel": step["loss_rel"],
+        "video_kernel_vs_plain_stat_distance": step["stat_distance"],
+        "video_kernel_vs_plain_grad_distance": step["grad_distance"],
+        "video_nudged_plain_grad_distance": step["nudge_distance"],
+        "video_k4_alone_grad_distance": step["k4_distance"],
+        "video_planted_k3_faults": step["planted_faults"],
+        "video_worst_tensor": step["worst_tensor"],
+        "video_profiled_wall_ms": step["profiled_wall_ms"],
+        "video_profiled_busy_ms": step["profiled_busy_ms"],
+        "video_profiled_bn_prelu_ms": step["profiled_bn_prelu_ms"],
+        "video_profiled_by_kind_ms": step["profiled_by_kind_ms"],
     }
     print(json.dumps(summary), flush=True)
     print(json.dumps(kernels), flush=True)

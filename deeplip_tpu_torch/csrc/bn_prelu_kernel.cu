@@ -1,0 +1,415 @@
+// Fused train-mode BatchNorm + per-channel PReLU for Hopper (sm_90a):
+// forward (K3) and backward (K4), with a plain C interface for ctypes.
+//
+// Replaces deeplip_tpu/ops/pallas/bn_prelu_kernel.py: _stats_kernel (:56)
+// and _apply_kernel (:70) for the forward, _bwd_stats_kernel (:80) and
+// _bwd_apply_kernel (:102) for the backward.
+//
+// Input: a channels-last activation seen as a row-major (rows, C) matrix,
+// C a multiple of 4 and at most 1024, in f32 or bf16; the per-channel
+// parameters and every statistic are f32.
+//
+// Forward:  mean, var = max(E[x^2] - mean^2, 0), inv = rsqrt(var + eps)
+//           z = ((x - mean) * inv) * scale + bias;  y = z >= 0 ? z : alpha * z
+// Backward: dz = z < 0 ? alpha * dy : dy
+//           [sum dz, sum dz*xhat, sum_{z<0} dy*z] = (dbias, dscale, dalpha)
+//           dx = (inv * scale) * (dz - mean(dz) - xhat * mean(dz*xhat))
+//
+// What bounds it on this card: bytes. Exact batch statistics need a full
+// read of x before the first y can be written, so the forward moves at
+// least 3|x| (x for the sums; x again and y) and the backward 5|x| (x and dy
+// for the sums; x, dy and dx). A few flops per element leave the CUDA
+// cores idle.
+//
+// Design. The TPU kernels carry their sums across a sequential grid in
+// VMEM scratch. Here blocks run in parallel and in no order, so each
+// reduction is a partial pass and a finalize pass. In the partial pass every
+// block owns a contiguous chunk of rows and writes its sums to its own slot
+// of a partial buffer (no atomics); each thread owns four channels (one
+// float4, or four bf16 in 8 bytes) and strides down the rows, so a warp
+// reads whole contiguous rows, and the block's row slots are added in
+// shared memory in a fixed order. The finalize pass adds the chunk slots in
+// double, in a fixed order. So repeated runs give bit-equal statistics. The
+// elementwise passes keep the per-channel constants in shared memory and
+// the op order of the plain PyTorch version, with __fmul_rn / __fadd_rn so
+// that nothing contracts into an FMA: y differs from the plain version's
+// only through the statistics' rounding, and the backward decides z < 0
+// exactly as the forward did.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;   // partial and elementwise blocks
+constexpr int kFinC = 32;       // finalize: channels per block
+constexpr int kFinS = 32;       // finalize: chunk slices per block
+constexpr int kMaxGrid = 4096;  // elementwise passes stride over the rest
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  // four bf16 in one 8-byte load; element 0 sits in the low half of .x
+  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(t.x << 16);
+  v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16);
+  v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float f) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  uint2 t;
+  t.x = bf16_bits(v[0]) | (bf16_bits(v[1]) << 16);
+  t.y = bf16_bits(v[2]) | (bf16_bits(v[3]) << 16);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// xhat = (x - mean) * inv and z = xhat * scale + bias, rounded op by op
+__device__ __forceinline__ float bn_norm(float x, float mean, float inv) {
+  return __fmul_rn(__fsub_rn(x, mean), inv);
+}
+
+__device__ __forceinline__ float bn_affine(float xhat, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(xhat, scale), bias);
+}
+
+// Adds sh[k][slot][C] over the slots in slot order and writes out[k][C].
+template <int K>
+__device__ __forceinline__ void reduce_slots(const float* sh, int slots, int C,
+                                             float* out) {
+  for (int i = threadIdx.x; i < K * C; i += blockDim.x) {
+    const int k = i / C, c = i - k * C;
+    float s = 0.f;
+    for (int r = 0; r < slots; ++r) s += sh[(k * slots + r) * C + c];
+    out[i] = s;
+  }
+}
+
+// K3, partial pass: per-chunk [sum x, sum x^2] into partial[chunk][2][C].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stats_partial_kernel(const T* __restrict__ x, float* __restrict__ partial,
+                     long long rows, int C, long long rows_per_chunk) {
+  extern __shared__ float sh[];  // [2][slots][C]
+  const int groups = C / 4;
+  const int slots = kThreads / groups;
+  const int g = threadIdx.x % groups, slot = threadIdx.x / groups;
+  const long long r0 = blockIdx.x * rows_per_chunk;
+  const long long r1 = min(r0 + rows_per_chunk, rows);
+  if (slot < slots) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (long long r = r0 + slot; r < r1; r += slots) {
+      float v[4];
+      load4(x + r * C + 4 * g, v);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        s[k] += v[k];
+        q[k] += v[k] * v[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      sh[slot * C + 4 * g + k] = s[k];
+      sh[(slots + slot) * C + 4 * g + k] = q[k];
+    }
+  }
+  __syncthreads();
+  reduce_slots<2>(sh, slots, C, partial + 2LL * C * blockIdx.x);
+}
+
+// Sums partial[chunk][K][C] over the chunks for the block's kFinC channels:
+// thread (x, y) adds chunks y, y + kFinS, ... in double, then row y = 0
+// adds the kFinS slices in order. Returns true on the threads that hold a
+// channel's totals.
+template <int K>
+__device__ __forceinline__ bool chunk_totals(const float* __restrict__ partial,
+                                             int chunks, int C, double (&tot)[K]) {
+  __shared__ double sh[K][kFinS][kFinC];
+  const int c = blockIdx.x * kFinC + threadIdx.x;
+  double acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0;
+  if (c < C) {
+    for (int i = threadIdx.y; i < chunks; i += kFinS) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] += partial[((long long)i * K + k) * C + c];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) sh[k][threadIdx.y][threadIdx.x] = acc[k];
+  __syncthreads();
+  if (threadIdx.y != 0 || c >= C) return false;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    double s = 0.0;
+    for (int j = 0; j < kFinS; ++j) s += sh[k][j][threadIdx.x];
+    tot[k] = s;
+  }
+  return true;
+}
+
+// K3, finalize: mean, biased var (single pass, clamped at 0) and inv.
+__global__ void __launch_bounds__(kFinC * kFinS)
+stats_finalize_kernel(const float* __restrict__ partial, int chunks, int C,
+                      long long n, float eps, float* __restrict__ mean,
+                      float* __restrict__ var, float* __restrict__ inv) {
+  double t[2];
+  if (!chunk_totals<2>(partial, chunks, C, t)) return;
+  const int c = blockIdx.x * kFinC + threadIdx.x;
+  const double m = t[0] / (double)n;
+  const double v = fmax(t[1] / (double)n - m * m, 0.0);
+  mean[c] = (float)m;
+  var[c] = (float)v;
+  inv[c] = (float)(1.0 / sqrt(v + (double)eps));
+}
+
+// K3, apply: y = prelu(((x - mean) * inv) * scale + bias).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+             const float* __restrict__ inv, const float* __restrict__ scale,
+             const float* __restrict__ bias, const float* __restrict__ alpha,
+             T* __restrict__ y, long long n4, int C) {
+  extern __shared__ float p[];  // mean, inv, scale, bias, alpha: [5][C]
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    p[c] = mean[c];
+    p[C + c] = inv[c];
+    p[2 * C + c] = scale[c];
+    p[3 * C + c] = bias[c];
+    p[4 * C + c] = alpha[c];
+  }
+  __syncthreads();
+  const int groups = C / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int c0 = 4 * (int)(i % groups);
+    float v[4];
+    load4(x + 4 * i, v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = c0 + k;
+      const float z = bn_affine(bn_norm(v[k], p[c], p[C + c]), p[2 * C + c], p[3 * C + c]);
+      v[k] = z >= 0.f ? z : __fmul_rn(p[4 * C + c], z);
+    }
+    store4(y + 4 * i, v);
+  }
+}
+
+// K4, partial pass: per-chunk [sum dz, sum dz*xhat, sum_{z<0} dy*z].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                   const float* __restrict__ mean, const float* __restrict__ inv,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   const float* __restrict__ alpha, float* __restrict__ partial,
+                   long long rows, int C, long long rows_per_chunk) {
+  extern __shared__ float sh[];  // [3][slots][C]
+  const int groups = C / 4;
+  const int slots = kThreads / groups;
+  const int g = threadIdx.x % groups, slot = threadIdx.x / groups;
+  const long long r0 = blockIdx.x * rows_per_chunk;
+  const long long r1 = min(r0 + rows_per_chunk, rows);
+  if (slot < slots) {
+    float pm[4], pi[4], ps[4], pb[4], pa[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = 4 * g + k;
+      pm[k] = mean[c]; pi[k] = inv[c]; ps[k] = scale[c]; pb[k] = bias[c]; pa[k] = alpha[c];
+    }
+    float a[4] = {0.f, 0.f, 0.f, 0.f}, b[4] = {0.f, 0.f, 0.f, 0.f},
+          d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+    for (long long r = r0 + slot; r < r1; r += slots) {
+      float v[4], gy[4];
+      load4(x + r * C + 4 * g, v);
+      load4(dy + r * C + 4 * g, gy);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float xhat = bn_norm(v[k], pm[k], pi[k]);
+        const float z = bn_affine(xhat, ps[k], pb[k]);
+        const bool neg = z < 0.f;
+        const float dz = neg ? pa[k] * gy[k] : gy[k];
+        a[k] += dz;
+        b[k] += dz * xhat;
+        if (neg) d[k] += gy[k] * z;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      sh[slot * C + 4 * g + k] = a[k];
+      sh[(slots + slot) * C + 4 * g + k] = b[k];
+      sh[(2 * slots + slot) * C + 4 * g + k] = d[k];
+    }
+  }
+  __syncthreads();
+  reduce_slots<3>(sh, slots, C, partial + 3LL * C * blockIdx.x);
+}
+
+// K4, finalize: sums[3][C] = (dbias, dscale, dalpha); means[2][C] =
+// (mean dz, mean dz*xhat).
+__global__ void __launch_bounds__(kFinC * kFinS)
+bwd_finalize_kernel(const float* __restrict__ partial, int chunks, int C,
+                    long long n, float* __restrict__ sums, float* __restrict__ means) {
+  double t[3];
+  if (!chunk_totals<3>(partial, chunks, C, t)) return;
+  const int c = blockIdx.x * kFinC + threadIdx.x;
+  sums[c] = (float)t[0];
+  sums[C + c] = (float)t[1];
+  sums[2 * C + c] = (float)t[2];
+  means[c] = (float)(t[0] / (double)n);
+  means[C + c] = (float)(t[1] / (double)n);
+}
+
+// K4, apply: dx = (inv * scale) * (dz - mean(dz) - xhat * mean(dz*xhat)).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                 const float* __restrict__ mean, const float* __restrict__ inv,
+                 const float* __restrict__ scale, const float* __restrict__ bias,
+                 const float* __restrict__ alpha, const float* __restrict__ means,
+                 T* __restrict__ dx, long long n4, int C) {
+  extern __shared__ float p[];  // mean, inv, scale, bias, alpha, m_dz, m_dzxh
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    p[c] = mean[c];
+    p[C + c] = inv[c];
+    p[2 * C + c] = scale[c];
+    p[3 * C + c] = bias[c];
+    p[4 * C + c] = alpha[c];
+    p[5 * C + c] = means[c];
+    p[6 * C + c] = means[C + c];
+  }
+  __syncthreads();
+  const int groups = C / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int c0 = 4 * (int)(i % groups);
+    float v[4], gy[4];
+    load4(x + 4 * i, v);
+    load4(dy + 4 * i, gy);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = c0 + k;
+      const float xhat = bn_norm(v[k], p[c], p[C + c]);
+      const float z = bn_affine(xhat, p[2 * C + c], p[3 * C + c]);
+      const float dz = z < 0.f ? __fmul_rn(p[4 * C + c], gy[k]) : gy[k];
+      const float r = __fsub_rn(__fsub_rn(dz, p[5 * C + c]), __fmul_rn(xhat, p[6 * C + c]));
+      v[k] = __fmul_rn(__fmul_rn(p[C + c], p[2 * C + c]), r);
+    }
+    store4(dx + 4 * i, v);
+  }
+}
+
+int grid_for(long long n4) {
+  const long long blocks = (n4 + kThreads - 1) / kThreads;
+  return (int)(blocks < kMaxGrid ? (blocks > 0 ? blocks : 1) : kMaxGrid);
+}
+
+int finalize_blocks(int C) { return (C + kFinC - 1) / kFinC; }
+
+size_t slot_bytes(int k, int C) {
+  return sizeof(float) * (size_t)k * (size_t)(kThreads / (C / 4)) * (size_t)C;
+}
+
+}  // namespace
+
+extern "C" {
+
+// is_bf16 selects __nv_bfloat16 activations (else float). Every function
+// launches one kernel on `stream` and returns cudaGetLastError().
+
+int bn_stats_partial(const void* x, int is_bf16, float* partial, long long rows,
+                     int C, long long rows_per_chunk, int chunks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = slot_bytes(2, C);
+  if (is_bf16)
+    stats_partial_kernel<__nv_bfloat16><<<chunks, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), partial, rows, C, rows_per_chunk);
+  else
+    stats_partial_kernel<float><<<chunks, kThreads, smem, s>>>(
+        static_cast<const float*>(x), partial, rows, C, rows_per_chunk);
+  return (int)cudaGetLastError();
+}
+
+int bn_stats_finalize(const float* partial, int chunks, int C, long long n,
+                      float eps, float* mean, float* var, float* inv, void* stream) {
+  stats_finalize_kernel<<<finalize_blocks(C), dim3(kFinC, kFinS), 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      partial, chunks, C, n, eps, mean, var, inv);
+  return (int)cudaGetLastError();
+}
+
+int bn_prelu_apply(const void* x, int is_bf16, const float* mean, const float* inv,
+                   const float* scale, const float* bias, const float* alpha,
+                   void* y, long long rows, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n4 = rows * C / 4;
+  const size_t smem = sizeof(float) * 5 * (size_t)C;
+  if (is_bf16)
+    apply_kernel<__nv_bfloat16><<<grid_for(n4), kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), mean, inv, scale, bias, alpha,
+        static_cast<__nv_bfloat16*>(y), n4, C);
+  else
+    apply_kernel<float><<<grid_for(n4), kThreads, smem, s>>>(
+        static_cast<const float*>(x), mean, inv, scale, bias, alpha,
+        static_cast<float*>(y), n4, C);
+  return (int)cudaGetLastError();
+}
+
+int bn_prelu_bwd_partial(const void* x, const void* dy, int is_bf16,
+                         const float* mean, const float* inv, const float* scale,
+                         const float* bias, const float* alpha, float* partial,
+                         long long rows, int C, long long rows_per_chunk, int chunks,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = slot_bytes(3, C);
+  if (is_bf16)
+    bwd_partial_kernel<__nv_bfloat16><<<chunks, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+        mean, inv, scale, bias, alpha, partial, rows, C, rows_per_chunk);
+  else
+    bwd_partial_kernel<float><<<chunks, kThreads, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy),
+        mean, inv, scale, bias, alpha, partial, rows, C, rows_per_chunk);
+  return (int)cudaGetLastError();
+}
+
+int bn_prelu_bwd_finalize(const float* partial, int chunks, int C, long long n,
+                          float* sums, float* means, void* stream) {
+  bwd_finalize_kernel<<<finalize_blocks(C), dim3(kFinC, kFinS), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      partial, chunks, C, n, sums, means);
+  return (int)cudaGetLastError();
+}
+
+int bn_prelu_bwd_apply(const void* x, const void* dy, int is_bf16,
+                       const float* mean, const float* inv, const float* scale,
+                       const float* bias, const float* alpha, const float* means,
+                       void* dx, long long rows, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n4 = rows * C / 4;
+  const size_t smem = sizeof(float) * 7 * (size_t)C;
+  if (is_bf16)
+    bwd_apply_kernel<__nv_bfloat16><<<grid_for(n4), kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+        mean, inv, scale, bias, alpha, means, static_cast<__nv_bfloat16*>(dx), n4, C);
+  else
+    bwd_apply_kernel<float><<<grid_for(n4), kThreads, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy),
+        mean, inv, scale, bias, alpha, means, static_cast<float*>(dx), n4, C);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

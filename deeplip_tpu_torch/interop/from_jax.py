@@ -1,13 +1,17 @@
 """Carry weights from the JAX package's parameter trees into the port.
 
-The JAX ``SpeakerEmbNet`` keeps Flax trees: ``params`` with ``tdnn_{i}``
-blocks (``conv: kernel (K, I, O), bias``; ``bn: scale, bias``), ``fc1`` and
-``fc2`` (``kernel (I, O), bias``) and ``bn1``/``bn2``; ``batch_stats`` with
-the BN ``mean``/``var``. :func:`speaker_embnet_state_dict` maps them onto
-the reference torch layout the port's modules use. It computes the same dict
-as ``deeplip_tpu.interop.torch_export.export_speaker_embnet_state_dict``, as
-tensors, without importing the JAX package: callers hand in nested dicts of
-numpy arrays.
+The JAX models keep Flax trees: ``params`` (conv ``kernel`` in ``(..., I,
+O)`` order, Dense ``kernel (I, O)``, BN ``scale``/``bias``, PReLU
+``alpha``) and ``batch_stats`` (BN ``mean``/``var``). The functions here map
+them onto the reference torch layouts the port's modules use, as tensors,
+without importing the JAX package: callers hand in nested dicts of numpy
+arrays.
+
+- :func:`speaker_embnet_state_dict` computes the same dict as
+  ``deeplip_tpu.interop.torch_export.export_speaker_embnet_state_dict``;
+- :func:`lipreading_state_dict` the same dict as
+  ``export_lipreading_state_dict`` (ResNet trunk; multi- or single-branch
+  TCN).
 """
 
 from __future__ import annotations
@@ -30,16 +34,14 @@ def _bn(out: dict, prefix: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> N
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def _dense(out: dict, prefix: str, p: Mapping[str, Any]) -> None:
-    # Flax Dense (I, O) -> torch Linear (O, I)
-    out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
-    out[f"{prefix}.bias"] = _t(p["bias"])
-
-
-def _conv1d(out: dict, prefix: str, p: Mapping[str, Any]) -> None:
-    # Flax Conv (K, I, O) -> torch Conv1d (O, I, K)
-    out[f"{prefix}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
-    out[f"{prefix}.bias"] = _t(p["bias"])
+def _conv(out: dict, prefix: str, p: Mapping[str, Any]) -> None:
+    # Flax Conv (*K, I, O) -> torch Conv{1,2,3}d (O, I, *K); Dense (I, O) ->
+    # Linear (O, I) is the same move with no spatial axes
+    k = np.asarray(p["kernel"])
+    out[f"{prefix}.weight"] = _t(np.transpose(k, (k.ndim - 1, k.ndim - 2)
+                                              + tuple(range(k.ndim - 2))))
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def speaker_embnet_state_dict(params: Mapping[str, Any],
@@ -53,10 +55,82 @@ def speaker_embnet_state_dict(params: Mapping[str, Any],
     out: dict[str, torch.Tensor] = {}
     for i in range(n_blocks):
         blk = params[f"tdnn_{i}"]
-        _conv1d(out, f"tdnn.{i}.context_layer", blk["conv"])
+        _conv(out, f"tdnn.{i}.context_layer", blk["conv"])
         _bn(out, f"tdnn.{i}.bn", blk["bn"], batch_stats[f"tdnn_{i}"]["bn"])
     for name in ("fc1", "fc2"):
-        _dense(out, name, params[name])
+        _conv(out, name, params[name])
     for name in ("bn1", "bn2"):
         _bn(out, name, params[name], batch_stats[name])
+    return out
+
+
+def _alpha(out: dict, key: str, p: Mapping[str, Any], name: str) -> None:
+    if name in p:
+        out[key] = _t(p[name]["alpha"])
+
+
+def _tcn(out: dict, params: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
+    """Multi-branch ``tcn.mb_ms_tcn.network.*`` or single-branch
+    ``tcn.tcn_trunk.network.*``."""
+    blocks = sorted((k for k in params if k.startswith("block")),
+                    key=lambda k: int(k[len("block"):]))
+    if not blocks:
+        return
+    multibranch = any(k.startswith("cbcr") for k in params[blocks[0]])
+    net = "tcn.mb_ms_tcn.network" if multibranch else "tcn.tcn_trunk.network"
+    for bname in blocks:
+        bp, bs = params[bname], stats.get(bname, {})
+        ref = f"{net}.{int(bname[len('block'):])}"
+        if multibranch:
+            for cname in sorted(k for k in bp if k.startswith("cbcr")):
+                cp = bp[cname]
+                _conv(out, f"{ref}.{cname}.conv", cp["conv"])
+                _bn(out, f"{ref}.{cname}.batchnorm", cp["bn"], bs[cname]["bn"])
+                _alpha(out, f"{ref}.{cname}.non_lin.weight", cp, "act")
+            if "downsample" in bp:
+                _conv(out, f"{ref}.downsample", bp["downsample"])
+            _alpha(out, f"{ref}.relu_final.weight", bp, "relu_final")
+        else:
+            for i in (1, 2):
+                cp = bp[f"conv{i}"]
+                _conv(out, f"{ref}.conv{i}", cp["conv"])
+                _bn(out, f"{ref}.batchnorm{i}", cp["bn"], bs[f"conv{i}"]["bn"])
+                _alpha(out, f"{ref}.relu{i}.weight", cp, "act")
+            if "downsample" in bp:
+                _conv(out, f"{ref}.downsample", bp["downsample"])
+            _alpha(out, f"{ref}.relu.weight", bp, "relu")
+
+
+def lipreading_state_dict(params: Mapping[str, Any],
+                          batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``Lipreading`` params + batch_stats (ResNet trunk) -> the port's
+    state dict: ``frontend3D.{0,1,2}``, ``trunk.layer{s}.{i}.*``,
+    ``tcn.*`` and ``tcn.tcn_output``."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(out, "frontend3D.0", params["frontend_conv"])
+    _bn(out, "frontend3D.1", params["frontend_bn"], batch_stats["frontend_bn"])
+    _alpha(out, "frontend3D.2.weight", params, "frontend_prelu")
+    trunk_p = params.get("trunk", {})
+    trunk_s = batch_stats.get("trunk", {})
+    for name, bp in trunk_p.items():
+        if name.startswith(("stage", "conv_last")):
+            raise NotImplementedError("the ShuffleNetV2 trunk is not ported yet")
+        if not name.startswith("layer"):
+            raise ValueError(f"unsupported trunk entry {name!r}: expected "
+                             "the ResNet layout (layer{s}_block{i})")
+        stage, block = name.split("_block")
+        ref = f"trunk.{stage}.{int(block)}"
+        bs = trunk_s.get(name, {})
+        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+            _conv(out, f"{ref}.{conv}", bp[conv])
+            _bn(out, f"{ref}.{bn}", bp[bn], bs[bn])
+        for relu in ("relu1", "relu2"):
+            _alpha(out, f"{ref}.{relu}.weight", bp, relu)
+        if "down_conv" in bp:
+            _conv(out, f"{ref}.downsample.0", bp["down_conv"])
+            _bn(out, f"{ref}.downsample.1", bp["down_bn"], bs["down_bn"])
+    if "tcn" in params:
+        _tcn(out, params["tcn"], batch_stats.get("tcn", {}))
+    if "tcn_output" in params:
+        _conv(out, "tcn.tcn_output", params["tcn_output"])
     return out

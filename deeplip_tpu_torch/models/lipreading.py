@@ -1,0 +1,117 @@
+"""Lipreading network: 3D-conv frontend → per-frame 2D trunk → TCN head.
+
+Counterpart of ``deeplip_tpu/models/lipreading.py`` with the JAX package's
+layouts at the public methods: clips are channels-last ``(B, T, H, W, 1)``
+and frame features ``(B, T, 512)``.
+
+- frontend3D: Conv3d 64×(5,7,7), stride (1,2,2), pad (2,3,3), no bias →
+  BN → PReLU → max-pool (1,3,3)/(1,2,2)/pad (0,1,1) with ``-inf`` padding.
+  The JAX package computes the same conv by a space-to-depth rewrite for
+  the TPU; here it is a plain ``nn.Conv3d``. In train mode the BN + PReLU
+  pair is the fused op (K3/K4 on the card).
+- time folds into the batch for the trunk: ``(B, T, h, w, 64)`` →
+  ``(B·T, h, w, 64)``, a view;
+- trunk: ResNet-18 (the ShuffleNetV2 trunk is not ported yet);
+- head: multi- or single-branch TCN over ``(B, T, C)``, a length-masked
+  mean consensus and a Linear to the speaker classes.
+
+Module names follow the reference layout (``frontend3D.{0,1,2}``,
+``trunk.layer{s}.{i}``, ``tcn.mb_ms_tcn`` / ``tcn.tcn_trunk``,
+``tcn.tcn_output``), so ``interop.from_jax.lipreading_state_dict`` loads
+with ``strict=True``. Train or eval mode is the module's own
+(``.train()`` / ``.eval()``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deeplip_tpu_torch.models.norm import TorchBatchNorm
+from deeplip_tpu_torch.models.resnet import ResNetTrunk, bn_act, make_act
+from deeplip_tpu_torch.models.tcn import MultibranchTemporalConvNet, TemporalConvNet
+from deeplip_tpu_torch.ops.masked import length_mask
+
+
+class TCNHead(nn.Module):
+    """The reference's TCN wrapper: the temporal stack and the classifier."""
+
+    def __init__(self, n_inputs: int, num_channels, kernel_sizes, dropout: float,
+                 relu_type: str, num_classes: int):
+        super().__init__()
+        if len(kernel_sizes) == 1:
+            self.tcn_trunk = TemporalConvNet(n_inputs, num_channels, kernel_sizes[0],
+                                             dropout, relu_type)
+        else:
+            self.mb_ms_tcn = MultibranchTemporalConvNet(n_inputs, num_channels,
+                                                        kernel_sizes, dropout, relu_type)
+        self.tcn_output = nn.Linear(num_channels[-1], num_classes)
+
+    def temporal(self, x: torch.Tensor) -> torch.Tensor:
+        net = self.tcn_trunk if hasattr(self, "tcn_trunk") else self.mb_ms_tcn
+        return net(x)
+
+
+class Lipreading(nn.Module):
+    def __init__(self, num_classes: int = 500, hidden_dim: int = 256,
+                 backbone_type: str = "resnet", relu_type: str = "prelu",
+                 tcn_kernel_sizes=(3, 5, 7),
+                 tcn_num_layers: int = 4, tcn_dropout: float = 0.2,
+                 tcn_dwpw: bool = False, tcn_width_mult: int = 1,
+                 trunk_layers=(2, 2, 2, 2)):
+        super().__init__()
+        if backbone_type != "resnet":
+            raise NotImplementedError(f"backbone {backbone_type!r} is not ported yet")
+        if tcn_dwpw:
+            raise NotImplementedError("the depthwise-separable TCN is not ported yet")
+        self.backend_out = 512
+        self.frontend3D = nn.Sequential(
+            nn.Conv3d(1, 64, (5, 7, 7), (1, 2, 2), (2, 3, 3), bias=False),
+            TorchBatchNorm(64),
+            make_act(relu_type, 64))
+        self.trunk = ResNetTrunk(tuple(trunk_layers), relu_type)
+        tcn_ch = hidden_dim * len(tcn_kernel_sizes) * tcn_width_mult
+        self.tcn = TCNHead(self.backend_out, (tcn_ch,) * tcn_num_layers,
+                           tuple(tcn_kernel_sizes), tcn_dropout, relu_type, num_classes)
+
+    @classmethod
+    def from_config(cls, cfg: Mapping[str, Any], num_classes: int,
+                    **overrides) -> "Lipreading":
+        """Build from the video JSON config (``conf/video_config.json``)."""
+        kw = dict(
+            num_classes=num_classes,
+            backbone_type=cfg.get("backbone_type", "resnet"),
+            relu_type=cfg.get("relu_type", "prelu"),
+            tcn_kernel_sizes=tuple(cfg.get("tcn_kernel_size", (3, 5, 7))),
+            tcn_num_layers=int(cfg.get("tcn_num_layers", 4)),
+            tcn_dropout=float(cfg.get("tcn_dropout", 0.2)),
+            tcn_dwpw=bool(cfg.get("tcn_dwpw", False)),
+            tcn_width_mult=int(cfg.get("tcn_width_mult", 1)),
+        )
+        kw.update(overrides)
+        return cls(**kw)
+
+    def frame_features(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, T, H, W, 1) -> (B, T, 512)`` per-frame embeddings."""
+        b, t = x.shape[0], x.shape[1]
+        conv, bn, act = self.frontend3D
+        y = bn_act(bn, act, conv(x.movedim(-1, 1)).movedim(1, -1))
+        y = F.max_pool3d(y.movedim(-1, 1), (1, 3, 3), (1, 2, 2), (0, 1, 1)).movedim(1, -1)
+        feats = self.trunk(y.reshape((b * t,) + y.shape[2:]))
+        return feats.reshape(b, t, -1)
+
+    def classify(self, feats: torch.Tensor, lengths: torch.Tensor | None = None):
+        """TCN + masked mean consensus + classifier over frame features."""
+        out = self.tcn.temporal(feats)
+        if lengths is None:
+            pooled = out.mean(dim=1)
+        else:
+            mask = length_mask(lengths, out.shape[1], dtype=out.dtype)[..., None]
+            pooled = (out * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)
+        return self.tcn.tcn_output(pooled)
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor | None = None):
+        return self.classify(self.frame_features(x), lengths=lengths)

@@ -1,15 +1,21 @@
-"""Batch normalization over the last (feature) axis, eval mode.
+"""Batch normalization over the last (feature) axis with torch's running-stat
+semantics.
 
-Counterpart of ``deeplip_tpu/models/norm.py: TorchBatchNorm`` in eval: the
-running statistics normalise with the exact op order
-``(x - mean) * rsqrt(var + eps) * scale + bias``. Parameters and buffers are
-named as torch's ``BatchNorm1d`` names them (``weight``, ``bias``,
-``running_mean``, ``running_var``, ``num_batches_tracked``), so the
+Counterpart of ``deeplip_tpu/models/norm.py: TorchBatchNorm``. Parameters
+and buffers are named as torch's ``BatchNorm1d`` names them (``weight``,
+``bias``, ``running_mean``, ``running_var``, ``num_batches_tracked``), so the
 reference state dicts load with ``strict=True``.
 
-Train-mode statistics (two-pass on 3-D inputs, single-pass on >= 4-D ones,
-Bessel-corrected running variance) come with the training slice; a module in
-train mode raises until then.
+- train: ``y = (x - μ_b) * rsqrt(σ²_b + eps) * scale + bias`` with the biased
+  batch variance over all non-feature axes, computed in >= f32: single-pass
+  ``max(E[x²]−E[x]², 0)`` on >= 4-D inputs (the video trunk's activations,
+  fed by bias-free convs), torch's two-pass form on 3-D and 2-D inputs (TCN
+  and Dense outputs, whose producers carry biases);
+- running update (torch ``momentum = 1 - self.momentum``):
+  ``mean ← m·mean + (1-m)·μ_b`` and ``var ← m·var + (1-m)·σ²_b·n/(n-1)``,
+  and ``num_batches_tracked`` counts up;
+- eval: normalize with the running statistics, op order
+  ``(x - mean) * rsqrt(var + eps) * scale + bias``.
 """
 
 from __future__ import annotations
@@ -19,21 +25,40 @@ from torch import nn
 
 
 class TorchBatchNorm(nn.Module):
-    """Eval-mode BN on ``(..., C)`` activations (feature axis = -1)."""
+    """BN on ``(..., C)`` activations (feature axis = -1)."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum  # decay on the OLD statistics
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """Fold one batch's statistics (biased ``var`` over ``n`` elements
+        per channel) into the running ones."""
+        m = self.momentum
+        bessel = n / (n - 1) if n > 1 else 1.0
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var * bessel)
+        self.num_batches_tracked += 1
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "train-mode batch statistics are not ported yet; call .eval()")
-        inv = torch.rsqrt(self.running_var + self.eps)
-        y = (x - self.running_mean) * inv
-        return y * self.weight + self.bias
+            red = tuple(range(x.ndim - 1))
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(red)
+            if x.ndim >= 4:
+                var = torch.clamp((xf * xf).mean(red) - mean * mean, min=0.0)
+            else:
+                var = ((xf - mean) ** 2).mean(red)
+            self.update_running(mean, var, x.numel() // x.shape[-1])
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
+        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)

@@ -1,0 +1,244 @@
+"""Fused train-mode BatchNorm + PReLU: wrappers of ``csrc/bn_prelu_kernel.cu``.
+
+The port of ``deeplip_tpu/ops/pallas/bn_prelu_kernel.py``: K3, the forward
+(``_stats_kernel`` + ``_apply_kernel``), and K4, its backward
+(``_bwd_stats_kernel`` + ``_bwd_apply_kernel``).
+
+- :func:`bn_prelu_forward` (K3) takes a channels-last activation ``(..., C)``
+  and returns ``(y, mean, var, inv)``: batch statistics over every leading
+  axis (biased variance, single-pass ``max(E[x²]−E[x]², 0)``) and
+  ``y = where(z >= 0, z, α·z)`` with ``z = ((x−μ)·inv)·scale + bias``.
+- :func:`bn_prelu_backward` (K4) returns ``(dx, dscale, dbias, dalpha)``.
+- :func:`bn_prelu_train` is the autograd op over the two: ``(y, mean,
+  var)``; the ``mean``/``var`` outputs feed the caller's running update and
+  carry no gradient, as in the JAX package's custom VJP.
+
+On a CUDA tensor each wrapper launches the kernels on the current stream,
+or raises: it takes f32 or bf16 activations that are contiguous in
+``(..., C)`` order (the row-major ``(rows, C)`` view of a channels-last
+tensor; no copy is made for the caller), ``C`` a multiple of 4 up to 1024,
+and f32 parameters. On a CPU tensor it runs the plain versions,
+:func:`bn_prelu_reference` and :func:`bn_prelu_backward_reference`, in the
+input's type promoted to at least f32. Each reduction is a partial pass and
+a finalize pass, so a call launches three kernels; ``.launches`` on each
+wrapper counts them.
+
+For bf16 activations the plain versions, like the kernels, compute in f32
+and round ``y`` and ``dx`` to bf16 once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+
+from deeplip_tpu_torch.ops.cuda import build
+
+_THREADS = 256        # threads of a partial-pass block (csrc kThreads)
+_MAX_CHUNKS = 1056    # partial-pass blocks: 132 SMs x 8 resident blocks
+_KERNEL_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    "bn_stats_partial": [_P, _I, _P, _L, _I, _L, _I, _P],
+    "bn_stats_finalize": [_P, _I, _I, _L, _F, _P, _P, _P, _P],
+    "bn_prelu_apply": [_P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _P],
+    "bn_prelu_bwd_partial": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _P],
+    "bn_prelu_bwd_finalize": [_P, _I, _I, _L, _P, _P, _P],
+    "bn_prelu_bwd_apply": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
+}
+
+
+@lru_cache(maxsize=None)
+def _fn(name: str):
+    fn = getattr(build.load("bn_prelu_kernel"), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, *args) -> None:
+    err = _fn(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+def _work_type(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _reduced(x: torch.Tensor) -> tuple[tuple[int, ...], int]:
+    return tuple(range(x.ndim - 1)), x.numel() // x.shape[-1]
+
+
+def bn_prelu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       alpha: torch.Tensor, eps: float = 1e-5):
+    """Plain PyTorch version of K3: ``(y, mean, var)``, with the op order of
+    the JAX package's ``bn_prelu_reference`` (statistics in >= f32)."""
+    red, n = _reduced(x)
+    xf = x.to(_work_type(x))
+    mean = xf.sum(red) / n
+    var = torch.clamp((xf * xf).sum(red) / n - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    z = ((xf - mean) * inv) * scale.to(xf.dtype) + bias.to(xf.dtype)
+    y = torch.where(z >= 0, z, alpha.to(xf.dtype) * z)
+    return y.to(x.dtype), mean, var
+
+
+def bn_prelu_backward_reference(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
+                                inv: torch.Tensor, scale: torch.Tensor,
+                                bias: torch.Tensor, alpha: torch.Tensor):
+    """Plain PyTorch version of K4, the analytic backward of
+    :func:`bn_prelu_reference` with the ``mean``/``var`` cotangents taken as
+    zero: ``(dx, dscale, dbias, dalpha)``."""
+    red, n = _reduced(x)
+    wt = _work_type(x)
+    xf, g = x.to(wt), dy.to(wt)
+    scale, bias, alpha = scale.to(wt), bias.to(wt), alpha.to(wt)
+    xhat = (xf - mean) * inv
+    z = xhat * scale + bias
+    neg = z < 0
+    dz = torch.where(neg, alpha * g, g)
+    dbias = dz.sum(red)
+    dscale = (dz * xhat).sum(red)
+    dalpha = torch.where(neg, g * z, torch.zeros_like(z)).sum(red)
+    dx = (inv * scale) * (dz - dbias / n - xhat * (dscale / n))
+    return dx.to(x.dtype), dscale, dbias, dalpha
+
+
+def _check_cuda(x: torch.Tensor, params, what: str) -> None:
+    if x.dtype not in _KERNEL_TYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16 activations, got {x.dtype}")
+    if x.ndim < 2 or not x.is_contiguous():
+        raise ValueError(
+            f"{what} takes an activation contiguous in (..., C) order (a "
+            f"channels-last tensor's (rows, C) view), got shape {tuple(x.shape)} "
+            f"strides {x.stride()}")
+    c = x.shape[-1]
+    if c % 4 or not 4 <= c <= 1024:
+        raise ValueError(f"{what} takes C a multiple of 4 in [4, 1024], got C={c}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what} needs a 16-byte aligned activation")
+    for p in params:
+        if (p.device != x.device or p.dtype != torch.float32 or p.shape != (c,)
+                or not p.is_contiguous()):
+            raise ValueError(
+                f"{what} takes contiguous float32 ({c},) parameters on {x.device}, "
+                f"got {p.dtype} {tuple(p.shape)} on {p.device}")
+
+
+def _chunking(rows: int, c: int) -> tuple[int, int]:
+    """``(rows_per_chunk, chunks)`` of the partial passes: at most
+    ``_MAX_CHUNKS`` blocks, each a whole number of the block's row slots."""
+    slots = _THREADS // (c // 4)
+    per = -(-rows // _MAX_CHUNKS)
+    per = -(-per // slots) * slots
+    return per, -(-rows // per)
+
+
+def _device_args(x: torch.Tensor):
+    return _KERNEL_TYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream
+
+
+def bn_prelu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     alpha: torch.Tensor, eps: float = 1e-5):
+    """K3: ``(y, mean, var, inv)``. Counts its kernel launches in
+    ``bn_prelu_forward.launches``."""
+    if x.device.type == "cpu":
+        y, mean, var = bn_prelu_reference(x, scale, bias, alpha, eps)
+        return y, mean, var, torch.rsqrt(var + eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"bn_prelu_forward runs on cuda or cpu, not {x.device}")
+    _check_cuda(x, (scale, bias, alpha), "bn_prelu_forward")
+    c = x.shape[-1]
+    rows = x.numel() // c
+    per, chunks = _chunking(rows, c)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty((chunks, 2, c), **f32)
+    stats = torch.empty((3, c), **f32)
+    mean, var, inv = stats[0], stats[1], stats[2]
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        is_bf16, stream = _device_args(x)
+        _launch("bn_stats_partial", x.data_ptr(), is_bf16, partial.data_ptr(),
+                rows, c, per, chunks, stream)
+        bn_prelu_forward.launches += 1
+        _launch("bn_stats_finalize", partial.data_ptr(), chunks, c, rows, eps,
+                mean.data_ptr(), var.data_ptr(), inv.data_ptr(), stream)
+        bn_prelu_forward.launches += 1
+        _launch("bn_prelu_apply", x.data_ptr(), is_bf16, mean.data_ptr(),
+                inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), alpha.data_ptr(),
+                y.data_ptr(), rows, c, stream)
+        bn_prelu_forward.launches += 1
+    return y, mean, var, inv
+
+
+def bn_prelu_backward(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
+                      inv: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      alpha: torch.Tensor):
+    """K4: ``(dx, dscale, dbias, dalpha)`` from the forward's ``mean`` and
+    ``inv``. Counts its kernel launches in ``bn_prelu_backward.launches``."""
+    if x.device.type == "cpu":
+        return bn_prelu_backward_reference(x, dy, mean, inv, scale, bias, alpha)
+    if x.device.type != "cuda":
+        raise ValueError(f"bn_prelu_backward runs on cuda or cpu, not {x.device}")
+    _check_cuda(x, (mean, inv, scale, bias, alpha), "bn_prelu_backward")
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
+                         f"{x.dtype} {tuple(x.shape)}")
+    _check_cuda(dy, (), "bn_prelu_backward")
+    c = x.shape[-1]
+    rows = x.numel() // c
+    per, chunks = _chunking(rows, c)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty((chunks, 3, c), **f32)
+    sums = torch.empty((3, c), **f32)
+    means = torch.empty((2, c), **f32)
+    dx = torch.empty_like(x)
+    ptrs = (mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            alpha.data_ptr())
+    with torch.cuda.device(x.device):
+        is_bf16, stream = _device_args(x)
+        _launch("bn_prelu_bwd_partial", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
+                partial.data_ptr(), rows, c, per, chunks, stream)
+        bn_prelu_backward.launches += 1
+        _launch("bn_prelu_bwd_finalize", partial.data_ptr(), chunks, c, rows,
+                sums.data_ptr(), means.data_ptr(), stream)
+        bn_prelu_backward.launches += 1
+        _launch("bn_prelu_bwd_apply", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
+                means.data_ptr(), dx.data_ptr(), rows, c, stream)
+        bn_prelu_backward.launches += 1
+    return dx, sums[1], sums[0], sums[2]
+
+
+bn_prelu_forward.launches = 0
+bn_prelu_backward.launches = 0
+
+
+class _BnPReLUTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, alpha, eps):
+        y, mean, var, inv = bn_prelu_forward(x, scale, bias, alpha, eps)
+        ctx.save_for_backward(x, scale, bias, alpha, mean, inv)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, bias, alpha, mean, inv = ctx.saved_tensors
+        dx, dscale, dbias, dalpha = bn_prelu_backward(x, dy, mean, inv, scale, bias, alpha)
+        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype),
+                dalpha.to(alpha.dtype), None)
+
+
+def bn_prelu_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   alpha: torch.Tensor, eps: float = 1e-5):
+    """Fused train-mode BN (batch statistics) + per-channel PReLU with K4 as
+    its backward: ``(y, mean, var)``; ``var`` is the biased batch variance
+    for the caller's running update."""
+    return _BnPReLUTrain.apply(x, scale, bias, alpha, eps)

@@ -40,11 +40,14 @@ def masked_cmvn(feat: torch.Tensor, lengths: torch.Tensor,
 
 @contextlib.contextmanager
 def fp32_math():
-    """Full-FP32 matmuls and cuDNN convolutions (no TF32) inside the block."""
+    """Full-FP32 matmuls and cuDNN convolutions (no TF32) inside the block;
+    cuDNN's ``benchmark`` and ``deterministic`` settings stay the caller's."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn = torch.backends.cudnn
     try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev

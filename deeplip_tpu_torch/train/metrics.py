@@ -1,0 +1,76 @@
+"""Structured training metrics.
+
+Counterpart of ``deeplip_tpu/train/metrics.py``: :class:`StepLogger` writes
+one JSON record per call (step, loss, accuracy, lr, steps/s, examples/s) to
+``<exp_dir>/<prefix>_metrics.jsonl`` and prints every ``print_every``
+steps; :class:`NanGuard` raises after ``patience`` non-finite losses in a
+row. The TensorBoard event writer is not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+
+
+class StepLogger:
+    def __init__(self, exp_dir: str | None = None, print_every: int = 10,
+                 prefix: str = "train"):
+        self.print_every = print_every
+        self.prefix = prefix
+        self._file = None
+        if exp_dir:
+            os.makedirs(exp_dir, exist_ok=True)
+            self._file = open(os.path.join(exp_dir, f"{prefix}_metrics.jsonl"), "a")
+        self._t0 = time.perf_counter()
+        self._last_time = self._t0
+        self._last_step = 0
+        self._last_printed: int | None = None
+
+    def log(self, step: int, examples: int | None = None, **scalars) -> None:
+        now = time.perf_counter()
+        record = {"step": step, "time": now - self._t0}
+        dt = now - self._last_time
+        if dt > 0 and step > self._last_step:
+            record["steps_per_sec"] = (step - self._last_step) / dt
+            if examples is not None:
+                record["examples_per_sec"] = examples * (step - self._last_step) / dt
+        record.update({k: float(v) for k, v in scalars.items()})
+        self._last_time = now
+        self._last_step = step
+        if self._file is not None:
+            self._file.write(json.dumps(record) + "\n")
+            self._file.flush()
+        # a delta gate, not `step % print_every`: a caller that logs every
+        # K steps would otherwise never hit the modulo
+        if self.print_every and (self._last_printed is None
+                                 or step - self._last_printed >= self.print_every):
+            self._last_printed = step
+            parts = " ".join(
+                f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in record.items() if k != "time")
+            print(f"[{self.prefix}] {parts}", flush=True)
+
+    def close(self) -> None:
+        if self._file is not None:
+            self._file.close()
+
+
+class NanGuard:
+    """Counts consecutive non-finite losses and raises after ``patience``."""
+
+    def __init__(self, patience: int = 3):
+        self.patience = patience
+        self.streak = 0
+
+    def check(self, loss: float) -> bool:
+        """True if the step is usable; raises after ``patience`` bad steps."""
+        if math.isfinite(loss):
+            self.streak = 0
+            return True
+        self.streak += 1
+        if self.streak >= self.patience:
+            raise FloatingPointError(f"non-finite loss for {self.streak} consecutive steps")
+        return False

@@ -14,6 +14,7 @@ from deeplip_tpu_torch.core.config import AUDIO_DATA_OPTS, ETDNN_MODEL_OPTS, Con
 from deeplip_tpu_torch.core.device import resolve_device
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore, TrialList, cosine_eer
 from deeplip_tpu_torch.train.audio import AudioExtractor
+from deeplip_tpu_torch.train.video import VideoTrainer
 
 torch.set_num_threads(1)
 
@@ -68,5 +69,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     trials = TrialList(labels=np.array([1], np.int8), utt1=["a"], utt2=["b"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cosine_eer(trials, store)
-    # asked for the CPU, the same entry point runs there
+    video_cfg = {"backbone_type": "resnet", "relu_type": "prelu",
+                 "tcn_kernel_size": [3, 5, 7], "tcn_num_layers": 1}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VideoTrainer(video_cfg, 4, hidden_dim=8, trunk_layers=(1, 1, 1, 1))
+    # asked for the CPU, the same entry points run there
     assert AudioExtractor(cfg, device="cpu").device == torch.device("cpu")
+    assert VideoTrainer(video_cfg, 4, device="cpu", hidden_dim=8,
+                        trunk_layers=(1, 1, 1, 1)).device == torch.device("cpu")

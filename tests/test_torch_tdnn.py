@@ -143,8 +143,16 @@ def test_receptive_field_and_kernels():
 
 
 def test_batchnorm_train_mode_is_not_ported():
+    """Train mode on a 3-D input: two-pass batch statistics normalise the
+    input, the running statistics take torch's Bessel-corrected update, and
+    the state dict keeps the reference keys."""
     bn = TorchBatchNorm(4)
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(2, 3, 4))
+    x = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4) ** 1.5
+    y = bn(x)
+    flat = x.reshape(-1, 4)
+    torch.testing.assert_close(y.reshape(-1, 4).mean(0), torch.zeros(4), atol=1e-5, rtol=0)
+    torch.testing.assert_close(bn.running_mean, 0.1 * flat.mean(0))
+    torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * flat.var(0, unbiased=True))
+    assert int(bn.num_batches_tracked) == 1
     assert set(bn.state_dict()) == {"weight", "bias", "running_mean",
                                     "running_var", "num_batches_tracked"}
