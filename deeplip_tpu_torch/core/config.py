@@ -112,9 +112,21 @@ def load_audio_config(path: str) -> Config:
     as None), become empty Configs.
     """
     cfg = load_config(path)
+    _ensure_sections(cfg)
+    return cfg
+
+
+def _ensure_sections(cfg: Config) -> None:
     for section in ("data", "model", "train", "test"):
         if cfg.get(section) is None:
             cfg[section] = Config()
+
+
+def load_fusion_config(path: str) -> Config:
+    """Load the fusion config: nested ``{data, model, train, test}`` with the
+    audio and video sub-configs under ``model`` (``conf/fusion_config.yaml``)."""
+    cfg = load_config(path)
+    _ensure_sections(cfg)
     return cfg
 
 

@@ -36,9 +36,7 @@
 // only through the statistics' rounding, and the backward decides z < 0
 // exactly as the forward did.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "vec4.cuh"
 
 namespace {
 
@@ -46,35 +44,6 @@ constexpr int kThreads = 256;   // partial and elementwise blocks
 constexpr int kFinC = 32;       // finalize: channels per block
 constexpr int kFinS = 32;       // finalize: chunk slices per block
 constexpr int kMaxGrid = 4096;  // elementwise passes stride over the rest
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  // four bf16 in one 8-byte load; element 0 sits in the low half of .x
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(t.x << 16);
-  v[1] = __uint_as_float(t.x & 0xffff0000u);
-  v[2] = __uint_as_float(t.y << 16);
-  v[3] = __uint_as_float(t.y & 0xffff0000u);
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ unsigned bf16_bits(float f) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  uint2 t;
-  t.x = bf16_bits(v[0]) | (bf16_bits(v[1]) << 16);
-  t.y = bf16_bits(v[2]) | (bf16_bits(v[3]) << 16);
-  *reinterpret_cast<uint2*>(p) = t;
-}
 
 // xhat = (x - mean) * inv and z = xhat * scale + bias, rounded op by op
 __device__ __forceinline__ float bn_norm(float x, float mean, float inv) {

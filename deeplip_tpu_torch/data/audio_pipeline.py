@@ -149,10 +149,16 @@ class EvalUtteranceSet:
     def _utt_samples(self, utt: EvalUtterance) -> tuple[EvalUtterance, int, bool]:
         """Sample count after resampling, and int16-transport eligibility for
         ``transport="auto"``, from the header alone."""
-        try:
-            with wave.open(utt.path, "rb") as w:
-                rate, n = w.getframerate(), w.getnframes()
-        except (wave.Error, EOFError):
+        n = None
+        if self.reader is read_wav:
+            try:
+                with wave.open(utt.path, "rb") as w:
+                    rate, n = w.getframerate(), w.getnframes()
+            except (wave.Error, EOFError):
+                pass
+        if n is None:
+            # a container the stdlib cannot size, or a custom reader whose
+            # keys need not be files at all (in-memory PCM tables)
             y, rate = self.reader(utt.path)
             n = len(y)
         i16_ok = False

@@ -129,12 +129,52 @@ def trial_matrix_pairs(trials: TrialList, store: EmbeddingStore
     return store.matrix(utts), trials.index_pairs(index)
 
 
-def cosine_eer(trials: TrialList, store: EmbeddingStore,
-               device: str | torch.device | None = None) -> tuple[float, float]:
-    """Cosine back-end EER over a trial list, scored on ``device``
-    (default: the card)."""
+def _trial_scores(trials: TrialList, store: EmbeddingStore,
+                  device: str | torch.device | None = None) -> np.ndarray:
     dev = resolve_device(device)
     emb, pairs = trial_matrix_pairs(trials, store)
     scores = cosine_scores(emb.to(dev, torch.float32),
                            torch.from_numpy(pairs).to(dev))
+    return scores.cpu().numpy()
+
+
+def cosine_eer(trials: TrialList, store: EmbeddingStore,
+               device: str | torch.device | None = None) -> tuple[float, float]:
+    """Cosine back-end EER over a trial list, scored on ``device``
+    (default: the card)."""
+    return eer_from_scores(trials.labels, _trial_scores(trials, store, device))
+
+
+def score_fusion_eer(trials: TrialList, audio_store: EmbeddingStore,
+                     video_store: EmbeddingStore, audio_weight: float = 0.5,
+                     video_weight: float = 0.5,
+                     device: str | torch.device | None = None) -> tuple[float, float]:
+    """Late score-level fusion: the weighted sum of the two modalities'
+    cosines."""
+    sa = _trial_scores(trials, audio_store, device)
+    sv = _trial_scores(trials, video_store, device)
+    return eer_from_scores(trials.labels, audio_weight * sa + video_weight * sv)
+
+
+def feature_normalize(vec: np.ndarray) -> np.ndarray:
+    """Z-norm across the embedding's own dimensions (population std)."""
+    return (vec - np.mean(vec, axis=0)) / np.std(vec, axis=0)
+
+
+def feature_fusion_eer(trials: TrialList, audio_store: EmbeddingStore,
+                       video_store: EmbeddingStore,
+                       device: str | torch.device | None = None) -> tuple[float, float]:
+    """Embedding-level fusion: per-modality z-norm on the host, concat
+    ``[video, audio]``, cosine."""
+    dev = resolve_device(device)
+    utts = trials.unique_utts
+    index = {u: i for i, u in enumerate(utts)}
+
+    def normed(store):
+        return np.stack([feature_normalize(store[u].detach().cpu().numpy().reshape(-1))
+                         for u in utts])
+
+    fused = np.concatenate([normed(video_store), normed(audio_store)], axis=1)
+    scores = cosine_scores(torch.from_numpy(fused.astype(np.float32)).to(dev),
+                           torch.from_numpy(trials.index_pairs(index)).to(dev))
     return eer_from_scores(trials.labels, scores.cpu().numpy())

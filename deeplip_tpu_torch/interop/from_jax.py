@@ -11,7 +11,11 @@ arrays.
   ``deeplip_tpu.interop.torch_export.export_speaker_embnet_state_dict``;
 - :func:`lipreading_state_dict` the same dict as
   ``export_lipreading_state_dict`` (ResNet trunk; multi- or single-branch
-  TCN).
+  TCN);
+- :func:`lowfer_state_dict` the same dict as ``export_lowfer_state_dict``
+  (``U``, ``V``), plus ``gate_proj`` where the head has one;
+- :func:`linear_fusion_state_dict` the ``fc1``/``bn1``/``fc2`` layout of the
+  port's ``LinearFusion``.
 """
 
 from __future__ import annotations
@@ -133,4 +137,24 @@ def lipreading_state_dict(params: Mapping[str, Any],
         _tcn(out, params["tcn"], batch_stats.get("tcn", {}))
     if "tcn_output" in params:
         _conv(out, "tcn.tcn_output", params["tcn_output"])
+    return out
+
+
+def lowfer_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``LowFER`` params -> the port's state dict: ``U`` and ``V`` as
+    they are, and the ``gate_proj`` Dense of an unequal-dims head."""
+    out = {"U": _t(params["U"]), "V": _t(params["V"])}
+    if "gate_proj" in params:
+        _conv(out, "gate_proj", params["gate_proj"])
+    return out
+
+
+def linear_fusion_state_dict(params: Mapping[str, Any],
+                             batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``LinearFusion`` params + batch_stats -> the port's state dict
+    (``fc2`` exists under ``extract_feats`` too: it runs and is dropped)."""
+    out: dict[str, torch.Tensor] = {}
+    for name in ("fc1", "fc2"):
+        _conv(out, name, params[name])
+    _bn(out, "bn1", params["bn1"], batch_stats["bn1"])
     return out

@@ -8,7 +8,11 @@ and frame features ``(B, T, 512)``.
   BN → PReLU → max-pool (1,3,3)/(1,2,2)/pad (0,1,1) with ``-inf`` padding.
   The JAX package computes the same conv by a space-to-depth rewrite for
   the TPU; here it is a plain ``nn.Conv3d``. In train mode the BN + PReLU
-  pair is the fused op (K3/K4 on the card).
+  pair is the fused op (K3/K4 on the card). The pool is
+  :func:`deeplip_tpu_torch.ops.cuda.maxpool.maxpool_frontend` on the
+  channels-last activation: the ``csrc/maxpool_kernel.cu`` kernels on the
+  card, forward and backward, and their plain version
+  (``maxpool_frontend_reference``, ``F.max_pool3d``) on the CPU.
 - time folds into the batch for the trunk: ``(B, T, h, w, 64)`` →
   ``(B·T, h, w, 64)``, a view;
 - trunk: ResNet-18 (the ShuffleNetV2 trunk is not ported yet);
@@ -27,12 +31,12 @@ from __future__ import annotations
 from typing import Any, Mapping
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.models.resnet import ResNetTrunk, bn_act, make_act
 from deeplip_tpu_torch.models.tcn import MultibranchTemporalConvNet, TemporalConvNet
+from deeplip_tpu_torch.ops.cuda import maxpool as P
 from deeplip_tpu_torch.ops.masked import length_mask
 
 
@@ -99,7 +103,7 @@ class Lipreading(nn.Module):
         b, t = x.shape[0], x.shape[1]
         conv, bn, act = self.frontend3D
         y = bn_act(bn, act, conv(x.movedim(-1, 1)).movedim(1, -1))
-        y = F.max_pool3d(y.movedim(-1, 1), (1, 3, 3), (1, 2, 2), (0, 1, 1)).movedim(1, -1)
+        y = P.maxpool_frontend(y)
         feats = self.trunk(y.reshape((b * t,) + y.shape[2:]))
         return feats.reshape(b, t, -1)
 

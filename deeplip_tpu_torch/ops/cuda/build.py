@@ -19,7 +19,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-from functools import lru_cache
+import tempfile
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -75,7 +76,10 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     for name in todo:
         out = library_path(name)
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # a name of this call's own: two threads, or two processes, that
+        # build the same library never write the same file
+        fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".tmp", dir=out.parent)
+        os.close(fd)
         cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -85,6 +89,7 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
+            os.unlink(tmp)
             failures.append(f"nvcc failed for {name}.cu "
                             f"(exit {proc.returncode}):\n{log}")
             continue
@@ -95,8 +100,19 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     return reports
 
 
-@lru_cache(maxsize=None)
+_loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The built library ``lib<name>.so``, building it first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    """The built library ``lib<name>.so``, building it first if needed.
+    Build-and-load runs under one lock, so threads that reach a kernel's
+    first launch together start one ``nvcc`` and get the same library."""
+    lib = _loaded.get(name)
+    if lib is None:
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build([name])
+                lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

@@ -14,13 +14,12 @@ bar. Training comes in a later slice.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import torch
 
 from deeplip_tpu_torch.core.config import Config
-from deeplip_tpu_torch.core.device import resolve_device
+from deeplip_tpu_torch.core.device import fp32_math, resolve_device
 from deeplip_tpu_torch.data.audio_pipeline import EvalUtteranceSet
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore, TrialList, cosine_eer
 from deeplip_tpu_torch.models.tdnn import SpeakerEmbNet
@@ -36,21 +35,6 @@ def masked_cmvn(feat: torch.Tensor, lengths: torch.Tensor,
     mean = (feat * mask).sum(dim=1, keepdim=True) / count
     var = (((feat - mean) ** 2) * mask).sum(dim=1, keepdim=True) / count
     return (feat - mean) / (torch.sqrt(var) + eps)
-
-
-@contextlib.contextmanager
-def fp32_math():
-    """Full-FP32 matmuls and cuDNN convolutions (no TF32) inside the block;
-    cuDNN's ``benchmark`` and ``deterministic`` settings stay the caller's."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cudnn = torch.backends.cudnn
-    try:
-        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class AudioExtractor:
@@ -80,12 +64,19 @@ class AudioExtractor:
             model_opts, input_dim=F.feature_dim(self.feat_cfg))
         self.model.to(self.device).eval()
         self.loss_name = (self.cfg.get("train") or Config()).get("loss", "LMCL")
+        self.test_opts = self.cfg.get("test") or Config()
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
     def load_state_dict(self, state_dict) -> None:
         """Load reference-layout weights (``strict=True``)."""
         self.model.load_state_dict(state_dict, strict=True)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Load a checkpoint file: ``{"epoch", "state_dict"}`` as the port's
+        trainers save it, or a bare reference-layout state dict."""
+        tree = torch.load(path, map_location=self.device, weights_only=True)
+        self.load_state_dict(tree["state_dict"] if "state_dict" in tree else tree)
 
     @torch.no_grad()
     def embed(self, pcm: torch.Tensor, feat_lengths: torch.Tensor,

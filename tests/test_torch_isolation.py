@@ -13,7 +13,10 @@ import torch
 from deeplip_tpu_torch.core.config import AUDIO_DATA_OPTS, ETDNN_MODEL_OPTS, Config
 from deeplip_tpu_torch.core.device import resolve_device
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore, TrialList, cosine_eer
+from deeplip_tpu_torch.eval.snorm import asnorm_trial_scores
+from deeplip_tpu_torch.serve import AVSpeakerVerifier, ProfileVerifier, SpeakerVerifier
 from deeplip_tpu_torch.train.audio import AudioExtractor
+from deeplip_tpu_torch.train.fusion import FusionTrainer
 from deeplip_tpu_torch.train.video import VideoTrainer
 
 torch.set_num_threads(1)
@@ -26,7 +29,7 @@ _PROBE = textwrap.dedent("""
     import deeplip_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
         deeplip_tpu_torch.__path__, "deeplip_tpu_torch.")]
-    for name in names:
+    for name in names + ["chip_smoke"]:
         importlib.import_module(name)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0].startswith("jax")
@@ -42,7 +45,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         [sys.executable, "-I", "-c", _PROBE.format(repo=REPO)],
         capture_output=True, text=True, timeout=300, check=True).stdout.split()
     n_modules, bad = int(out[0]), " ".join(out[1:])
-    assert n_modules >= 20
+    assert n_modules >= 40   # the serving and CLI modules among them
     assert bad == "[]", bad
 
 
@@ -77,3 +80,31 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert AudioExtractor(cfg, device="cpu").device == torch.device("cpu")
     assert VideoTrainer(video_cfg, 4, device="cpu", hidden_dim=8,
                         trunk_layers=(1, 1, 1, 1)).device == torch.device("cpu")
+
+
+def test_serving_entry_points_raise_without_a_card(monkeypatch):
+    _no_card(monkeypatch)
+    audio_cfg = Config({"model": ETDNN_MODEL_OPTS,
+                        "data": {"python_data_config": AUDIO_DATA_OPTS}})
+    video_tcn = {"backbone_type": "resnet", "relu_type": "prelu", "tcn_kernel_size": [3],
+                 "tcn_num_layers": 1}
+    fusion_cfg = Config({
+        "data": {"python_data_config": AUDIO_DATA_OPTS},
+        "model": {"audio_config": ETDNN_MODEL_OPTS, "video_config": {"tcn": video_tcn}},
+        "train": {}, "test": {}})
+    for build in (lambda **kw: SpeakerVerifier(audio_cfg, **kw),
+                  lambda **kw: AVSpeakerVerifier(fusion_cfg, **kw),
+                  lambda **kw: FusionTrainer(ETDNN_MODEL_OPTS, video_tcn, 2,
+                                             audio_data_opts=AUDIO_DATA_OPTS, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    emb = np.eye(3, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asnorm_trial_scores(emb, [[0, 1]], emb, top_k=2)
+    big = ProfileVerifier()
+    big.host_score_macs = 0
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        big._pair_scores(emb, [[0, 1]])
+    # asked for the CPU, they run there
+    assert SpeakerVerifier(audio_cfg, device="cpu").extractor.device == torch.device("cpu")
+    assert asnorm_trial_scores(emb, [[0, 1]], emb, top_k=2, device="cpu").shape == (1,)
