@@ -11,13 +11,22 @@ without the package, it exits non-zero and prints no result. Phases:
    versions. Every number printed after it was taken on that card.
 2. Build every kernel from ``deeplip_tpu_torch/csrc`` (one nvcc per source,
    started together) and print ptxas' register/spill report.
-3. Each kernel against its plain PyTorch version on the card, TF32 off:
-   the fused front-end at mfcc-24 (energy on and off), fbank-24 and
-   logfbank-60, 24/200/203/299/331 frames, four configs at other rates and
-   FFT sizes, and one 256 x 3 s batch, within
-   atol 2e-4 / rtol 1e-3. Kernel and plain times by CUDA events at that
-   batch, beside the least time the card could take, and the kernel's time
-   at 257 bins against 256 (a 510-point FFT) at that batch.
+3. Each front-end kernel against its plain PyTorch version on the card,
+   TF32 off, on raw PCM with and without ragged ``sample_lengths`` (whole,
+   cut, short, empty rows): mfcc-24 (energy on and off), fbank-24 and
+   logfbank-60 at 24/200/203/299/331 frames, and seven configs at other
+   rates and FFT sizes (n_fft 64 to 4096, and 510), within atol 2e-4 /
+   rtol 1e-3; the per-kernel counters show that each case went to the
+   kernel the dispatch rule names (the FFT kernel for a power-of-two
+   n_fft, the DFT kernel at 510); log-mel band 0 of the MFCC configs held
+   alone; an empty row equal to the plain guarded zero; the FFT kernel's
+   largest error named and held against the plain version in float64. At
+   the 256 x 3 s batch: the FFT kernel, the DFT kernel forced at n_fft
+   512, the plain version and the plain ``dft='fft'`` front-end (cuFFT) in
+   turns, by CUDA events, beside the least time the card could take for
+   the function and the time of each kernel's own operations;
+   logfbank-60 on the FFT kernel, with its DC bin against float64 beside
+   the plain versions'; n_fft 510 on the DFT kernel.
 4. The main path through the user's entry points at the flagship E-TDNN
    width (seeded random weights, BN statistics calibrated on one batch
    and then perturbed): a ragged
@@ -27,7 +36,8 @@ without the package, it exits non-zero and prints no result. Phases:
    re-embedded with the plain front-end and must agree to 1e-4.
 5. A first number for the lomgrid sweep shape: 3,541 x 3 s int16
    utterances staged on the card, batch 256, 20,000 gathered cosine trials,
-   by CUDA events after a warm-up sweep.
+   by CUDA events after a warm-up sweep; 14 FFT-kernel launches a sweep
+   and none of the DFT kernel.
 6. The fused train-mode BN+PReLU kernels (K3 forward, K4 backward) against
    their plain versions at the five activation shapes of a bs 128 x 29-frame
    Lipreading step, in f32 and bf16: y, mean, var and dx within atol/rtol
@@ -125,8 +135,7 @@ from deeplip_tpu_torch.ops import video as V  # noqa: E402
 from deeplip_tpu_torch.ops.cuda import bn_prelu, build, fbank, maxpool  # noqa: E402
 from deeplip_tpu_torch.ops.cuda.fbank import (audio_features,  # noqa: E402
                                               audio_features_reference)
-from deeplip_tpu_torch.ops.framing import (num_frames, preemphasis,  # noqa: E402
-                                           samples_for_frames)
+from deeplip_tpu_torch.ops.framing import num_frames, samples_for_frames  # noqa: E402
 from deeplip_tpu_torch.models.norm import TorchBatchNorm  # noqa: E402
 from deeplip_tpu_torch.serve import AVSpeakerVerifier, MicroBatcher, SpeakerVerifier  # noqa: E402
 from deeplip_tpu_torch.train import checkpoint as ckpt  # noqa: E402
@@ -191,33 +200,88 @@ def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return float(err.max())
 
 
+def fft_flops(n_fft: int) -> float:
+    """Operations of the complex ``n_fft/2``-point FFT inside a real
+    ``n_fft``-point one: the FFT kernel's radix plan where ``n_fft`` is a
+    power of two, else the usual 5 M log2 M for M points."""
+    if n_fft & (n_fft - 1) == 0:
+        return float(fbank.fft_flops(n_fft))
+    m = n_fft // 2
+    return 5.0 * m * math.log2(m)
+
+
 def front_end_work(b: int, s: int, cfg: F.FeatureConfig) -> tuple[float, float]:
-    """``(flops, bytes)`` the fused front-end needs for a ``(b, s)`` batch,
-    counted from the config's own constants: the DFT against the basis
-    columns that are not zero (the sine columns at DC and at Nyquist are,
-    up to rounding), the power, the mel sums over the filterbank's nonzero
-    weights (triangles: each bin sits in at most two filters) and, for
-    MFCC, the energy sum, the DCT and the lifter. Bytes: PCM in, features
-    out and the nonzero constants, each moved once."""
+    """``(flops, bytes)`` that the front-end function needs for a ``(b, s)``
+    batch, whichever kernel computes it: pre-emphasis once a sample (2),
+    one real FFT a frame (:func:`fft_flops`), the untangle (12 a bin, the
+    two bins of a pair sharing their sums), the power (4 a bin), the mel
+    sums over the filterbank's nonzero weights and, for MFCC, the energy
+    sum, the DCT and the lifter. Bytes: PCM and lengths in, features out,
+    the mel weights, DCT and lifter once."""
     t = num_frames(s, cfg.frame_len, cfg.frame_step)
-    k = cfg.n_fft // 2 + 1
-    basis = spectral.rdft_fused_matrix(cfg.frame_len, cfg.n_fft)
-    cols = int(np.count_nonzero(np.abs(basis).max(axis=0) > 1e-6))
-    mel_nnz = int(np.count_nonzero(spectral.mel_filterbank(
-        cfg.num_bin, cfg.n_fft, cfg.rate, cfg.low_freq, cfg.high_freq)))
-    per_frame = 2 * cfg.frame_len * cols + 3 * k + 2 * mel_nnz
-    consts = cfg.frame_len * cols + mel_nnz
+    n = cfg.n_fft // 2
+    _, weights = fbank.mel_csr(cfg.num_bin, cfg.n_fft, cfg.rate, cfg.low_freq, cfg.high_freq)
+    per_frame = fft_flops(cfg.n_fft) + 12 * (n - 1) + 2 + 4 * (n + 1) + 2 * weights.size
+    consts = weights.size
     d = cfg.num_bin
     if cfg.feat_type == "mfcc":
-        per_frame += 2 * cfg.num_bin * cfg.num_cep + cfg.num_cep + (k if cfg.energy else 0)
+        dct_cols = cfg.num_cep - 1 if cfg.energy else cfg.num_cep
+        per_frame += 2 * cfg.num_bin * dct_cols + cfg.num_cep + (n if cfg.energy else 0)
         consts += cfg.num_bin * cfg.num_cep + cfg.num_cep
         d = cfg.num_cep
-    return float(b * t * per_frame), float(4 * (b * s + b * t * d + consts))
+    return (float(2 * b * s + b * t * per_frame),
+            float(4 * (b * s + b + b * t * d + consts)))
+
+
+def kernel_flops(b: int, s: int, cfg: F.FeatureConfig, kernel: str) -> float:
+    """Operations that one kernel's own algorithm does for a ``(b, s)``
+    batch, beyond what :func:`front_end_work` counts for the function.
+    ``"fft"``: pre-emphasis of each frame's own samples (2 a sample), the
+    DC bin's sum in sample order (3 a sample), the FFT, the untangle of
+    both bins of every pair apart (20 a bin with the power), the mel sums,
+    and for MFCC the energy, the DCT and the lifter. ``"dft"``: the dense
+    product against the basis columns that are not zero (the sine columns
+    at DC and at Nyquist are, up to rounding), the power (3 a bin), the mel
+    sums, and for MFCC the energy, the DCT and the lifter."""
+    t = num_frames(s, cfg.frame_len, cfg.frame_step)
+    n = cfg.n_fft // 2
+    _, weights = fbank.mel_csr(cfg.num_bin, cfg.n_fft, cfg.rate, cfg.low_freq, cfg.high_freq)
+    if kernel == "fft":
+        per_frame = 5 * cfg.frame_len + fft_flops(cfg.n_fft) + 20 * (n + 1)
+    else:
+        basis = spectral.rdft_fused_matrix(cfg.frame_len, cfg.n_fft)
+        cols = int(np.count_nonzero(np.abs(basis).max(axis=0) > 1e-6))
+        per_frame = 2 * cfg.frame_len * cols + 3 * (n + 1)
+    per_frame += 2 * weights.size
+    if cfg.feat_type == "mfcc":
+        dct_cols = cfg.num_cep - 1 if cfg.energy else cfg.num_cep
+        per_frame += 2 * cfg.num_bin * dct_cols + cfg.num_cep + (n + 1 if cfg.energy else 0)
+    return float(b * t * per_frame)
+
+
+def bound(work: tuple[float, float], peaks) -> tuple[float, str]:
+    """The least time in ms for ``(flops, bytes)`` at the FP32 and HBM
+    peaks, and which of the two sets it."""
+    ops_ms, bytes_ms = work[0] / peaks[0] * 1e3, work[1] / peaks[2] * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+FBANK_KERNELS = {"fft": fbank.fft_audio_features, "dft": fbank.dft_audio_features}
+
+
+def zero_fbank_counts() -> None:
+    for kernel in FBANK_KERNELS.values():
+        kernel.launches = 0
+
+
+def fbank_counts() -> dict:
+    """Front-end launches, each kernel's own."""
+    return {k: kernel.launches for k, kernel in FBANK_KERNELS.items()}
 
 
 @contextlib.contextmanager
 def plain_front_end():
-    """Route ``extract_features``' mel front-end through the kernel's plain
+    """Route ``extract_features``' mel front-end through the kernels' plain
     version (on the same device) for an A/B check; launches nothing."""
     kernel = fbank.audio_features
     fbank.audio_features = audio_features_reference
@@ -260,93 +324,224 @@ KERNEL_CONFIGS = [
 ]
 KERNEL_FRAMES = [24, 200, 203, 299, 331]
 # other rates, hops and FFT sizes: a frame length and hop that are not
-# multiples of 4 (22.05 kHz), a small FFT (8 kHz), a 2048-point frame whose
-# shared memory takes the kernel's 8-frame tile, and a 510-point FFT whose
-# 256 bins leave no leftover bin for the kernel's split pass
+# multiples of 4 (22.05 kHz); the FFT kernel's two smallest sizes (64 and
+# 128 points at 8 kHz: 128 and 64 frames a block) and 256 points; a
+# 2048-point frame; its largest size (4096 points at 48 kHz, where the tile
+# shrinks to fit shared memory); and a 510-point FFT, which is no power of
+# two and goes to the DFT kernel
 OTHER_CONFIGS = [
     ("mfcc", {"rate": 22050, "n_fft": 1024, "num_bin": 40, "num_cep": 13}),
+    ("mfcc", {"rate": 8000, "n_fft": 64, "win_len": 0.008, "win_shift": 0.004,
+              "num_bin": 16, "num_cep": 12}),
+    ("logfbank", {"rate": 8000, "n_fft": 128, "win_len": 0.016, "win_shift": 0.008,
+                  "num_bin": 20}),
     ("logfbank", {"rate": 8000, "n_fft": 256, "num_bin": 23}),
     ("fbank", {"n_fft": 2048, "num_bin": 40, "win_len": 0.128}),
+    ("logfbank", {"rate": 48000, "n_fft": 4096, "win_len": 0.085, "num_bin": 80}),
     ("mfcc", {"n_fft": 510}),
 ]
 OTHER_FRAMES = [24, 203]
 
 
+def ragged_lengths(n: int) -> torch.Tensor:
+    """Four rows: whole, cut inside a frame, short, and empty."""
+    return torch.tensor([n, n - 1 - n // 3, n // 5 + 3, 0], dtype=torch.int32, device="cuda")
+
+
+def launch_one(cfg: F.FeatureConfig, x: torch.Tensor, lengths, what: str) -> torch.Tensor:
+    """``audio_features`` once, checking from the counters that it went to
+    the kernel the dispatch rule names, and to it alone."""
+    kind = "fft" if fbank.uses_fft_kernel(cfg) else "dft"
+    before = fbank_counts()
+    got = audio_features(x, cfg, lengths)
+    after = fbank_counts()
+    moved = {k: after[k] - before[k] for k in after}
+    check(moved == {"fft": int(kind == "fft"), "dft": int(kind == "dft")},
+          f"{what}: launches moved {moved}, not one of the {kind} kernel")
+    return got
+
+
+def f64_reference(x: torch.Tensor, cfg: F.FeatureConfig, lengths) -> torch.Tensor:
+    """The plain version in float64 on the same f32 PCM, pre-emphasised by
+    the f32-rounded coefficient that the kernels and the f32 plain version
+    multiply by: the value both f32 versions approximate."""
+    cfg64 = dataclasses.replace(cfg, preemph=float(np.float32(cfg.preemph)))
+    return audio_features_reference(x.double(), cfg64, lengths)
+
+
+def explain_worst(worst: dict) -> dict:
+    """The FFT kernel's largest error against the f32 plain version, held
+    against float64: the three values there, and in that frame the log-mel
+    band furthest from float64 in the kernel, with the plain version's
+    error in that band and the band's share of the frame's mel power."""
+    cfg, x, lengths, (r, t, c) = worst["cfg"], worst["x"], worst["lengths"], worst["at"]
+    ref = float(f64_reference(x, cfg, lengths)[r, t, c])
+    lm = dataclasses.replace(cfg, feat_type="logfbank")
+    k_lm = audio_features(x, lm, lengths)[r, t].double()
+    p_lm = audio_features_reference(x, lm, lengths)[r, t].double()
+    r_lm = f64_reference(x, lm, lengths)[r, t]
+    band = int((k_lm - r_lm).abs().argmax())
+    power = r_lm.exp()
+    out = {"case": worst["what"], "row": r, "frame": t, "coef": c, "err": worst["err"],
+           "kernel": worst["got"], "plain": worst["want"], "float64": ref,
+           "band": band, "band_kernel_err": float(k_lm[band] - r_lm[band]),
+           "band_plain_err": float(p_lm[band] - r_lm[band]),
+           "band_power_share": float(power[band] / power.sum())}
+    log(f"FFT kernel's largest error {out['err']:.3e}: {out['case']}, row {r}, frame {t}, "
+        f"coefficient {c}: kernel {out['kernel']:.6f}, plain {out['plain']:.6f}, float64 "
+        f"{ref:.6f} (kernel {out['kernel'] - ref:+.2e}, plain {out['plain'] - ref:+.2e} from "
+        f"float64); in that frame log-mel band {band} is the kernel's furthest from float64 "
+        f"({out['band_kernel_err']:+.2e}; plain {out['band_plain_err']:+.2e}), "
+        f"{out['band_power_share']:.2e} of the frame's mel power")
+    return out
+
+
+def dc_witness(pcm: torch.Tensor, lengths, cfg: F.FeatureConfig, got: torch.Tensor) -> dict:
+    """Log-mel band 0 of logfbank-60 holds the DC bin alone, so |X[0]| =
+    sqrt(n_fft exp(band 0)). Its error against float64, over every frame of
+    the batch, for the FFT kernel (X[0] summed in sample order), the plain
+    version (cuBLAS) and the plain ``dft='fft'`` (cuFFT, a packed FFT); and
+    how many of each one's band-0 logs miss the kernel bar against float64."""
+    idx, _ = fbank.mel_csr(cfg.num_bin, cfg.n_fft, cfg.rate, cfg.low_freq, cfg.high_freq)
+    check(idx[0, 0] == 0 and idx[1, 0] == 1, f"band 0 of {cfg.num_bin} is not the DC bin alone")
+    ref = f64_reference(pcm, cfg, lengths)[..., 0]
+    x0 = lambda band: (band.double().exp() * cfg.n_fft).sqrt()
+    want = x0(ref)
+    bands = {"fft_kernel": got[..., 0],
+             "plain": audio_features_reference(pcm, cfg, lengths)[..., 0],
+             "plain_cufft": audio_features_reference(
+                 pcm, dataclasses.replace(cfg, dft="fft"), lengths)[..., 0]}
+    out = {"x0_rms": float(want.square().mean().sqrt()), "x0_min": float(want.min())}
+    for name, band in bands.items():
+        err = (x0(band) - want).abs()
+        log_err = (band.double() - ref).abs()
+        out[name] = {"x0_rms_err": float(err.square().mean().sqrt()),
+                     "x0_max_err": float(err.max()), "log_max_err": float(log_err.max()),
+                     "log_misses": int((log_err > ATOL + RTOL * ref.abs()).sum())}
+    log(f"DC bin against float64 over {ref.numel()} frames (|X[0]| rms {out['x0_rms']:.4f}, "
+        f"least {out['x0_min']:.3e}): " + "; ".join(
+            f"{name} |X[0]| err rms {o['x0_rms_err']:.3e} max {o['x0_max_err']:.3e}, log-mel "
+            f"band 0 max {o['log_max_err']:.3e}, {o['log_misses']} outside the bar"
+            for name, o in ((n, out[n]) for n in bands)))
+    return out
+
+
 def kernel_phase(peaks) -> dict:
     rng = np.random.default_rng(0)
-    max_err = 0.0
+    max_err = {"fft": 0.0, "dft": 0.0}
+    worst = {"err": -1.0}
+    band0_err = 0.0
     cases = ([(c, KERNEL_FRAMES) for c in KERNEL_CONFIGS]
              + [(c, OTHER_FRAMES) for c in OTHER_CONFIGS])
+    n_cases = 0
     with fp32_math():
         for (feat_type, kw), frame_counts in cases:
             cfg = F.FeatureConfig(feat_type=feat_type, normalize=False, **kw)
+            kind = "fft" if fbank.uses_fft_kernel(cfg) else "dft"
             for frames in frame_counts:
                 n = samples_for_frames(frames, cfg.win_len, cfg.win_shift, cfg.rate)
-                x = torch.from_numpy((rng.standard_normal((3, n)) * 0.1).astype(np.float32))
-                emph = preemphasis(x.cuda(), cfg.preemph).contiguous()
-                got = audio_features(emph, cfg)
-                check(got.shape[1] == frames, f"{feat_type}: {got.shape[1]} != {frames} frames")
-                err = compare(got, audio_features_reference(emph, cfg),
-                              f"{feat_type} {kw} {frames} frames")
-                max_err = max(max_err, err)
-        log(f"kernel vs plain: {sum(len(f) for _, f in cases)} cases, "
-            f"max abs err {max_err:.3e}")
+                x = torch.from_numpy((rng.standard_normal((4, n)) * 0.1).astype(np.float32)).cuda()
+                for lengths in (None, ragged_lengths(n)):
+                    what = f"{feat_type} {kw} {frames} frames, lengths {lengths is not None}"
+                    got = launch_one(cfg, x, lengths, what)
+                    check(got.shape[1] == frames, f"{what}: {got.shape[1]} frames")
+                    want = audio_features_reference(x, cfg, lengths)
+                    err = compare(got, want, what)
+                    max_err[kind] = max(max_err[kind], err)
+                    if kind == "fft" and err > worst["err"]:
+                        at = tuple(int(i) for i in np.unravel_index(
+                            int((got - want).abs().argmax()), got.shape))
+                        worst = {"err": err, "what": what, "cfg": cfg, "x": x,
+                                 "lengths": lengths, "at": at,
+                                 "got": float(got[at]), "want": float(want[at])}
+                    n_cases += 1
+                    if lengths is not None and feat_type != "mfcc":
+                        # the empty row: every frame the guarded zero, eps or
+                        # log(eps) = -36.04 (a residue of 1e-30 would give -69)
+                        gap = float((got[3] - want[3]).abs().max())
+                        check(gap <= 4e-6 and bool((want[3] == want[3][0, 0]).all()),
+                              f"{what}: the empty row is {gap:.3e} from the guarded zero")
+                    if feat_type == "mfcc" and cfg.n_fft == 512:
+                        # mel band 0, where the sums cancel next to DC
+                        lm = dataclasses.replace(cfg, feat_type="logfbank")
+                        got0 = launch_one(lm, x, lengths, what + ", log-mel")[..., 0]
+                        band0_err = max(band0_err, compare(
+                            got0, audio_features_reference(x, lm, lengths)[..., 0],
+                            what + ", log-mel band 0"))
+        log(f"kernel vs plain: {n_cases} cases, max abs err FFT kernel {max_err['fft']:.3e}, "
+            f"DFT kernel {max_err['dft']:.3e}; log-mel band 0 of the MFCC configs "
+            f"{band0_err:.3e}")
+        worst = explain_worst(worst)
 
+        # the lomgrid batch, with the sweep's sample_lengths
         cfg = dataclasses.replace(F.FeatureConfig.from_config(AUDIO_DATA_OPTS),
                                   normalize=False)
         s = int(SECONDS * RATE)
         pcm = torch.from_numpy(rng.integers(-8000, 8000, (BATCH, s), dtype=np.int16))
-        emph = preemphasis(pcm.cuda().float() / 32768.0, cfg.preemph).contiguous()
-        got = audio_features(emph, cfg)
-        want = audio_features_reference(emph, cfg)
-        err = compare(got, want, f"lomgrid batch {BATCH}x{s}")
-        max_err = max(max_err, err)
+        pcm = (pcm.cuda().float() / 32768.0).contiguous()
+        lengths = torch.full((BATCH,), s, dtype=torch.int32, device="cuda")
+        cfg_cufft = dataclasses.replace(cfg, dft="fft")
+        fft_k = lambda: audio_features(pcm, cfg, lengths)
+        dft_k = lambda: fbank.dft_audio_features(pcm, cfg, lengths)
+        plain = lambda: audio_features_reference(pcm, cfg, lengths)
+        cufft = lambda: audio_features_reference(pcm, cfg_cufft, lengths)
+        check(fbank.uses_fft_kernel(cfg), "the lomgrid config does not go to the FFT kernel")
+        want = plain()
+        what = f"lomgrid batch {BATCH}x{s}"
+        err = {"fft": compare(fft_k(), want, what + ", FFT kernel"),
+               "dft": compare(dft_k(), want, what + ", DFT kernel at n_fft 512"),
+               "cufft": compare(cufft(), want, what + ", plain dft='fft'")}
+        max_err["fft"] = max(max_err["fft"], err["fft"])
+        max_err["dft"] = max(max_err["dft"], err["dft"])
         torch.cuda.synchronize()
-        kernel = lambda: audio_features(emph, cfg)
-        plain = lambda: audio_features_reference(emph, cfg)
-        times = [time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)]
-        # the cost of the 257th bin: the same batch at a 510-point FFT has
-        # 256 bins, one per thread, and no leftover pass
-        cfg256 = dataclasses.replace(cfg, n_fft=510)
-        max_err = max(max_err, compare(audio_features(emph, cfg256),
-                                       audio_features_reference(emph, cfg256),
-                                       f"lomgrid batch {BATCH}x{s}, 256 bins"))
-        k256 = lambda: audio_features(emph, cfg256)
-        bins_ms = [time_ms(kernel), time_ms(k256), time_ms(k256), time_ms(kernel)]
+        order = [("plain", plain), ("fft", fft_k), ("dft", dft_k), ("cufft", cufft),
+                 ("fft", fft_k), ("dft", dft_k), ("cufft", cufft), ("plain", plain)]
+        runs = [(name, time_ms(fn)) for name, fn in order]
+        ms = {name: sum(t for n, t in runs if n == name) / 2 for name in dict(order)}
+
         # the configs the TPU's v2 kernel refuses and its v1 kernel serves
-        # (logfbank-60): the same CUDA kernel, held and timed at that batch
+        # (logfbank-60): the FFT kernel, held and timed at that batch, and
+        # its DC bin held against float64
         cfg_v1 = F.FeatureConfig(feat_type="logfbank", num_bin=60, normalize=False)
-        v1 = {"max_abs_err": compare(audio_features(emph, cfg_v1),
-                                     audio_features_reference(emph, cfg_v1),
-                                     f"lomgrid batch {BATCH}x{s}, logfbank-60"),
-              "plain_ms": time_ms(lambda: audio_features_reference(emph, cfg_v1)),
-              "kernel_ms": time_ms(lambda: audio_features(emph, cfg_v1))}
-    kernel_ms = (times[1] + times[2]) / 2
-    plain_ms = (times[0] + times[3]) / 2
-    ms257, ms256 = (bins_ms[0] + bins_ms[3]) / 2, (bins_ms[1] + bins_ms[2]) / 2
-    log(f"257 bins vs 256 bins: {ms257:.4f} ms vs {ms256:.4f} ms "
-        f"(257, 256, 256, 257: {', '.join(f'{t:.4f}' for t in bins_ms)}); "
-        f"ratio {ms257 / ms256:.4f}, {257 / 256:.4f} for the work alone")
+        got_v1 = audio_features(pcm, cfg_v1, lengths)
+        v1 = {"max_abs_err": compare(got_v1, audio_features_reference(pcm, cfg_v1, lengths),
+                                     what + ", logfbank-60"),
+              "plain_ms": time_ms(lambda: audio_features_reference(pcm, cfg_v1, lengths)),
+              "kernel_ms": time_ms(lambda: audio_features(pcm, cfg_v1, lengths))}
+        dc = dc_witness(pcm, lengths, cfg_v1, got_v1)
+        del got_v1
+        # the DFT kernel at an n_fft it alone takes (510), at that batch
+        cfg510 = dataclasses.replace(cfg, n_fft=510)
+        d510 = {"max_abs_err": compare(launch_one(cfg510, pcm, lengths, what + ", n_fft 510"),
+                                       audio_features_reference(pcm, cfg510, lengths),
+                                       what + ", n_fft 510"),
+                "plain_ms": time_ms(lambda: audio_features_reference(pcm, cfg510, lengths)),
+                "kernel_ms": time_ms(lambda: audio_features(pcm, cfg510, lengths))}
     flops, nbytes = front_end_work(BATCH, s, cfg)
-    fp32, tf32, bw = peaks
-    ops_ms, bytes_ms = flops / fp32 * 1e3, nbytes / bw * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    tf32_bound_ms = max(flops / tf32 * 1e3, bytes_ms)
-    log(f"lomgrid batch {BATCH}x{s}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(plain, kernel, kernel, plain: {', '.join(f'{t:.4f}' for t in times)}); "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; bound {bound_ms:.4f} ms "
-        f"FP32 ({tf32_bound_ms:.4f} ms TF32); kernel at "
-        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s, {bound_ms / kernel_ms:.1%} of the FP32 bound")
-    v1_flops, v1_bytes = front_end_work(BATCH, s, cfg_v1)
-    v1_ops_ms, v1_bytes_ms = v1_flops / fp32 * 1e3, v1_bytes / bw * 1e3
-    v1.update(bound_ms=max(v1_ops_ms, v1_bytes_ms),
-              bound_by="operations" if v1_ops_ms >= v1_bytes_ms else "bytes")
-    log(f"logfbank-60 at that batch: kernel {v1['kernel_ms']:.4f} ms, plain "
-        f"{v1['plain_ms']:.4f} ms, bound {v1['bound_ms']:.4f} ms ({v1['bound_by']})")
-    return {"max_abs_err": max_err, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "v1": v1,
-            "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "tf32_bound_ms": tf32_bound_ms, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "ms_257_bins": ms257, "ms_256_bins": ms256}
+    fn_bound, fn_by = bound((flops, nbytes), peaks)
+    algo_ms = {k: kernel_flops(BATCH, s, cfg, k) / peaks[0] * 1e3 for k in ("fft", "dft")}
+    log(f"{what}, mfcc-24 (plain, FFT, DFT at 512, plain dft='fft', FFT, DFT, dft='fft', "
+        f"plain: {', '.join(f'{t:.4f}' for _, t in runs)} ms): FFT kernel {ms['fft']:.4f} ms, "
+        f"DFT kernel {ms['dft']:.4f} ms, against the function's bound {fn_bound:.4f} ms "
+        f"({fn_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB): {fn_bound / ms['fft']:.1%} "
+        f"and {fn_bound / ms['dft']:.1%} of it; their own algorithms' operations alone take "
+        f"{algo_ms['fft']:.4f} and {algo_ms['dft']:.4f} ms; plain {ms['plain']:.4f} ms; plain "
+        f"dft='fft' (cuFFT + mel/DCT products) {ms['cufft']:.4f} ms; max abs err FFT "
+        f"{err['fft']:.3e}, DFT {err['dft']:.3e}, dft='fft' {err['cufft']:.3e}")
+    v1["bound_ms"], v1["bound_by"] = bound(front_end_work(BATCH, s, cfg_v1), peaks)
+    v1["algorithm_ops_ms"] = kernel_flops(BATCH, s, cfg_v1, "fft") / peaks[0] * 1e3
+    d510["bound_ms"], d510["bound_by"] = bound(front_end_work(BATCH, s, cfg510), peaks)
+    d510["algorithm_ops_ms"] = kernel_flops(BATCH, s, cfg510, "dft") / peaks[0] * 1e3
+    log(f"logfbank-60 at that batch: FFT kernel {v1['kernel_ms']:.4f} ms, plain "
+        f"{v1['plain_ms']:.4f} ms, bound {v1['bound_ms']:.4f} ms ({v1['bound_by']}; the "
+        f"kernel's own operations {v1['algorithm_ops_ms']:.4f} ms); n_fft 510: DFT kernel "
+        f"{d510['kernel_ms']:.4f} ms, plain {d510['plain_ms']:.4f} ms, bound "
+        f"{d510['bound_ms']:.4f} ms ({d510['bound_by']}; the kernel's own operations "
+        f"{d510['algorithm_ops_ms']:.4f} ms)")
+    return {"max_abs_err": max_err, "band0_err": band0_err, "err_lomgrid": err, "ms": ms,
+            "runs_ms": runs, "bound_ms": fn_bound, "bound_by": fn_by, "algorithm_ops_ms": algo_ms,
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "v1": v1, "dft_510": d510,
+            "worst": worst, "dc_witness": dc}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -462,17 +657,17 @@ def main_path_phase() -> dict:
         check(eval_set._resolved_transport == "int16", "PCM16 corpus did not resolve to int16")
         calibrate_bn(extractor, host_batches[len(host_batches) // 2], seed=1)
 
-        audio_features.launches = 0
+        zero_fbank_counts()
         t0 = time.perf_counter()
         store = extractor.extract_embeddings(eval_set)
         eer, threshold = extractor.evaluate(trial_path, store)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"fused_fbank": audio_features.launches}
+        counts = fbank_counts()
+        launches = {"fused_fbank": counts["fft"], "fused_fbank_dft": counts["dft"]}
 
-    check(launches["fused_fbank"] == len(host_batches),
-          f"front-end kernel launched {launches['fused_fbank']} times for "
-          f"{len(host_batches)} batches")
+    check(counts == {"fft": len(host_batches), "dft": 0},
+          f"front-end launches {counts} for {len(host_batches)} batches")
     check(len(store) == len(names), f"{len(store)} embeddings for {len(names)} utterances")
     emb = store.matrix(names)
     check(emb.device.type == "cuda", f"embeddings live on {emb.device}, not cuda")
@@ -541,9 +736,12 @@ def sweep_phase(extractor: AudioExtractor) -> dict:
             embs.append(extractor.embed(x, feat_lengths[:n], sample_lengths[:n]))
         return cosine_scores(torch.cat(embs), pairs, normalize=False)
 
-    audio_features.launches = 0
+    zero_fbank_counts()
     scores = sweep()
-    launches = audio_features.launches
+    launches = fbank_counts()
+    n_batches = -(-LOMGRID_UTTS // BATCH)
+    check(launches == {"fft": n_batches, "dft": 0},
+          f"front-end launches {launches} for a sweep of {n_batches} batches")
     check(bool(torch.isfinite(scores).all()), "non-finite sweep scores")
     sweep_ms = sorted(time_ms(sweep, iters=1, warmup=0) for _ in range(3))
     ms = sweep_ms[1]
@@ -564,10 +762,11 @@ def sweep_phase(extractor: AudioExtractor) -> dict:
         f"{flops / tdnn_ms / 1e9:.2f} TFLOP/s (FP32, TF32 off)")
     log(f"lomgrid sweep: {LOMGRID_UTTS} x {SECONDS:g} s, batch {BATCH}, {LOMGRID_TRIALS} "
         f"trials: {ms:.1f} ms median of 3 ({', '.join(f'{v:.1f}' for v in sweep_ms)}), "
-        f"{tps:.1f} trials/s; {launches} front-end launches per sweep; per batch: "
-        f"front-end (pre-emphasis, mask, kernel) {front_ms:.3f} ms, TDNN {tdnn_ms:.3f} ms")
+        f"{tps:.1f} trials/s; front-end launches per sweep {launches}; per batch: "
+        f"front-end (the kernel, pre-emphasis and mask inside) {front_ms:.3f} ms, TDNN "
+        f"{tdnn_ms:.3f} ms")
     return {"trials_per_sec": tps, "sweep_ms": ms, "front_ms": front_ms, "tdnn_ms": tdnn_ms,
-            "tdnn_gflop": flops / 1e9}
+            "tdnn_gflop": flops / 1e9, "launches": launches}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1445,7 +1644,8 @@ def microbatch_run(root: str, items: dict, audio_ckpt: str, device=None) -> dict
                   "train": {"loss": "LMCL"}, "test": {"batch_size": 64}})
     v = SpeakerVerifier(cfg, checkpoint=audio_ckpt, device=device)
     passes = [0]
-    audio_features.launches = maxpool.maxpool_forward.launches = 0
+    zero_fbank_counts()
+    maxpool.maxpool_forward.launches = 0
     with counting_calls(v.extractor, "embed", passes):
         v.set_cohort_files([its[3][0] for its in items.values()], top_k=20)
         eer, thr = v.calibrate(os.path.join(root, "trials.txt"), os.path.join(root, "audio"))
@@ -1479,8 +1679,10 @@ def microbatch_run(root: str, items: dict, audio_ckpt: str, device=None) -> dict
             counts = {"requests": mb.n_requests, "batches": mb.n_batches, "slots": mb.n_slots,
                       "pad_slots": mb.n_pad_slots, "mean_batch_slots": mb.mean_batch_slots}
         check(not mb._thread.is_alive(), "the collector thread outlived close()")
-    check(audio_features.launches == passes[0] and maxpool.maxpool_forward.launches == 0,
-          f"{audio_features.launches} front-end launches for {passes[0]} extraction passes")
+    fb = fbank_counts()
+    check(fb == {"fft": passes[0], "dft": 0}
+          and maxpool.maxpool_forward.launches == 0,
+          f"front-end launches {fb} for {passes[0]} extraction passes")
     check(counts["batches"] < counts["requests"], f"no batch formed: {counts}")
     score_gap = max(abs(b.score - d.score) for b, d in zip(batched, direct))
     check(all(b.accept == d.accept for b, d in zip(batched, direct)),
@@ -1489,7 +1691,7 @@ def microbatch_run(root: str, items: dict, audio_ckpt: str, device=None) -> dict
     check(emb_gap <= BATCHED_TOL, f"an embedding served in a batch is {emb_gap:.3e} from the "
           f"same request served alone, bar {BATCHED_TOL}")
     check(dev_gap <= 1e-4, f"device scoring {dev_gap:.3e} from host scoring")
-    return {**counts, "launches": audio_features.launches, "eer": eer, "threshold": thr,
+    return {**counts, "launches": fb["fft"], "launches_dft": fb["dft"], "eer": eer, "threshold": thr,
             "alone_vs_batched": emb_gap, "score_gap": score_gap,
             "accepts": sum(d.accept for d in direct),
             "verify_host_ms": median(lat["host"]), "verify_device_ms": median(lat["device"]),
@@ -1504,13 +1706,15 @@ def av_serving_phase(device=None) -> dict:
         items = write_av_corpus(root)
         resume = prepare_av_checkpoints(root, items, device)
 
-        audio_features.launches = maxpool.maxpool_forward.launches = 0
+        zero_fbank_counts()
+        maxpool.maxpool_forward.launches = 0
         concat = av_verifier_run(fusion_config(root, resume, False), root, items, True, device)
         head = av_verifier_run(fusion_config(root, resume, True), root, items, False, device)
-        launches = {"fused_fbank": audio_features.launches,
+        fb = fbank_counts()
+        launches = {"fused_fbank": fb["fft"], "fused_fbank_dft": fb["dft"],
                     "maxpool_fwd": maxpool.maxpool_forward.launches}
         chunks = concat["chunks"] + head["chunks"]
-        check(launches["fused_fbank"] == launches["maxpool_fwd"] == chunks > 0,
+        check(fb == {"fft": chunks, "dft": 0} and launches["maxpool_fwd"] == chunks > 0,
               f"{launches} for {chunks} extraction chunks")
         check(concat["dim"] == 1024 and head["dim"] == 3 * 512,
               f"fused dims {concat['dim']} (concat) and {head['dim']} (head)")
@@ -1528,9 +1732,9 @@ def av_serving_phase(device=None) -> dict:
         kw = dict(max_clips=2, clip_frames=32, return_parts=True)
         (k_audio, k_video), chunk_ms = timed(lambda: embed_av_items(v.trainer, two, **kw))
         with plain_front_end(), plain_maxpool():
-            before = audio_features.launches, maxpool.maxpool_forward.launches
+            before = fbank_counts(), maxpool.maxpool_forward.launches
             p_audio, p_video = embed_av_items(v.trainer, two, **kw)
-            check(before == (audio_features.launches, maxpool.maxpool_forward.launches),
+            check(before == (fbank_counts(), maxpool.maxpool_forward.launches),
                   "the plain path launched a kernel")
         part_err = {"audio": 0.0, "video": 0.0}
         for name, _, _ in two:
@@ -1566,7 +1770,7 @@ def av_serving_phase(device=None) -> dict:
                 "frontend conv+BN+PReLU": time_ms(
                     lambda: act(bn(conv(x.movedim(-1, 1)).movedim(1, -1))), iters=5),
                 "max-pool kernel": time_ms(lambda: maxpool.maxpool_frontend(pre_pool)),
-                "audio front-end (K1 and masks)": time_ms(lambda: F.extract_features(
+                "audio front-end (K1)": time_ms(lambda: F.extract_features(
                     pcm, tr.raw_feat_cfg, sample_lengths=slen)),
             }
         del clips, x, pre_pool
@@ -1684,41 +1888,81 @@ def main() -> int:
     step = video_step_phase(video.pop("trainer"), video.pop("full_batch"), bn)
     torch.cuda.empty_cache()
     av = av_serving_phase()
-    fbank_common = {
-        "route": "cuda",
-        "source": "deeplip_tpu_torch/csrc/fbank_kernel.cu",
+    launches = {
         "launches": main_path["launches"]["fused_fbank"],
+        "launches_sweep": sweep["launches"]["fft"],
         "launches_av_serving": av["launches"]["fused_fbank"],
         "launches_microbatch": av["microbatch"]["launches"],
+    }
+    dft_launches = {
+        "launches": main_path["launches"]["fused_fbank_dft"],
+        "launches_sweep": sweep["launches"]["dft"],
+        "launches_av_serving": av["launches"]["fused_fbank_dft"],
+        "launches_microbatch": av["microbatch"]["launches_dft"],
+    }
+    fbank_common = {
+        "route": "cuda",
+        "bound_note": "bound_ms is the front-end function's own work (pre-emphasis, one "
+                      "real FFT a frame, untangle, power, mel sums over nonzero weights, "
+                      "DCT), whichever kernel runs it; algorithm_ops_ms is the time of the "
+                      "operations this kernel's algorithm does, at the FP32 peak",
         "library_ms": None,
         "library_note": "no single PyTorch call computes framed rDFT power -> mel "
-                        "-> log -> DCT; torch.stft needs a window, centring and a "
-                        "separate mel/DCT",
+                        "-> log -> DCT; cufft_composite_ms is the plain front-end with "
+                        "dft='fft' (torch.fft.rfft, then the mel and DCT products)",
         "shape": [BATCH, int(SECONDS * RATE)],
     }
+    fft_source = {"source": "deeplip_tpu_torch/csrc/fbank_fft_kernel.cu", **fbank_common}
     kernels = {"kernels": [{
         "name": "fused_fbank",
         "replaces": "deeplip_tpu/ops/pallas/fbank_kernel.py:241",
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["kernel_ms"],
-        "kernel_ms": kern["kernel_ms"],
-        "plain_ms": kern["plain_ms"],
+        **launches,
+        "max_abs_err": kern["max_abs_err"]["fft"],
+        "max_abs_err_mel_band0": kern["band0_err"],
+        "largest_error": kern["worst"],
+        "dc_bin_vs_float64": kern["dc_witness"],
+        "ms": kern["ms"]["fft"],
+        "plain_ms": kern["ms"]["plain"],
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],
-        "tf32_bound_ms": kern["tf32_bound_ms"],
-        **fbank_common,
+        "algorithm_ops_ms": kern["algorithm_ops_ms"]["fft"],
+        "cufft_composite_ms": kern["ms"]["cufft"],
+        "dft_kernel_ms": kern["ms"]["dft"],
+        "config": "mfcc-24, n_fft 512",
+        **fft_source,
     }, {
         # the TPU's v1 kernel serves the configs its v2 kernel refuses; here
-        # the one CUDA kernel serves both, so this entry is that kernel at a
-        # v1 config (logfbank-60), with the same launch counts
+        # the FFT kernel serves both, so this entry is that kernel at a v1
+        # config (logfbank-60), with the same launch counts
         "name": "fused_fbank_v1_configs",
         "replaces": "deeplip_tpu/ops/pallas/fbank_kernel.py:109",
+        **launches,
         "max_abs_err": kern["v1"]["max_abs_err"],
         "ms": kern["v1"]["kernel_ms"],
         "plain_ms": kern["v1"]["plain_ms"],
         "bound_ms": kern["v1"]["bound_ms"],
         "bound_by": kern["v1"]["bound_by"],
+        "algorithm_ops_ms": kern["v1"]["algorithm_ops_ms"],
         "config": "logfbank, 60 filters",
+        **fft_source,
+    }, {
+        # both TPU kernels at an n_fft that is not a power of two: the DFT
+        # kernel, which no main path launches
+        "name": "fused_fbank_dft",
+        "replaces": "deeplip_tpu/ops/pallas/fbank_kernel.py:241",
+        "also_replaces": "deeplip_tpu/ops/pallas/fbank_kernel.py:109",
+        **dft_launches,
+        "max_abs_err": kern["max_abs_err"]["dft"],
+        "ms": kern["dft_510"]["kernel_ms"],
+        "plain_ms": kern["dft_510"]["plain_ms"],
+        "bound_ms": kern["dft_510"]["bound_ms"],
+        "bound_by": kern["dft_510"]["bound_by"],
+        "algorithm_ops_ms": kern["dft_510"]["algorithm_ops_ms"],
+        "ms_n_fft_512": kern["ms"]["dft"],
+        "bound_ms_n_fft_512": kern["bound_ms"],
+        "algorithm_ops_ms_n_fft_512": kern["algorithm_ops_ms"]["dft"],
+        "config": "mfcc-24, n_fft 510",
+        "source": "deeplip_tpu_torch/csrc/fbank_kernel.cu",
         **fbank_common,
     }, bn_entry("bn_prelu_fwd", "fwd", bn, video), bn_entry("bn_prelu_bwd", "bwd", bn, video),
         pool_entry(pool, av, video)]}
@@ -1730,6 +1974,7 @@ def main() -> int:
         "lomgrid_trials_per_sec": sweep["trials_per_sec"],
         "lomgrid_sweep_ms": sweep["sweep_ms"],
         "lomgrid_front_end_ms": sweep["front_ms"],
+        "lomgrid_front_end_launches": sweep["launches"],
         "lomgrid_tdnn_ms": sweep["tdnn_ms"],
         "lomgrid_tdnn_gflop": sweep["tdnn_gflop"],
         "video_losses": video["losses"],

@@ -1,36 +1,42 @@
-// Fused audio front-end for Hopper (sm_90a): pre-emphasised PCM -> framed
-// real-DFT power spectrum -> mel filterbank -> log (-> DCT * lifter, c0 <-
-// log energy). Only the (B, T, D) features reach device memory; frames and
-// power spectra live in shared memory.
+// Fused audio front-end for Hopper (sm_90a) as a dense real DFT: raw PCM ->
+// pre-emphasis and length mask -> framed real-DFT power spectrum -> mel
+// filterbank -> log (-> DCT * lifter, c0 <- log energy). Only the (B, T, D)
+// features reach device memory; frames and power spectra live in shared
+// memory.
 //
 // Replaces deeplip_tpu/ops/pallas/fbank_kernel.py: _feature_kernel_v2 (the
 // residue-class TPU kernel) and _feature_kernel (its hop-blocked v1
-// fallback). Both TPU kernels exist to fit the 128-lane MXU tiling: v2 folds
-// the Nyquist bin into the zero sin column so 257 bins become 256 lanes,
-// which is exact only for filterbanks whose edge rows are zero, and v1
-// serves the configs that fold refuses. This kernel keeps all n_fft/2+1 bins
-// in full, so one kernel covers every config of both.
+// fallback) at an n_fft that is not a power of two (a 510-point FFT, say).
+// The JAX kernels take any n_fft; no config of the repository uses such a
+// size, and every power of two from 64 to 4096 goes to the FFT kernel in
+// fbank_fft_kernel.cu instead (ops/cuda/fbank.py: uses_fft_kernel). Both
+// TPU kernels exist to fit the 128-lane MXU tiling: v2 folds the Nyquist
+// bin into the zero sin column so 257 bins become 256 lanes, which is exact
+// only for filterbanks whose edge rows are zero, and v1 serves the configs
+// that fold refuses. This kernel keeps all n_fft/2+1 bins in full, so one
+// kernel covers every config of both.
 //
 // What bounds it: arithmetic. A 256 x 3 s batch (76,544 frames of 400
-// samples) needs about 31.4 GFLOP for the DFT against the 512 nonzero
-// columns of [cos | -sin] and 0.07 GFLOP for the mel sums over the
+// samples) at n_fft 512 needs about 31.4 GFLOP for the DFT against the 512
+// nonzero columns of [cos | -sin] and 0.07 GFLOP for the mel sums over the
 // filterbank's 459 nonzero weights, but moves only about 57 MB (49 MB of
 // PCM in, 7 MB of features out): about 0.47 ms at the FP32 CUDA-core peak
 // of an H100 SXM against 0.02 ms of memory time.
 //
 // What the design does about it: one block owns one (batch row, tile of
 // kTile frames). The tile's frames are copied once into shared memory,
-// zero-padded at the signal end, so every frame row is 16-byte aligned
-// whatever the hop. Each thread owns one frequency bin and keeps its
-// re/im sums for all kTile frames in registers: per four samples it loads
-// eight basis values (coalesced across the warp, L2-resident: the f32 basis
-// is 822 KB) and one float4 of each frame (a shared-memory broadcast), then
-// issues 8 * kTile FMAs. The basis is read once per tile, so its L2 traffic
-// falls as 1/kTile. A short leftover of bins past a multiple of the block
-// (bin 256 of a 512-point FFT) is split across the whole block by (bin,
-// frame, sample stride) and reduced with warp shuffles, so no warp runs a
-// second full pass alone. Everything is FP32, which meets or beats every
-// Pallas precision mode; the TF32 tensor-core variant is later work.
+// pre-emphasised (x[n] - a x[n-1], as the plain version rounds it) and
+// zeroed from the row's length on and at the signal end, so every frame
+// row is 16-byte aligned whatever the hop. Each thread owns one frequency
+// bin and keeps its re/im sums for all kTile frames in registers: per four
+// samples it loads eight basis values (coalesced across the warp,
+// L2-resident: the f32 basis is 822 KB) and one float4 of each frame (a
+// shared-memory broadcast), then issues 8 * kTile FMAs. The basis is read
+// once per tile, so its L2 traffic falls as 1/kTile. A short leftover of
+// bins past a multiple of the block (bin 256 of a 512-point FFT) is split
+// across the whole block by (bin, frame, sample stride) and reduced with
+// warp shuffles, so no warp runs a second full pass alone. Everything is
+// FP32, which meets or beats every Pallas precision mode.
 
 #include <cuda_runtime.h>
 
@@ -44,6 +50,7 @@ enum FeatType { kFbank = 0, kLogfbank = 1, kMfcc = 2 };
 template <int kTile>
 __global__ void __launch_bounds__(kThreads, 2)
 fbank_features_kernel(const float* __restrict__ x,
+                      const int* __restrict__ lengths,
                       const float* __restrict__ basis,
                       const float* __restrict__ mel_fb,
                       const float* __restrict__ dct,
@@ -51,7 +58,7 @@ fbank_features_kernel(const float* __restrict__ x,
                       float* __restrict__ out,
                       int S, int T, int frame_len, int l_pad, int hop,
                       int n_bins, int n_mel, int n_cep, int feat_type,
-                      int energy, float n_fft) {
+                      int energy, float n_fft, float preemph) {
   extern __shared__ __align__(16) float smem[];
   float* frames = smem;                    // kTile x l_pad
   float* power = frames + kTile * l_pad;   // kTile x n_bins
@@ -62,17 +69,24 @@ fbank_features_kernel(const float* __restrict__ x,
   const int t0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
   const float* xb = x + static_cast<size_t>(b) * S;
+  const int lim = lengths ? min(max(__ldg(lengths + b), 0), S) : S;
   const int d_out = feat_type == kMfcc ? n_cep : n_mel;
   float* outb = out + (static_cast<size_t>(b) * T + t0) * d_out;
 
-  // 1. Frame the tile: frame t, sample n reads x[(t0 + t) * hop + n]; the
-  //    num_frames zero-pad convention makes samples at index >= S zero, and
-  //    the alignment pad n >= frame_len meets zero basis rows.
+  // 1. Frame the tile: frame t, sample n is the pre-emphasised row sample
+  //    (t0 + t) * hop + n, zero from the row's length on (and so at index
+  //    >= S, the num_frames zero-pad convention); the alignment pad
+  //    n >= frame_len meets zero basis rows.
   for (int i = tid; i < kTile * l_pad; i += kThreads) {
     const int t = i / l_pad;
     const int n = i - t * l_pad;
     const long long idx = static_cast<long long>(t0 + t) * hop + n;
-    frames[i] = (n < frame_len && idx < S) ? __ldg(xb + idx) : 0.f;
+    float e = 0.f;
+    if (n < frame_len && idx < lim) {
+      const float prev = idx > 0 ? __ldg(xb + idx - 1) : 0.f;
+      e = __fsub_rn(__ldg(xb + idx), __fmul_rn(preemph, prev));
+    }
+    frames[i] = e;
   }
   __syncthreads();
 
@@ -195,20 +209,20 @@ fbank_features_kernel(const float* __restrict__ x,
 }
 
 template <int kTile>
-cudaError_t launch(const float* x, const float* basis, const float* mel_fb,
+cudaError_t launch(const float* x, const int* lengths, const float* basis, const float* mel_fb,
                    const float* dct, const float* lift, float* out, int B,
                    int S, int T, int frame_len, int l_pad, int hop, int n_fft,
                    int n_mel, int n_cep, int feat_type, int energy,
-                   size_t smem, cudaStream_t stream) {
+                   float preemph, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       fbank_features_kernel<kTile>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kTile - 1) / kTile, B);
   fbank_features_kernel<kTile><<<grid, kThreads, smem, stream>>>(
-      x, basis, mel_fb, dct, lift, out, S, T, frame_len, l_pad, hop,
+      x, lengths, basis, mel_fb, dct, lift, out, S, T, frame_len, l_pad, hop,
       n_fft / 2 + 1, n_mel, n_cep, feat_type, energy,
-      static_cast<float>(n_fft));
+      static_cast<float>(n_fft), preemph);
   return cudaGetLastError();
 }
 
@@ -218,17 +232,19 @@ size_t smem_bytes(int tile, int l_pad, int n_bins, int n_mel) {
 
 }  // namespace
 
-// x: (B, S) pre-emphasised, length-masked PCM; basis: (l_pad, 2 * (n_fft/2+1))
-// [cos | -sin] with zero rows from frame_len on; mel_fb: (n_fft/2+1, n_mel);
-// dct: (n_mel, n_cep); lift: (n_cep,); out: (B, T, D) with D = n_cep for
-// MFCC, else n_mel. All f32, contiguous, on the device of `stream`.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int fbank_features(const float* x, const float* basis,
-                              const float* mel_fb, const float* dct,
-                              const float* lift, float* out, int B, int S,
-                              int T, int frame_len, int l_pad, int hop,
-                              int n_fft, int n_mel, int n_cep, int feat_type,
-                              int energy, void* stream) {
+// x: (B, S) raw f32 PCM; lengths: (B,) int32 valid samples per row, or null
+// for S; basis: (l_pad, 2 * (n_fft/2+1)) [cos | -sin] with zero rows from
+// frame_len on; mel_fb: (n_fft/2+1, n_mel); dct: (n_mel, n_cep); lift:
+// (n_cep,); out: (B, T, D) with D = n_cep for MFCC, else n_mel. All
+// contiguous, on the device of `stream`. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int fbank_features(const float* x, const int* lengths,
+                              const float* basis, const float* mel_fb,
+                              const float* dct, const float* lift, float* out,
+                              int B, int S, int T, int frame_len, int l_pad,
+                              int hop, int n_fft, int n_mel, int n_cep,
+                              int feat_type, int energy, float preemph,
+                              void* stream) {
   if (B < 1 || B > 65535 || S < 1 || T < 1 || hop < 1 || frame_len < 1 ||
       l_pad % 4 != 0 || l_pad < frame_len || n_fft < 2 || n_mel < 1 ||
       feat_type < kFbank || feat_type > kMfcc ||
@@ -239,12 +255,13 @@ extern "C" int fbank_features(const float* x, const float* basis,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t big = smem_bytes(32, l_pad, n_bins, n_mel);
   if (big <= 200 * 1024) {
-    return static_cast<int>(launch<32>(x, basis, mel_fb, dct, lift, out, B, S,
-                                       T, frame_len, l_pad, hop, n_fft, n_mel,
-                                       n_cep, feat_type, energy, big, s));
+    return static_cast<int>(launch<32>(x, lengths, basis, mel_fb, dct, lift, out,
+                                       B, S, T, frame_len, l_pad, hop, n_fft,
+                                       n_mel, n_cep, feat_type, energy, preemph,
+                                       big, s));
   }
-  return static_cast<int>(launch<8>(x, basis, mel_fb, dct, lift, out, B, S, T,
-                                    frame_len, l_pad, hop, n_fft, n_mel, n_cep,
-                                    feat_type, energy,
+  return static_cast<int>(launch<8>(x, lengths, basis, mel_fb, dct, lift, out, B,
+                                    S, T, frame_len, l_pad, hop, n_fft, n_mel,
+                                    n_cep, feat_type, energy, preemph,
                                     smem_bytes(8, l_pad, n_bins, n_mel), s));
 }

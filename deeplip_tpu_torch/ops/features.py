@@ -9,14 +9,16 @@ function of a ``(B, S)`` PCM batch:
     feat    = log(mel) @ dct * lifter                 # MFCC; c0 ← log energy
 
 with the same f32 bases (cast from the f64 ``spectral`` arrays) and guards as
-the JAX package's ``dft='matmul'`` path. :func:`extract_features` routes the
-mel front-ends through the fused CUDA kernel (``ops/cuda/fbank.py``) on a
-CUDA tensor; the kernel's wrapper falls to this plain version only for a
-tensor on the CPU.
+the JAX package's ``dft='matmul'`` path; ``dft='fft'`` takes the spectrum
+from ``torch.fft.rfft`` instead, as the JAX package's does from
+``jnp.fft.rfft``. :func:`extract_features` routes the mel front-ends,
+pre-emphasis and length mask included, through the fused CUDA kernels
+(``ops/cuda/fbank.py``) on a CUDA tensor, whatever ``dft`` says (as the JAX
+package's ``pallas`` backend does); the kernels' wrapper falls to this plain
+version only for a tensor on the CPU.
 
 Not ported yet: the ``stft`` front-end and the ``dft`` variants
-``matmul_fused``, ``matmul_packed`` and ``fft``; they raise
-``NotImplementedError``.
+``matmul_fused`` and ``matmul_packed``; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ class FeatureConfig:
     ceplifter: int = 22
     low_freq: float = 0.0
     high_freq: float | None = None
-    # rDFT implementation; only 'matmul' (dense cos/sin bases) is ported
+    # rDFT implementation of the plain front-end: 'matmul' (dense cos/sin
+    # bases) or 'fft' (torch.fft.rfft); the others are not ported
     dft: str = "matmul"
 
     @classmethod
@@ -115,10 +118,13 @@ def _const(like: torch.Tensor, fn, *args):
     return _cached_const(fn, args, like.dtype, like.device)
 
 
+PORTED_DFTS = ("matmul", "fft")
+
+
 def _check_dft(cfg: FeatureConfig) -> None:
-    if cfg.dft != "matmul":
+    if cfg.dft not in PORTED_DFTS:
         raise NotImplementedError(
-            f"dft={cfg.dft!r} is not ported; only 'matmul' is")
+            f"dft={cfg.dft!r} is not ported; only {PORTED_DFTS} are")
 
 
 def _power_spectrum(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
@@ -127,9 +133,13 @@ def _power_spectrum(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     _check_dft(cfg)
     emph = framing.preemphasis(signal, cfg.preemph)
     frames = framing.frame_signal(emph, cfg.frame_len, cfg.frame_step)
-    cos_m, sin_m = _const(frames, spectral.rdft_matrices, cfg.frame_len, cfg.n_fft)
-    re = frames @ cos_m
-    im = frames @ sin_m
+    if cfg.dft == "fft":
+        spec = torch.fft.rfft(frames, n=cfg.n_fft)
+        re, im = spec.real, spec.imag
+    else:
+        cos_m, sin_m = _const(frames, spectral.rdft_matrices, cfg.frame_len, cfg.n_fft)
+        re = frames @ cos_m
+        im = frames @ sin_m
     return (re * re + im * im) / cfg.n_fft
 
 
@@ -208,15 +218,15 @@ def extract_features(
 ) -> torch.Tensor:
     """Feature → optional CMVN → optional Δ/ΔΔ, ``(..., S) -> (..., T, D)``.
 
-    Mel front-ends go through the fused kernel's wrapper
-    (``ops.cuda.fbank.audio_features``), which launches the CUDA kernel on
-    a CUDA tensor and runs the plain version on a CPU tensor.
+    Mel front-ends go through the fused kernels' wrapper
+    (``ops.cuda.fbank.audio_features``), which launches a CUDA kernel on a
+    CUDA tensor and runs the plain version on a CPU tensor.
 
     ``sample_lengths`` marks the true PCM length of each row of a
     zero-padded batch. The reference pre-emphasises the exact-length signal
-    and pads after; so with lengths given, pre-emphasis is applied here and
-    masked at each row's length, and the front-end then runs with
-    ``preemph=0``. CMVN and deltas over a padded batch would average
+    and pads after; so with lengths given (and ``cfg.preemph`` nonzero, as
+    in the JAX package), the wrapper pre-emphasises and zeroes each row
+    from its length on. CMVN and deltas over a padded batch would average
     pad-derived frames, so they are refused with lengths: apply a masked
     CMVN downstream (``train.audio.masked_cmvn``).
     """
@@ -230,18 +240,15 @@ def extract_features(
         raise NotImplementedError(
             f"feat_type {cfg.feat_type!r} is not ported; mel front-ends are")
     _check_dft(cfg)
-    if sample_lengths is not None and cfg.preemph:
-        emph = framing.preemphasis(signal, cfg.preemph)
-        idx = torch.arange(signal.shape[-1], device=signal.device)
-        mask = idx < sample_lengths.to(signal.device)[..., None]
-        signal = emph * mask.to(signal.dtype)
-        cfg = dataclasses.replace(cfg, preemph=0.0)
     from deeplip_tpu_torch.ops.cuda.fbank import audio_features
 
-    emph = framing.preemphasis(signal, cfg.preemph) if cfg.preemph else signal
-    flat = emph.reshape(-1, emph.shape[-1]).contiguous()
-    feat = audio_features(flat, dataclasses.replace(cfg, preemph=0.0))
-    feat = feat.reshape(*emph.shape[:-1], *feat.shape[-2:])
+    lengths = None
+    if sample_lengths is not None and cfg.preemph:
+        lengths = torch.as_tensor(sample_lengths).to(signal.device)
+        lengths = lengths.expand(signal.shape[:-1]).reshape(-1)
+    flat = signal.reshape(-1, signal.shape[-1]).contiguous()
+    feat = audio_features(flat, cfg, lengths)
+    feat = feat.reshape(*signal.shape[:-1], *feat.shape[-2:])
     if cfg.normalize:
         feat = cmvn(feat)
     if cfg.delta:

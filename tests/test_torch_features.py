@@ -1,7 +1,7 @@
 """The port's audio front-end against the JAX package's, on the CPU.
 
-Inputs come from numpy seeds and feed both packages. The CUDA kernel never
-runs here: on a CPU tensor its wrapper (``ops.cuda.fbank.audio_features``)
+Inputs come from numpy seeds and feed both packages. The CUDA kernels never
+run here: on a CPU tensor their wrapper (``ops.cuda.fbank.audio_features``)
 takes the plain version, which is what these tests hold against the JAX
 package's XLA path (≤1e-4) and its Pallas kernels in interpret mode
 (atol 2e-4 / rtol 1e-3, the bar of ``tests/test_pallas_features.py``).
@@ -20,7 +20,7 @@ from deeplip_tpu.ops.pallas.fbank_kernel import pallas_audio_features
 from deeplip_tpu_torch.ops import features as TF
 from deeplip_tpu_torch.ops import spectral as TS
 from deeplip_tpu_torch.ops.cuda.fbank import audio_features, audio_features_reference
-from deeplip_tpu_torch.ops.framing import preemphasis, samples_for_frames
+from deeplip_tpu_torch.ops.framing import samples_for_frames
 
 torch.set_num_threads(1)
 
@@ -38,9 +38,8 @@ def _sig(b=2, n=16000, seed=0):
 
 
 def _port_kernel_path(sig: np.ndarray, cfg) -> np.ndarray:
-    """The kernel wrapper on pre-emphasised PCM, as extract_features calls it."""
-    emph = preemphasis(torch.from_numpy(sig), cfg.preemph)
-    return audio_features(emph, dataclasses.replace(cfg, preemph=0.0)).numpy()
+    """The kernels' wrapper on raw PCM, as extract_features calls it."""
+    return audio_features(torch.from_numpy(sig), cfg).numpy()
 
 
 @pytest.mark.parametrize("name,args", [
@@ -84,7 +83,7 @@ def test_plain_front_end_matches_xla(feat_type, kw):
     sig = _sig(seed=1)
     want = np.asarray(JF.extract_features(jnp.asarray(sig), jcfg))
     got = TF.extract_features(torch.from_numpy(sig), tcfg).numpy()
-    plain = audio_features_reference(preemphasis(torch.from_numpy(sig), tcfg.preemph), tcfg)
+    plain = audio_features_reference(torch.from_numpy(sig), tcfg)
     if tcfg.normalize:
         plain = TF.cmvn(plain)
     if tcfg.delta:
@@ -97,6 +96,23 @@ def test_plain_front_end_matches_xla(feat_type, kw):
     # by up to ~5e-5 of its magnitude (~13).
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
     np.testing.assert_array_equal(got, plain)
+
+
+@pytest.mark.parametrize("feat_type,kw", FRONT_ENDS)
+def test_fft_front_end_matches_jax_fft(feat_type, kw):
+    """``dft='fft'``: the spectrum from ``torch.fft.rfft`` against the JAX
+    package's from ``jnp.fft.rfft``, each pre-emphasised and masked at a
+    ragged row length, at the kernels' bar."""
+    jcfg = JF.FeatureConfig(feat_type=feat_type, normalize=False, dft="fft", **kw)
+    tcfg = TF.FeatureConfig(feat_type=feat_type, normalize=False, dft="fft", **kw)
+    sig = _sig(seed=5)
+    lens = np.array([16000, 9001], np.int32)
+    want = np.asarray(JF.extract_features(jnp.asarray(sig), jcfg,
+                                          sample_lengths=jnp.asarray(lens)))
+    got = TF.extract_features(torch.from_numpy(sig), tcfg,
+                              sample_lengths=torch.from_numpy(lens)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
 
 
 @pytest.mark.parametrize("version", ["v1", "auto"])
@@ -156,7 +172,7 @@ def test_cmvn_and_deltas_match():
 
 
 @pytest.mark.parametrize("kw", [{"feat_type": "stft"}, {"dft": "matmul_fused"},
-                                {"dft": "matmul_packed"}, {"dft": "fft"}])
+                                {"dft": "matmul_packed"}])
 def test_unported_front_ends_raise(kw):
     cfg = TF.FeatureConfig(normalize=False, **kw)
     with pytest.raises(NotImplementedError):
