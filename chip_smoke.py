@@ -94,8 +94,34 @@ without the package, it exits non-zero and prints no result. Phases:
    difference between an embedding served alone and in a batch, bar 1e-5),
    and a batch-1 verify's latency with host and with device scoring.
 
-The phases run in the order 1-6, 9, 7, 8, 10. The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the ``kernels`` JSON record.
+11. Audio x-vector training at the full width of ``conf/audio_config.yaml``
+   (flagship E-TDNN, MFCC-24, LMCL scale 30 / margin 0.2, SGD, bs 256, crops
+   of 200-400 frames in 11 buckets, bf16): a synthetic 128-speaker x 8
+   PCM16 wav corpus of 2-5 s (and 2 wavs a speaker held out) and its
+   manifest (``write_manifest``) →
+   ``cli/train_audio.py --mode train`` for 2 epochs (the config's recipe
+   with its paths pointed at the corpus) → the average of the 2 epochs'
+   checkpoints → extraction of a 256-utterance test set held out of training
+   and its cosine EER.
+   Front-end launch counts are zeroed just before and read just after: one
+   FFT-kernel launch per train step and per extraction batch, none of the
+   DFT kernel. K1 against its plain version on every batch of both epochs
+   (CMVN after, atol 2e-4 / rtol 1e-3) with its time at each crop shape.
+   One f32 step through K1 against one through the plain front-end from the
+   same state (TF32 off, cuDNN deterministic) at bs 256 x 300: loss within
+   1e-4 relative, gradients no further than 3x what a 1e-6 elementwise
+   relative nudge of the PCM moves the plain step. A bf16 step within 1e-4
+   of the f32 step's loss (and 2e-2 at most) and within 0.25 of its
+   gradients' norm, its forward audited (bf16 conv blocks; BN statistics,
+   pooling and the cosine logits against float64), and four planted bf16
+   faults (BN statistics, pooling, cosines in bf16; cosines in TF32) each
+   caught. Then ms per step and crops/s at bs 256 x
+   200/300/400 in bf16 and f32 by CUDA events, K1's share of a step beside
+   its bound, peak memory, and one profiled bf16 step's device time by kind.
+
+The phases run in the order 1-5, 11, 6, 9, 7, 8, 10. The last line is
+``{"ok": true, "device": {...}}``; the line before it is the ``kernels``
+JSON record.
 """
 
 from __future__ import annotations
@@ -119,6 +145,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from deeplip_tpu_torch.cli import train_audio as train_audio_cli  # noqa: E402
+from deeplip_tpu_torch.cli.common import utterances_from_trials  # noqa: E402
 from deeplip_tpu_torch.cli.train_fusion import make_trainer  # noqa: E402
 from deeplip_tpu_torch.core.config import (AUDIO_DATA_OPTS, ETDNN_MODEL_OPTS, Config,  # noqa: E402
                                            load_fusion_config)
@@ -126,7 +154,9 @@ from deeplip_tpu_torch.data.audio_io import read_wav, write_wav  # noqa: E402
 from deeplip_tpu_torch.data.audio_pipeline import (EvalUtterance,  # noqa: E402
                                                    EvalUtteranceSet,
                                                    eval_set_kwargs)
+from deeplip_tpu_torch.data.manifest import Utterance, write_manifest  # noqa: E402
 from deeplip_tpu_torch.eval.scoring import cosine_scores  # noqa: E402
+from deeplip_tpu_torch.losses import softmax as softmax_losses  # noqa: E402
 from deeplip_tpu_torch.ops import features as F  # noqa: E402
 from deeplip_tpu_torch.ops import spectral  # noqa: E402
 from deeplip_tpu_torch.data.video_dataset import (VideoClipBatches, load_clip,  # noqa: E402
@@ -605,17 +635,22 @@ def calibrate_bn(extractor: AudioExtractor, batch: dict, seed: int) -> None:
         set_stats(model.bn2, xv)
 
 
-def speaker_wave(rng, spk: int) -> np.ndarray:
-    """1-3 s of a harmonic source at the speaker's pitch through the
-    speaker's resonance, plus noise."""
-    f0, res = 90.0 + 12.0 * spk, 400.0 + 150.0 * spk
-    n = int(rng.integers(RATE, 3 * RATE + 1))
+def harmonic_wave(rng, f0: float, res: float, n: int) -> np.ndarray:
+    """``n`` samples of a harmonic source near pitch ``f0`` through a
+    resonance at ``res`` Hz, plus noise."""
     t = np.arange(n) / RATE
     f = f0 * (1.0 + 0.03 * rng.standard_normal())
     y = sum(np.sin(2 * np.pi * h * f * t) / h
             * np.exp(-((h * f - res) / 600.0) ** 2) for h in range(1, 20))
     y = 0.3 * y / np.abs(y).max() + 0.02 * rng.standard_normal(n)
     return y.astype(np.float32)
+
+
+def speaker_wave(rng, spk: int) -> np.ndarray:
+    """1-3 s of a harmonic source at the speaker's pitch through the
+    speaker's resonance, plus noise."""
+    n = int(rng.integers(RATE, 3 * RATE + 1))
+    return harmonic_wave(rng, 90.0 + 12.0 * spk, 400.0 + 150.0 * spk, n)
 
 
 def write_corpus(root: str, n_spk: int = 16, per_spk: int = 16,
@@ -767,6 +802,495 @@ def sweep_phase(extractor: AudioExtractor) -> dict:
         f"{tdnn_ms:.3f} ms")
     return {"trials_per_sec": tps, "sweep_ms": ms, "front_ms": front_ms, "tdnn_ms": tdnn_ms,
             "tdnn_gflop": flops / 1e9, "launches": launches}
+
+
+# ---------------------------------------------------------------- phase 11
+# conf/audio_config.yaml as a dict (the card's machine reads no YAML);
+# tests/test_torch_audio_train.py holds it to the file
+_FEAT = {"n_fft": 512, "normalize": True, "delta": False, "win_len": 0.025, "win_shift": 0.01}
+AUDIO_CONFIG = {
+    "data": {
+        "frames": [200, 400],
+        "train_manifest": "data/manifest/train.csv",
+        "finetune_manifest": "data/manifest/finetune.csv",
+        "test_root": "data/test_wav",
+        "trial_grid": "database/trial_grid_v1.txt",
+        "trial_lomgrid": "database/trial_lomgrid_v1.txt",
+        "data_format": "python",
+        "python_data_config": {
+            "rate": 16000, "feat_type": "mfcc",
+            "fbank": {**_FEAT, "num_bin": 24, "energy": False},
+            "logfbank": {**_FEAT, "num_bin": 60, "energy": False},
+            "stft": dict(_FEAT),
+            "mfcc": {**_FEAT, "num_bin": 26, "energy": True, "num_cep": 24},
+        },
+    },
+    "model": {
+        "arch": "etdnn",
+        "tdnn": {"input_dim": 24, "hidden_dim": [512, 512, 512, 512, 1500],
+                 "context": [[-2, -1, 0, 1, 2], [-2, 0, 2], [-3, 0, 3], [0], [0]],
+                 "tdnn_layers": 5, "fc_layers": 3, "embedding_dim": 512,
+                 "pooling": "statistic", "attention_hidden_size": 64, "bn_first": True},
+        "etdnn": {**ETDNN_MODEL_OPTS["etdnn"], "fc_layers": 3},
+        "resnet": {"input_dim": 1, "hidden_dim": [64, 128, 256],
+                   "residual_block_layers": [3, 3, 3], "fc_layers": 1, "embedding_dim": 256,
+                   "pooling": "average"},
+    },
+    "train": {
+        "device": "tpu", "type": "sgd", "bs": 256, "lr_decay": 0.1, "lr_decay_step": [15, 25],
+        "epoch": 30, "collate": "length_varied", "compute_dtype": "bf16", "loss": "LMCL",
+        "scale": 30, "margin": [0.2, 0.2], "frame_buckets": 11, "steps_per_dispatch": 1,
+        "loader_workers": 8, "log_every": 20,
+        "sgd": {"init_lr": 0.01, "weight_decay": 1e-05, "momentum": 0.9},
+        "adam": {"init_lr": 0.01, "weight_decay": 1e-05}, "resume": None, "train_type": "None",
+    },
+    "test": {"train_plda": False, "eval_lomgrid": False, "eval_grid": True, "use_cos": True,
+             "use_plda": False, "bucket_frames": 100, "batch_size": 64},
+}
+TRAIN_SPEAKERS, TRAIN_UTTS, TRAIN_EPOCHS = 128, 8, 2
+# per speaker: the utterances of the trial list, written beside the 8 of
+# the manifest and held out of training
+TRAIN_TEST_UTTS = (8, 9)
+AUDIO_STEP_LOSS_RTOL = 1e-4       # a K1 step vs a plain-front-end step, f32
+# A bf16 step against the f32 step from the same state. The loss within 2e-2
+# relative at most, and within BF16_LOSS_BAR, set from the readings on an
+# H100 (PERF.md): sound 6.07e-5; BN statistics in bf16 1.39e-4, pooling in
+# bf16 2.87e-4; the cosines in bf16 or TF32 move the loss no more than sound
+# does. The gradients within BF16_GRAD_BAR of the f32 step's norm (sound
+# 0.171): every planted fault reads within 10 % of sound there, so it
+# catches only gross faults. The recipe itself is audited in the bf16
+# forward (bf16_audit) to the bars below, and every planted fault must be
+# caught.
+BF16_LOSS_RTOL = 2e-2
+BF16_LOSS_BAR = 1e-4
+BF16_GRAD_BAR = 0.25
+BF16_STAT_RTOL = 1e-4   # a BN's batch mean (in sigmas) and variance vs float64
+BF16_POOL_RTOL = 1e-4   # the pooled statistics vs float64 pooling of the same input
+BF16_HEAD_ATOL = 2e-6   # the cosine logits vs float64
+BF16_FAULTS = ("bn_stats_bf16", "pool_bf16", "head_bf16", "head_tf32")
+STEP_FRAMES = (200, 300, 400)     # the timed crop lengths
+# device kernels of an audio train step by kind, first match wins: the FFT
+# and DFT front-end kernels, torch's SGD (foreach kernels), cuDNN/cuBLAS
+# (the convolutions and the FC head), the rest of PyTorch's own
+AUDIO_KINDS = [
+    ("K1 (fbank_fft_kernel.cu)", re.compile(r"fbank_(fft|features)_kernel")),
+    ("optimizer (SGD)", re.compile(r"multi_tensor_apply|sgd", re.I)),
+    ("cuDNN/cuBLAS", re.compile(r"cudnn|xmma|cublas|gemm|cutlass|wgrad|dgrad|fprop|conv", re.I)),
+    ("other PyTorch", re.compile(r"")),
+]
+
+
+def training_wave(rng, spk: int) -> np.ndarray:
+    """2-5 s of :func:`harmonic_wave` at one of 128 pitches and resonances
+    inside the band."""
+    n = int(rng.integers(2 * RATE, 5 * RATE + 1))
+    return harmonic_wave(rng, 90.0 + 1.5 * spk, 400.0 + 25.0 * spk, n)
+
+
+def write_train_corpus(root: str, seed: int = 0) -> tuple[str, str]:
+    """128 speakers x 10 PCM16 wavs of 2-5 s: the manifest over the first 8
+    of each speaker (``write_manifest``), and a half-target trial list over
+    the 2 held out (``TRAIN_TEST_UTTS``). Returns the manifest's and the
+    trial list's paths."""
+    def speaker(spk):
+        rng = np.random.default_rng((seed, spk))
+        os.makedirs(os.path.join(root, f"s{spk:03d}"), exist_ok=True)
+        utts = []
+        for u in range(TRAIN_UTTS + len(TRAIN_TEST_UTTS)):
+            path = os.path.join(root, f"s{spk:03d}", f"u{u}.wav")
+            y = training_wave(rng, spk)
+            write_wav(path, y, RATE)
+            utts.append(Utterance(path, len(y) / RATE, RATE))
+        return utts[:TRAIN_UTTS]
+
+    with ThreadPoolExecutor(8) as pool:
+        speakers = list(pool.map(speaker, range(TRAIN_SPEAKERS)))
+    manifest = os.path.join(root, "manifest.csv")
+    write_manifest(manifest, speakers)
+    names = [f"s{spk:03d}/u{u}.wav" for spk in range(TRAIN_SPEAKERS) for u in TRAIN_TEST_UTTS]
+    rng = np.random.default_rng(seed)
+    trials = os.path.join(root, "trials.txt")
+    with open(trials, "w") as fh:
+        for i in range(4000):
+            a = int(rng.integers(len(names)))
+            b = a ^ 1 if i % 2 == 0 else int(rng.integers(len(names)))
+            fh.write(f"{int(names[a][:4] == names[b][:4])} {names[a]} {names[b]}\n")
+    return manifest, trials
+
+
+def audio_train_config(root: str, manifest: str, trials: str) -> str:
+    """``conf/audio_config.yaml`` with its manifest and trial list in
+    ``root`` and ``TRAIN_EPOCHS`` epochs, written as JSON; returns its path."""
+    cfg = copy.deepcopy(AUDIO_CONFIG)
+    cfg["data"].update(train_manifest=manifest, test_root=root, trial_grid=trials)
+    cfg["train"]["epoch"] = TRAIN_EPOCHS
+    path = os.path.join(root, "audio_config.json")
+    with open(path, "w") as fh:
+        json.dump(cfg, fh)
+    return path
+
+
+def k1_training_shapes(trainer, peaks) -> list:
+    """K1 against its plain version on the training epochs' own batches (raw
+    f32 PCM, CMVN after both, as the train step applies it), and K1's time
+    and bound at each crop shape."""
+    cfg, rows = trainer.feat_cfg, {}
+    # every batch assembled first: the pipeline's threads would compete with
+    # the timed launches for the host
+    batches = [b for e in range(1, TRAIN_EPOCHS + 1) for b in trainer.pipeline.epoch(e)]
+    for batch in batches:
+        x = torch.from_numpy(batch["pcm"]).to(trainer.device).float() / 32768.0
+        with torch.no_grad(), fp32_math():
+            got = F.cmvn(audio_features(x, cfg))
+            want = F.cmvn(audio_features_reference(x, cfg))
+            err = compare(got, want, f"K1 at training crop {tuple(x.shape)}")
+            row = rows.get(x.shape[1])
+            if row is None:
+                ms = time_ms(lambda: audio_features(x, cfg), iters=20)
+                b_ms, by = bound(front_end_work(*x.shape, cfg), peaks)
+                row = rows[x.shape[1]] = {"shape": list(x.shape), "n_frames": batch["n_frames"],
+                                          "batches": 0, "max_abs_err": 0.0, "ms": ms,
+                                          "bound_ms": b_ms, "bound_by": by}
+        row["batches"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    return sorted(rows.values(), key=lambda r: r["n_frames"])
+
+
+def _unit64(x: torch.Tensor) -> torch.Tensor:
+    x = x.detach().double()
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+@contextlib.contextmanager
+def bf16_audit(model, criterion, record: dict):
+    """Hold a bf16 forward to the recipe, filling ``record`` with the worst
+    reading of each rule: every conv block computes in bf16
+    (``blocks_bf16``); every BN takes its batch statistics in >= f32
+    (``stat_err``: against float64 statistics of its input, the mean in
+    units of the standard deviation, the variance relative, both with the
+    BN's eps); the pooled statistics are >= f32 (``pool_err``: against the
+    same pooling in float64, relative to its largest value); the cosine
+    logits are FP32 (``head_err``: against float64)."""
+    record.update(blocks_bf16=True, stat_err=0.0, pool_err=0.0, head_err=0.0)
+    inputs: dict = {}
+
+    def block_out(mod, args, out):
+        record["blocks_bf16"] &= out.dtype == torch.bfloat16
+
+    def bn_in(mod, args):
+        inputs[mod] = args[0].detach()
+
+    def pool_out(mod, args, kwargs, out):
+        want = type(mod).forward(mod, args[0].detach().double(), kwargs.get("lengths"))
+        err = float((out.detach().double() - want).abs().max() / want.abs().max())
+        record["pool_err"] = max(record["pool_err"], err)
+
+    def head_out(mod, args, kwargs, out):
+        emb = args[0] if args else kwargs["embeddings"]
+        want = _unit64(emb) @ _unit64(mod.weights).T
+        record["head_err"] = max(record["head_err"],
+                                 float((out[1].detach().double() - want).abs().max()))
+
+    update = TorchBatchNorm.update_running
+
+    def audited_update(self, mean, var, n):
+        x = inputs.pop(self).double()
+        x = x.reshape(-1, x.shape[-1])
+        m, v = x.mean(0), x.var(0, unbiased=False)
+        sd = (v + self.eps).sqrt()
+        err = max(float(((mean.detach().double() - m).abs() / sd).max()),
+                  float(((var.detach().double() - v).abs() / sd ** 2).max()))
+        record["stat_err"] = max(record["stat_err"], err)
+        return update(self, mean, var, n)
+
+    hooks = [blk.register_forward_hook(block_out) for blk in model.tdnn]
+    hooks += [m.register_forward_pre_hook(bn_in) for m in model.modules()
+              if isinstance(m, TorchBatchNorm)]
+    hooks.append(model.pooling.register_forward_hook(pool_out, with_kwargs=True))
+    hooks.append(criterion.register_forward_hook(head_out, with_kwargs=True))
+    TorchBatchNorm.update_running = audited_update
+    try:
+        yield record
+    finally:
+        TorchBatchNorm.update_running = update
+        for h in hooks:
+            h.remove()
+
+
+def bf16_audit_failures(record: dict) -> list:
+    """The rules of :func:`bf16_audit` that ``record`` breaks."""
+    return [name for name, hit in (
+        ("blocks_bf16", not record["blocks_bf16"]),
+        ("stat_err", record["stat_err"] > BF16_STAT_RTOL),
+        ("pool_err", record["pool_err"] > BF16_POOL_RTOL),
+        ("head_err", record["head_err"] > BF16_HEAD_ATOL)) if hit]
+
+
+def _bn_stats_in_bf16(self, x):
+    """TorchBatchNorm's forward with a bf16 input's statistics taken in bf16."""
+    if not (self.training and x.dtype == torch.bfloat16):
+        return _bn_forward(self, x)
+    red = tuple(range(x.ndim - 1))
+    mean = x.mean(red)
+    var = ((x - mean) ** 2).mean(red)
+    self.update_running(mean.float(), var.float(), x.numel() // x.shape[-1])
+    y = (x - mean) * torch.rsqrt(var.float() + self.eps).to(x.dtype)
+    return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+
+
+_bn_forward = TorchBatchNorm.forward
+
+
+@contextlib.contextmanager
+def planted_bf16_fault(fault: str, model):
+    """One way for the bf16 recipe to go wrong, for the bf16 bars to catch:
+    BN statistics taken in bf16, statistics pooling in bf16, or the cosine
+    logits in bf16 or in TF32."""
+    cosines = softmax_losses._CosineHead.cosines
+
+    def tf32_cosines(self, emb):
+        matmul = torch.backends.cuda.matmul
+        saved, matmul.allow_tf32 = matmul.allow_tf32, True
+        try:
+            return cosines(self, emb)
+        finally:
+            matmul.allow_tf32 = saved
+
+    def bf16_cosines(self, emb):
+        return torch.matmul(softmax_losses._unit(emb).bfloat16(),
+                            softmax_losses._unit(self.weights).bfloat16().T).float()
+
+    pool = model.pooling.forward
+    if fault == "bn_stats_bf16":
+        TorchBatchNorm.forward = _bn_stats_in_bf16
+    elif fault == "pool_bf16":
+        model.pooling.forward = lambda x, lengths=None: pool(x.bfloat16(), lengths).float()
+    elif fault in ("head_bf16", "head_tf32"):
+        softmax_losses._CosineHead.cosines = (bf16_cosines if fault == "head_bf16"
+                                              else tf32_cosines)
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        TorchBatchNorm.forward = _bn_forward
+        softmax_losses._CosineHead.cosines = cosines
+        model.pooling.__dict__.pop("forward", None)
+
+
+def audio_step_phase(trainer, smi: str, peaks) -> dict:
+    """A K1 step against a plain-front-end step and a bf16 step from one
+    state; then ms per step at bs 256 x ``STEP_FRAMES``, in bf16 and f32,
+    K1's share, peak memory and one profiled bf16 step."""
+    cfg, margin, dev = trainer.feat_cfg, trainer.init_margin, trainer.device
+    configured = trainer.compute_dtype
+    sids = next(trainer.pipeline.sampler.epoch(1))[0]
+    batches = {n: trainer.pipeline._assemble(sids, n, (7, n)) for n in STEP_FRAMES}
+    labels = torch.from_numpy(batches[300]["labels"]).to(dev)
+    params = [(f"model.{n}", p) for n, p in trainer.model.named_parameters()] + [
+        (f"criterion.{n}", p) for n, p in trainer.criterion.named_parameters()]
+    state = (copy.deepcopy(trainer.model.state_dict()),
+             copy.deepcopy(trainer.criterion.state_dict()),
+             copy.deepcopy(trainer.optimizer.state_dict()), trainer.step)
+
+    def restore():
+        trainer.model.load_state_dict(state[0])
+        trainer.criterion.load_state_dict(state[1])
+        trainer.optimizer.load_state_dict(state[2])
+        trainer.step = state[3]
+        trainer.compute_dtype = configured
+
+    def step(pcm, dtype):
+        """One step from ``state``: its loss and gradients; the state is
+        restored after it."""
+        trainer.compute_dtype = dtype
+        loss = float(trainer.train_step(pcm, labels, margin)["loss"])
+        grads = {n: p.grad.detach().clone() for n, p in params}
+        restore()
+        return loss, grads
+
+    pcm = torch.from_numpy(batches[300]["pcm"]).to(dev).float() / 32768.0
+    # an elementwise relative nudge: a common scale of the PCM would vanish
+    # in the log-mel's CMVN
+    gen = torch.Generator(device=dev).manual_seed(3)
+    nudged = pcm * (1.0 + NUDGE * torch.randn(pcm.shape, generator=gen, device=dev))
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        zero_fbank_counts()
+        loss_k, grads_k = step(pcm, None)
+        check(fbank_counts() == {"fft": 1, "dft": 0},
+              f"a kernel step launched {fbank_counts()}: one FFT-kernel launch expected")
+        with plain_front_end():
+            loss_p, grads_p = step(pcm, None)
+            loss_n, grads_n = step(nudged, None)
+        check(fbank_counts() == {"fft": 1, "dft": 0}, "the plain steps launched a kernel")
+        audit: dict = {}
+        with bf16_audit(trainer.model, trainer.criterion, audit):
+            loss_b, grads_b = step(pcm, torch.bfloat16)
+        planted = {}
+        for fault in BF16_FAULTS:
+            record: dict = {}
+            with planted_bf16_fault(fault, trainer.model), \
+                    bf16_audit(trainer.model, trainer.criterion, record):
+                loss_f, grads_f = step(pcm, torch.bfloat16)
+            rel = abs(loss_f - loss_k) / abs(loss_k)
+            planted[fault] = {"loss_rel": rel, "grad_distance": grad_distance(grads_f, grads_k),
+                              "audit": record, "caught_by": bf16_audit_failures(record)
+                              + (["loss"] if rel > BF16_LOSS_BAR else [])}
+            del grads_f
+    loss_rel, bf16_rel = abs(loss_k - loss_p) / abs(loss_p), abs(loss_b - loss_k) / abs(loss_k)
+    d_kp, d_np = grad_distance(grads_k, grads_p), grad_distance(grads_n, grads_p)
+    d_bf16 = grad_distance(grads_b, grads_k)
+    worst = {k: worst_tensor(g, grads_p) for k, g in (("kernel", grads_k), ("nudge", grads_n))}
+    del grads_k, grads_p, grads_n, grads_b
+    log(f"audio step, K1 vs plain front-end at bs {BATCH} x 300 (f32, TF32 off, cuDNN "
+        f"deterministic): loss {loss_k:.8f} vs {loss_p:.8f} ({loss_rel:.2e} relative, bar "
+        f"{AUDIO_STEP_LOSS_RTOL}; nudged PCM {loss_n:.8f}); gradient distance from the plain "
+        f"step: K1 {d_kp:.3e}, plain with the PCM nudged by {NUDGE} {d_np:.3e} (ratio "
+        f"{d_kp / d_np:.2f}, bar {NUDGE_FACTOR}); worst tensor, of its plain largest: "
+        + ", ".join(f"{k} {v:.2e} ({n})" for k, (v, n) in worst.items())
+        + f"; bf16 step loss {loss_b:.6f}, {bf16_rel:.2e} from the f32 step (bars "
+        f"{BF16_LOSS_BAR} and {BF16_LOSS_RTOL}), gradient distance {d_bf16:.3e} (bar "
+        f"{BF16_GRAD_BAR}), audit "
+        + json.dumps(audit))
+    for fault, r in planted.items():
+        log(f"  planted bf16 fault {fault}: loss {r['loss_rel']:.2e} from the f32 step, "
+            f"gradient distance {r['grad_distance']:.3e}, audit {json.dumps(r['audit'])}; "
+            f"caught by {r['caught_by']}")
+    check(loss_rel <= AUDIO_STEP_LOSS_RTOL, f"K1-step loss {loss_k} vs plain {loss_p}: "
+          f"{loss_rel:.3e} relative, bar {AUDIO_STEP_LOSS_RTOL}")
+    check(d_kp <= NUDGE_FACTOR * d_np, f"K1-step gradients {d_kp:.3e} of the plain norm from "
+          f"the plain step; a {NUDGE} nudge of the PCM moves them {d_np:.3e}; bar "
+          f"{NUDGE_FACTOR} x that")
+    check(bf16_rel <= min(BF16_LOSS_RTOL, BF16_LOSS_BAR), f"bf16 step loss {loss_b} vs f32 "
+          f"{loss_k}: {bf16_rel:.3e} relative, bar {min(BF16_LOSS_RTOL, BF16_LOSS_BAR)}")
+    check(d_bf16 <= BF16_GRAD_BAR, f"bf16 step gradients {d_bf16:.3e} of the f32 norm from "
+          f"the f32 step, bar {BF16_GRAD_BAR}")
+    check(not bf16_audit_failures(audit), f"the bf16 step breaks its recipe: {audit}")
+    check(all(r["caught_by"] for r in planted.values()),
+          "planted bf16 faults passed every bar: "
+          + ", ".join(f for f, r in planted.items() if not r["caught_by"]))
+
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for n in STEP_FRAMES:
+        pcm16 = torch.from_numpy(batches[n]["pcm"]).to(dev)
+        x = pcm16.float() / 32768.0
+        k1_ms = time_ms(lambda: audio_features(x, cfg), iters=20)
+        k1_bound, by = bound(front_end_work(*x.shape, cfg), peaks)
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+            trainer.compute_dtype = dtype
+            ms = time_ms(lambda: trainer.train_step(pcm16, labels, margin), iters=5, warmup=2)
+            rows.append({"n_frames": n, "dtype": name, "step_ms": ms,
+                         "crops_per_sec": BATCH / ms * 1e3, "k1_ms": k1_ms,
+                         "k1_share": k1_ms / ms, "k1_bound_ms": k1_bound, "k1_bound_by": by})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in rows:
+        log(f"audio train step, bs {BATCH} x {r['n_frames']} {r['dtype']}: {r['step_ms']:.2f} "
+            f"ms, {r['crops_per_sec']:.1f} crops/s; K1 {r['k1_ms']:.4f} ms = {r['k1_share']:.2%} "
+            f"of the step (the function's bound {r['k1_bound_ms']:.4f} ms, {r['k1_bound_by']}) "
+            f"[{smi}]")
+    log(f"audio train steps: peak {peak_gb:.2f} GB allocated [{smi}]")
+
+    trainer.compute_dtype = torch.bfloat16
+    pcm16 = torch.from_numpy(batches[300]["pcm"]).to(dev)
+    trainer.train_step(pcm16, labels, margin)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(pcm16, labels, margin)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kernels, kinds = {}, {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
+            kind = next(k for k, pat in AUDIO_KINDS if pat.search(ev.key))
+            kinds[kind] = kinds.get(kind, 0.0) + dev_us / 1e3
+    # the operators that launched them, by their own kernels' device time
+    ops = sorted(((ev.self_device_time_total / 1e3, ev.key, ev.count)
+                  for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CPU
+                  and (getattr(ev, "self_device_time_total", 0) or 0) > 0),
+                 key=lambda t: -t[0])[:12]
+    busy = sum(kernels.values())
+    restore()
+    if busy > 0:
+        log(f"profiled bf16 audio step at bs {BATCH} x 300: {prof_wall:.2f} ms wall, "
+            f"{busy:.2f} ms of device kernels ({busy / prof_wall:.1%} busy, "
+            f"{1 - busy / prof_wall:.1%} idle); by kind: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+            + f" [{smi}]")
+        log("  top kernels:")
+        for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"  {ms:9.3f} ms  {name[:150]}")
+        log("  top operators (their own kernels' device time, calls):")
+        for ms, name, count in ops:
+            log(f"  {ms:9.3f} ms  {name} x{count}")
+    else:
+        log("profiled audio step: the profiler saw no device time (not measured)")
+    return {"loss_rel": loss_rel, "grad_distance": d_kp, "nudge_distance": d_np,
+            "bf16_loss_rel": bf16_rel, "bf16_grad_distance": d_bf16, "bf16_audit": audit,
+            "bf16_planted": planted, "step_losses": {"kernel": loss_k, "plain": loss_p,
+                                                       "nudged": loss_n, "bf16": loss_b},
+            "worst_tensor": {k: list(v) for k, v in worst.items()}, "timings": rows,
+            "peak_gb": peak_gb, "profiled_wall_ms": prof_wall, "profiled_busy_ms": busy,
+            "profiled_by_kind_ms": kinds,
+            "profiled_top_ops_ms": [[name, ms, count] for ms, name, count in ops]}
+
+
+def audio_train_phase(smi: str, peaks) -> dict:
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        manifest, trials = write_train_corpus(root)
+        corpus_s = time.perf_counter() - t0
+        cfg_path = audio_train_config(root, manifest, trials)
+        zero_fbank_counts()
+        t0 = time.perf_counter()
+        trainer, out = train_audio_cli.main(["--config", cfg_path, "--mode", "train",
+                                             "--exp-root", os.path.join(root, "exp"),
+                                             "--log-time", "run"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fbank_counts()
+        eval_set = EvalUtteranceSet(utterances_from_trials(trials, root),
+                                    **eval_set_kwargs(trainer.feat_cfg, trainer.test_opts))
+        n_eval = sum(1 for _ in eval_set.batches())
+        steps, bpe = trainer.step, trainer.pipeline.batches_per_epoch()
+        lengths = [n for e in range(1, TRAIN_EPOCHS + 1)
+                   for _, n in trainer.pipeline.sampler.epoch(e)]
+        check(trainer.compute_dtype == torch.bfloat16 and trainer.batch_size == BATCH
+              and len(trainer.pipeline.sampler.buckets) == 11
+              and trainer.pipeline._resolve_transport() == "int16",
+              "the trainer did not take conf/audio_config.yaml's recipe")
+        check(steps == TRAIN_EPOCHS * bpe, f"{steps} steps for {TRAIN_EPOCHS} x {bpe} batches")
+        check(counts == {"fft": steps + n_eval, "dft": 0},
+              f"front-end launches {counts} for {steps} train steps and {n_eval} extraction "
+              "batches")
+        losses = out["losses"]
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              f"train losses {losses}")
+        for tag in [f"net_{e}" for e in range(1, TRAIN_EPOCHS + 1)] + ["net_avg"]:
+            check(os.path.exists(os.path.join(trainer.exp_dir, tag)), f"no {tag} written")
+        check(math.isfinite(out["eer"]) and 0.0 <= out["eer"] <= 1.0, f"EER {out['eer']}")
+        log(f"audio training through cli/train_audio.py (conf/audio_config.yaml: flagship "
+            f"E-TDNN, LMCL, SGD, bf16, bs {BATCH}): {TRAIN_SPEAKERS} speakers x {TRAIN_UTTS} "
+            f"training wavs (and {len(TRAIN_TEST_UTTS)} held out for the trial list) written "
+            f"in {corpus_s:.1f} s; {TRAIN_EPOCHS} epochs x {bpe} steps, crop "
+            f"lengths {lengths}, losses {', '.join(f'{v:.4f}' for v in losses)}; averaged "
+            f"net_1..net_{TRAIN_EPOCHS} into net_avg; {n_eval} extraction batches; EER "
+            f"{out['eer']:.4f} (held-out utterances); front-end launches {counts}; "
+            f"{wall:.1f} s wall [{smi}]")
+        shapes = k1_training_shapes(trainer, peaks)
+        log("K1 at the training crop shapes (CMVN after, atol 2e-4 / rtol 1e-3): " + ", ".join(
+            f"{r['shape']} x{r['batches']}: err {r['max_abs_err']:.2e}, {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f}, {r['bound_by']})" for r in shapes) + f" [{smi}]")
+        step = audio_step_phase(trainer, smi, peaks)
+    return {"launches": counts, "steps": steps, "batches_per_epoch": bpe,
+            "extraction_batches": n_eval, "crop_lengths": lengths, "losses": losses,
+            "eer": out["eer"], "wall_s": wall, "k1_shapes": shapes, **step}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1882,6 +2406,8 @@ def main() -> int:
     sweep = sweep_phase(main_path["extractor"])
     del main_path["extractor"]
     torch.cuda.empty_cache()
+    audio_train = audio_train_phase(dev["smi"], peaks)
+    torch.cuda.empty_cache()
     bn = bn_prelu_phase(peaks)
     pool = maxpool_phase(peaks)
     video = video_main_path_phase()
@@ -1893,12 +2419,14 @@ def main() -> int:
         "launches_sweep": sweep["launches"]["fft"],
         "launches_av_serving": av["launches"]["fused_fbank"],
         "launches_microbatch": av["microbatch"]["launches"],
+        "launches_audio_train": audio_train["launches"]["fft"],
     }
     dft_launches = {
         "launches": main_path["launches"]["fused_fbank_dft"],
         "launches_sweep": sweep["launches"]["dft"],
         "launches_av_serving": av["launches"]["fused_fbank_dft"],
         "launches_microbatch": av["microbatch"]["launches_dft"],
+        "launches_audio_train": audio_train["launches"]["dft"],
     }
     fbank_common = {
         "route": "cuda",
@@ -1919,6 +2447,11 @@ def main() -> int:
         **launches,
         "max_abs_err": kern["max_abs_err"]["fft"],
         "max_abs_err_mel_band0": kern["band0_err"],
+        "max_abs_err_audio_train": max(r["max_abs_err"] for r in audio_train["k1_shapes"]),
+        "audio_train_note": "launches_audio_train: one a train step plus one an extraction "
+                            "batch; audio_train_shapes: K1 at each crop shape of the epochs, "
+                            "CMVN after, with its time and the function's bound",
+        "audio_train_shapes": audio_train["k1_shapes"],
         "largest_error": kern["worst"],
         "dc_bin_vs_float64": kern["dc_witness"],
         "ms": kern["ms"]["fft"],
@@ -2004,6 +2537,7 @@ def main() -> int:
         "av_kernel_vs_plain_parts": av["part_err"],
         "av_chunk_split_ms": av["chunk_split_ms"],
         "microbatch": av["microbatch"],
+        "audio_train": {k: v for k, v in audio_train.items() if k != "k1_shapes"},
     }
     print(json.dumps(summary), flush=True)
     print(json.dumps(kernels), flush=True)

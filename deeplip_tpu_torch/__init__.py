@@ -6,14 +6,17 @@ its tests import both, to hold the two against each other.
 
 Implemented so far: the audio verification path, from PCM16 wavs to a
 cosine-scored EER, with the fused PCM→MFCC front-end as a hand-written CUDA
-kernel (``csrc/fbank_kernel.cu``); and the video (Lipreading) training step
+kernel (``csrc/fbank_fft_kernel.cu``, and ``csrc/fbank_kernel.cu`` for an
+``n_fft`` that is no power of two); and the video (Lipreading) training step
 and clip embedder, with the fused train-mode BN+PReLU forward and backward
 as hand-written CUDA kernels (``csrc/bn_prelu_kernel.cu``); and the
 audio-visual verification serving path (paired extraction, the fusion
 heads, AS-norm, ``serve.AVSpeakerVerifier``, ``serve.SpeakerVerifier`` behind
 ``serve.MicroBatcher``, ``cli/verify.py``), with the Lipreading frontend's
 max-pool, forward and backward, as hand-written CUDA kernels
-(``csrc/maxpool_kernel.cu``).
+(``csrc/maxpool_kernel.cu``); and audio x-vector training
+(``train.audio.AudioTrainer``, ``cli/train_audio.py``), whose every step
+runs the front-end kernel on its PCM crops.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,19 @@
-"""Test-time audio batches: the host assembles raw PCM, the device does DSP.
+"""Audio train and test batches: the host assembles raw PCM, the device
+does the DSP.
 
-Counterpart of the evaluation half of ``deeplip_tpu/data/audio_pipeline.py``.
-Full test utterances are grouped into length buckets, zero-padded and
-batched with valid-length vectors: with VALID convolutions and masked
-pooling the padded batch reproduces per-utterance results exactly.
+Counterpart of ``deeplip_tpu/data/audio_pipeline.py``.
+
+- Training (:class:`AudioTrainPipeline`): per batch a crop length from the
+  bucket grid (``data.sampler``); per sampled speaker, random-offset reads
+  of random utterances of that speaker, concatenated until the crop is
+  full (:func:`assemble_speaker_crop`); labels are the speaker ids. The
+  batches ship as ``(B, samples)`` PCM and the train step extracts features
+  on the device. The numpy draws are the JAX package's, so the batches are
+  bit-equal to its pipeline's for the same manifest and seed.
+- Test (:class:`EvalUtteranceSet`): full utterances are grouped into length
+  buckets, zero-padded and batched with valid-length vectors: with VALID
+  convolutions and masked pooling the padded batch reproduces
+  per-utterance results exactly.
 """
 
 from __future__ import annotations
@@ -17,9 +27,132 @@ import numpy as np
 from deeplip_tpu_torch.data.audio_io import (read_wav, read_wav_int16,
                                              resample, resampled_length,
                                              wav_format)
+from deeplip_tpu_torch.data.manifest import SpeakerManifest
 from deeplip_tpu_torch.data.prefetch import ThreadedPrefetcher
+from deeplip_tpu_torch.data.sampler import SpeakerBatchSampler
 from deeplip_tpu_torch.ops.framing import (frame_len_step, num_frames,
                                            samples_for_frames)
+
+
+def assemble_speaker_crop(rng, speaker, samples_num: int, reader,
+                          first_utt_out: list | None = None) -> np.ndarray:
+    """Random crop-and-concat of one speaker's utterances to exactly
+    ``samples_num`` samples (the reference collate's semantics).
+
+    ``first_utt_out``: optional 1-slot list receiving the first sampled
+    utterance. Only the still-needed samples are read, which gives the
+    reference's concatenation prefix (it reads start→EOF and truncates)."""
+    pieces, n = [], 0
+    while n < samples_num:
+        utt = speaker[rng.integers(0, len(speaker))]
+        if first_utt_out is not None and not first_utt_out:
+            first_utt_out.append(utt)
+        start = int(rng.uniform(0, utt.duration) * utt.rate)
+        y, _ = reader(utt.path, start=start, stop=start + (samples_num - n))
+        if len(y):
+            pieces.append(y)
+            n += len(y)
+    return np.concatenate(pieces)[:samples_num]
+
+
+class AudioTrainPipeline:
+    """Speaker-balanced random-crop PCM batches, prefetched on host threads.
+
+    ``transport="int16"`` ships the crops as PCM16 (half the float32 bytes;
+    the train step rescales on the device). ``"auto"`` probes every manifest
+    header once and resolves to int16 exactly when every utterance is an
+    integer-PCM16 WAV at the pipeline's rate read by the stock reader: then
+    ``round(y·32768)`` recovers each stored sample and the device's
+    power-of-two rescale gives bit-identical float32 PCM. A custom reader
+    or another source resolves to float32.
+    """
+
+    def __init__(
+        self,
+        manifest: SpeakerManifest,
+        batch_size: int,
+        frame_range: tuple[int, int] = (200, 400),
+        win_len: float = 0.025,
+        win_shift: float = 0.01,
+        rate: int = 16000,
+        n_buckets: int = 11,
+        seed: int = 0,
+        num_workers: int = 8,
+        reader: Callable = read_wav,
+        bucket_run: int = 1,
+        transport: str = "float32",
+    ):
+        if transport not in ("float32", "int16", "auto"):
+            raise ValueError(
+                f"transport must be float32|int16|auto, got {transport!r}")
+        self.manifest = manifest
+        self.rate = rate
+        self.win_len = win_len
+        self.win_shift = win_shift
+        self.reader = reader
+        epoch_len = manifest.epoch_length(np.mean(frame_range), win_len, win_shift)
+        self.sampler = SpeakerBatchSampler(
+            manifest.n_spk, max(epoch_len, batch_size), batch_size,
+            frame_range, n_buckets, seed, bucket_run=bucket_run,
+        )
+        self.num_workers = num_workers
+        self.transport = transport
+        self._resolved_transport = None if transport == "auto" else transport
+
+    def _resolve_transport(self) -> str:
+        """Resolve ``"auto"`` by probing every manifest wav header once
+        (threaded; fmt-chunk reads only)."""
+        if self._resolved_transport is None:
+            def probe(utt):
+                if self.reader is not read_wav or utt.rate != self.rate:
+                    return False
+                fmt = wav_format(utt.path)
+                return fmt is not None and fmt[0] == 1 and fmt[1] == 16
+
+            utts = [u for spk in self.manifest.speakers for u in spk]
+            ok = all(ThreadedPrefetcher(utts, probe, num_workers=self.num_workers))
+            self._resolved_transport = "int16" if (utts and ok) else "float32"
+        return self._resolved_transport
+
+    @property
+    def n_spk(self) -> int:
+        return self.manifest.n_spk
+
+    def batches_per_epoch(self) -> int:
+        return self.sampler.batches_per_epoch()
+
+    def _assemble(self, sids: np.ndarray, n_frames: int, seed: tuple) -> dict:
+        rng = np.random.default_rng(seed)
+        samples_num = samples_for_frames(n_frames, self.win_len, self.win_shift, self.rate)
+        i16 = self._resolve_transport() == "int16"
+        if i16 and self.reader is read_wav:
+            # read the stored PCM16 integers raw: the same rng draws give
+            # the same samples with no float round trip
+            batch = np.zeros((len(sids), samples_num), np.int16)
+            reader = read_wav_int16
+        else:
+            batch = np.zeros((len(sids), samples_num), np.float32)
+            reader = self.reader
+        for row, sid in enumerate(sids):
+            batch[row] = assemble_speaker_crop(
+                rng, self.manifest.speakers[sid], samples_num, reader)
+        if i16 and batch.dtype != np.int16:
+            # exact for PCM16-origin samples: y·32768 lands on the stored
+            # integer, and the step's i/32768 is a power-of-two division
+            np.multiply(batch, 32768.0, out=batch)
+            np.rint(batch, out=batch)
+            np.clip(batch, -32768.0, 32767.0, out=batch)
+            batch = batch.astype(np.int16)
+        return {"pcm": batch, "labels": sids.astype(np.int64), "n_frames": n_frames}
+
+    def epoch(self, epoch_idx: int) -> Iterator[dict]:
+        """Yields ``{pcm (B, S), labels (B,), n_frames}`` for one epoch."""
+        schedule = [
+            (sids, n_frames, (self.sampler.seed, epoch_idx, i))
+            for i, (sids, n_frames) in enumerate(self.sampler.epoch(epoch_idx))
+        ]
+        yield from ThreadedPrefetcher(schedule, self._assemble,
+                                      num_workers=self.num_workers)
 
 
 @dataclass

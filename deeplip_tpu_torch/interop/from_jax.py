@@ -9,6 +9,9 @@ arrays.
 
 - :func:`speaker_embnet_state_dict` computes the same dict as
   ``deeplip_tpu.interop.torch_export.export_speaker_embnet_state_dict``;
+- :func:`criterion_state_dict` the same dict as
+  ``export_criterion_state_dict`` (LMCL/AAM/A-Softmax ``weights``;
+  CrossEntropy ``fc.weight``/``fc.bias``);
 - :func:`lipreading_state_dict` the same dict as
   ``export_lipreading_state_dict`` (ResNet trunk; multi- or single-branch
   TCN);
@@ -65,6 +68,18 @@ def speaker_embnet_state_dict(params: Mapping[str, Any],
         _conv(out, name, params[name])
     for name in ("bn1", "bn2"):
         _bn(out, name, params[name], batch_stats[name])
+    return out
+
+
+def criterion_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX criterion params -> the port's criterion state dict."""
+    out: dict[str, torch.Tensor] = {}
+    if "fc" in params:
+        _conv(out, "fc", params["fc"])
+    elif "weights" in params:
+        out["weights"] = _t(params["weights"])
+    else:
+        raise ValueError(f"not a criterion param tree: keys {sorted(params)}")
     return out
 
 

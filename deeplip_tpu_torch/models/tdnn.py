@@ -17,6 +17,13 @@ block transposes to NCW only around its ``Conv1d``.
 ``extract_embedding`` returns ``(xv, x_a)``: ``xv`` is the second FC output
 (the margin-loss embedding) and ``x_a`` the first FC pre-activation (the
 CrossEntropy embedding); ``forward`` additionally applies bn2 + activation.
+
+``compute_dtype`` (the Flax model's ``dtype`` field) sets the conv blocks'
+compute type: with ``torch.bfloat16`` they convolve bf16 activations with
+bf16 casts of the float32 parameters, BN takes its statistics in >= f32
+and normalises in bf16, and the activations are cast back to >= f32 before
+pooling, so pooling and the FC head run in f32 (f64 runs stay f64). The
+default, None, computes in the input's type.
 """
 
 from __future__ import annotations
@@ -61,7 +68,10 @@ class TDNNBlock(nn.Module):
         self.bn_first = bn_first
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.context_layer(x.transpose(1, 2)).transpose(1, 2)
+        conv = self.context_layer
+        # the parameters are cast to the input's (compute) dtype
+        y = F.conv1d(x.transpose(1, 2), conv.weight.to(x.dtype),
+                     conv.bias.to(x.dtype), dilation=conv.dilation).transpose(1, 2)
         if self.bn_first:
             return _act(self.bn(y))
         return self.bn(_act(y))
@@ -130,11 +140,16 @@ class SpeakerEmbNet(nn.Module):
     def valid_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
         return torch.clamp(lengths - (self.receptive_field - 1), min=1)
 
-    def extract_embedding(self, x: torch.Tensor, lengths=None
+    def extract_embedding(self, x: torch.Tensor, lengths=None,
+                          compute_dtype: torch.dtype | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
         """``(B, T, D) -> (xv, x_a)``: margin-loss / CrossEntropy taps."""
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
         for blk in self.tdnn:
             x = blk(x)
+        # statistics pooling and the FC head stay >= float32
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         pooled_lengths = None if lengths is None else self.valid_lengths(lengths)
         x = self.pooling(x, lengths=pooled_lengths)
         x_a = self.fc1(x)
@@ -144,8 +159,9 @@ class SpeakerEmbNet(nn.Module):
             x = self.bn1(_act(x_a))
         return self.fc2(x), x_a
 
-    def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
-        xv, _ = self.extract_embedding(x, lengths=lengths)
+    def forward(self, x: torch.Tensor, lengths=None,
+                compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+        xv, _ = self.extract_embedding(x, lengths=lengths, compute_dtype=compute_dtype)
         if self.bn_first:
             return _act(self.bn2(xv))
         return self.bn2(_act(xv))

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its entry points run on the card unless the caller asks for the CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -15,7 +16,7 @@ from deeplip_tpu_torch.core.device import resolve_device
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore, TrialList, cosine_eer
 from deeplip_tpu_torch.eval.snorm import asnorm_trial_scores
 from deeplip_tpu_torch.serve import AVSpeakerVerifier, ProfileVerifier, SpeakerVerifier
-from deeplip_tpu_torch.train.audio import AudioExtractor
+from deeplip_tpu_torch.train.audio import AudioExtractor, AudioTrainer
 from deeplip_tpu_torch.train.fusion import FusionTrainer
 from deeplip_tpu_torch.train.video import VideoTrainer
 
@@ -31,6 +32,14 @@ _PROBE = textwrap.dedent("""
         deeplip_tpu_torch.__path__, "deeplip_tpu_torch.")]
     for name in names + ["chip_smoke"]:
         importlib.import_module(name)
+    audio_training = [
+        "deeplip_tpu_torch.losses.softmax", "deeplip_tpu_torch.losses.triplet",
+        "deeplip_tpu_torch.data.manifest", "deeplip_tpu_torch.data.sampler",
+        "deeplip_tpu_torch.data.audio_pipeline", "deeplip_tpu_torch.train.schedules",
+        "deeplip_tpu_torch.train.state", "deeplip_tpu_torch.train.checkpoint",
+        "deeplip_tpu_torch.train.audio", "deeplip_tpu_torch.eval.plda",
+        "deeplip_tpu_torch.cli.common", "deeplip_tpu_torch.cli.train_audio"]
+    assert set(audio_training) <= set(names), sorted(set(audio_training) - set(names))
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0].startswith("jax")
                  or m == "deeplip_tpu" or m.startswith("deeplip_tpu."))
@@ -108,3 +117,20 @@ def test_serving_entry_points_raise_without_a_card(monkeypatch):
     # asked for the CPU, they run there
     assert SpeakerVerifier(audio_cfg, device="cpu").extractor.device == torch.device("cpu")
     assert asnorm_trial_scores(emb, [[0, 1]], emb, top_k=2, device="cpu").shape == (1,)
+
+
+def test_audio_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from deeplip_tpu_torch.cli import train_audio
+
+    _no_card(monkeypatch)
+    cfg = Config({"model": ETDNN_MODEL_OPTS, "train": {"loss": "LMCL"},
+                  "data": {"python_data_config": AUDIO_DATA_OPTS}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AudioTrainer(cfg, n_spk=4)
+    path = tmp_path / "audio.json"
+    path.write_text(json.dumps(cfg.to_dict()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_audio.main(["--config", str(path), "--mode", "test",
+                          "--exp-root", str(tmp_path)])
+    # asked for the CPU, they run there
+    assert AudioTrainer(cfg, n_spk=4, device="cpu").device == torch.device("cpu")
