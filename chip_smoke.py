@@ -95,6 +95,7 @@ without the package, it exits non-zero and prints no result. Phases:
    and a batch-1 verify's latency with host and with device scoring.
 
 11. Audio x-vector training at the full width of ``conf/audio_config.yaml``
+   (loaded from the file, as phase 10 loads ``conf/fusion_config.yaml``)
    (flagship E-TDNN, MFCC-24, LMCL scale 30 / margin 0.2, SGD, bs 256, crops
    of 200-400 frames in 11 buckets, bf16): a synthetic 128-speaker x 8
    PCM16 wav corpus of 2-5 s (and 2 wavs a speaker held out) and its
@@ -119,7 +120,42 @@ without the package, it exits non-zero and prints no result. Phases:
    200/300/400 in bf16 and f32 by CUDA events, K1's share of a step beside
    its bound, peak memory, and one profiled bf16 step's device time by kind.
 
-The phases run in the order 1-5, 11, 6, 9, 7, 8, 10. The last line is
+12. Fusion training at the full train width of ``conf/fusion_config.yaml``
+   (flagship E-TDNN and Lipreading, LowFER, CrossEntropy, SGD lr 0.5, bs 60,
+   2 clips x 32 frames, crops of 200-400 frames): a synthetic 64-speaker x 8
+   PCM16 wav corpus of 2-5 s with two 96x96 clips an utterance (none for
+   every 10th training utterance) and its manifest; encoders with seeded
+   weights and calibrated BN saved and named by the config's ``resume``
+   keys → ``cli/train_fusion.py --mode train`` for 2 epochs → the average
+   of the last 2 → the held-out trial list's EERs. Launch counts zeroed
+   before and read after: one FFT-kernel and one pool-forward launch per
+   train step and per extraction chunk, none of P backward, K3/K4 or the
+   DFT kernel. LowFER's dead ``U``/``V`` bit-equal before and after. One f32
+   step through K1 and P against one through the plain front-end and pool
+   from the same state (TF32 off): loss within 1e-5 relative, the head and
+   criterion gradients within 3x what a 1e-6 elementwise nudge of the PCM
+   and the frames moves the plain step. A bf16 step audited against
+   float64 (audio pooling and video group mean >= f32, criterion logits
+   f32) with three planted faults (each of those in bf16) that must be
+   caught. ms per step and pairs/s at 200/300/400 frames in f32 and bf16,
+   the parts' times, each alone (K1, P, the encoders, the head with its
+   backward and SGD), P at the
+   train shape against its bound and ``F.max_pool3d``, peak memory and one
+   profiled f32 step.
+13. bf16 video training: phase 7's corpus through ``cli/train_video.py
+   --compute-dtype bf16`` at bs 128 for one epoch, then ``--extract-feats``
+   from that checkpoint (one ``(1, T, 512)`` f32 npz per clip, equal to
+   ``VideoTrainer.extract_clip_features``). K3/K4 27 + 27 and P 1 + 1
+   launches per step, K3/K4 held against their plain versions at every
+   bf16 shape the epoch gave them (phase 6's bf16 bars). One bs 128 x 29
+   bf16 step against an f32 step from one state, the bf16 forward audited
+   against float64 (K3 statistics, the trunk's spatial mean, the TCN
+   convolutions, the logits) with three planted faults (statistics, trunk
+   mean, TCN in bf16) that must be caught; the bf16 and f32 step times in
+   turns, K3/K4's bf16 time per step beside its byte bound, one profiled
+   bf16 step with the frontend Conv3d's backward.
+
+The phases run in the order 1-5, 11, 6, 9, 7, 8, 10, 12, 13. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the ``kernels``
 JSON record.
 """
@@ -147,10 +183,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from deeplip_tpu_torch.cli import train_audio as train_audio_cli  # noqa: E402
 from deeplip_tpu_torch.cli.common import utterances_from_trials  # noqa: E402
-from deeplip_tpu_torch.cli.train_fusion import make_trainer  # noqa: E402
+from deeplip_tpu_torch.cli import train_fusion as train_fusion_cli  # noqa: E402
+from deeplip_tpu_torch.cli import train_video as train_video_cli  # noqa: E402
+from deeplip_tpu_torch.cli.train_fusion import build_video_map, make_trainer  # noqa: E402
 from deeplip_tpu_torch.core.config import (AUDIO_DATA_OPTS, ETDNN_MODEL_OPTS, Config,  # noqa: E402
-                                           load_fusion_config)
+                                           load_audio_config, load_fusion_config)
 from deeplip_tpu_torch.data.audio_io import read_wav, write_wav  # noqa: E402
+from deeplip_tpu_torch.data.fusion_pipeline import AVTrainPipeline  # noqa: E402
 from deeplip_tpu_torch.data.audio_pipeline import (EvalUtterance,  # noqa: E402
                                                    EvalUtteranceSet,
                                                    eval_set_kwargs)
@@ -167,12 +206,17 @@ from deeplip_tpu_torch.ops.cuda.fbank import (audio_features,  # noqa: E402
                                               audio_features_reference)
 from deeplip_tpu_torch.ops.framing import num_frames, samples_for_frames  # noqa: E402
 from deeplip_tpu_torch.models.norm import TorchBatchNorm  # noqa: E402
+from deeplip_tpu_torch.models.resnet import conv_nhwc  # noqa: E402
 from deeplip_tpu_torch.serve import AVSpeakerVerifier, MicroBatcher, SpeakerVerifier  # noqa: E402
 from deeplip_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from deeplip_tpu_torch.train.audio import AudioExtractor, fp32_math, masked_cmvn  # noqa: E402
-from deeplip_tpu_torch.train.fusion import embed_av_items  # noqa: E402
+from deeplip_tpu_torch.train import fusion as fusion_mod  # noqa: E402
+from deeplip_tpu_torch.train.fusion import FusionTrainer, embed_av_items  # noqa: E402
 from deeplip_tpu_torch.train.video import VideoTrainer  # noqa: E402
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+AUDIO_CONFIG_PATH = os.path.join(REPO, "conf", "audio_config.yaml")
+FUSION_CONFIG_PATH = os.path.join(REPO, "conf", "fusion_config.yaml")
 ATOL, RTOL = 2e-4, 1e-3          # kernel vs plain (tests/test_pallas_features.py bar)
 EMB_TOL = 1e-4                   # kernel-path vs plain-path embeddings
 LOMGRID_UTTS, LOMGRID_TRIALS, BATCH, SECONDS, RATE = 3541, 20000, 256, 3.0, 16000
@@ -546,7 +590,9 @@ def kernel_phase(peaks) -> dict:
                                        audio_features_reference(pcm, cfg510, lengths),
                                        what + ", n_fft 510"),
                 "plain_ms": time_ms(lambda: audio_features_reference(pcm, cfg510, lengths)),
-                "kernel_ms": time_ms(lambda: audio_features(pcm, cfg510, lengths))}
+                "kernel_ms": time_ms(lambda: audio_features(pcm, cfg510, lengths)),
+                "cufft_ms": time_ms(lambda: audio_features_reference(
+                    pcm, dataclasses.replace(cfg510, dft="fft"), lengths))}
     flops, nbytes = front_end_work(BATCH, s, cfg)
     fn_bound, fn_by = bound((flops, nbytes), peaks)
     algo_ms = {k: kernel_flops(BATCH, s, cfg, k) / peaks[0] * 1e3 for k in ("fft", "dft")}
@@ -565,7 +611,8 @@ def kernel_phase(peaks) -> dict:
     log(f"logfbank-60 at that batch: FFT kernel {v1['kernel_ms']:.4f} ms, plain "
         f"{v1['plain_ms']:.4f} ms, bound {v1['bound_ms']:.4f} ms ({v1['bound_by']}; the "
         f"kernel's own operations {v1['algorithm_ops_ms']:.4f} ms); n_fft 510: DFT kernel "
-        f"{d510['kernel_ms']:.4f} ms, plain {d510['plain_ms']:.4f} ms, bound "
+        f"{d510['kernel_ms']:.4f} ms, plain {d510['plain_ms']:.4f} ms, plain dft='fft' "
+        f"{d510['cufft_ms']:.4f} ms, bound "
         f"{d510['bound_ms']:.4f} ms ({d510['bound_by']}; the kernel's own operations "
         f"{d510['algorithm_ops_ms']:.4f} ms)")
     return {"max_abs_err": max_err, "band0_err": band0_err, "err_lomgrid": err, "ms": ms,
@@ -805,48 +852,6 @@ def sweep_phase(extractor: AudioExtractor) -> dict:
 
 
 # ---------------------------------------------------------------- phase 11
-# conf/audio_config.yaml as a dict (the card's machine reads no YAML);
-# tests/test_torch_audio_train.py holds it to the file
-_FEAT = {"n_fft": 512, "normalize": True, "delta": False, "win_len": 0.025, "win_shift": 0.01}
-AUDIO_CONFIG = {
-    "data": {
-        "frames": [200, 400],
-        "train_manifest": "data/manifest/train.csv",
-        "finetune_manifest": "data/manifest/finetune.csv",
-        "test_root": "data/test_wav",
-        "trial_grid": "database/trial_grid_v1.txt",
-        "trial_lomgrid": "database/trial_lomgrid_v1.txt",
-        "data_format": "python",
-        "python_data_config": {
-            "rate": 16000, "feat_type": "mfcc",
-            "fbank": {**_FEAT, "num_bin": 24, "energy": False},
-            "logfbank": {**_FEAT, "num_bin": 60, "energy": False},
-            "stft": dict(_FEAT),
-            "mfcc": {**_FEAT, "num_bin": 26, "energy": True, "num_cep": 24},
-        },
-    },
-    "model": {
-        "arch": "etdnn",
-        "tdnn": {"input_dim": 24, "hidden_dim": [512, 512, 512, 512, 1500],
-                 "context": [[-2, -1, 0, 1, 2], [-2, 0, 2], [-3, 0, 3], [0], [0]],
-                 "tdnn_layers": 5, "fc_layers": 3, "embedding_dim": 512,
-                 "pooling": "statistic", "attention_hidden_size": 64, "bn_first": True},
-        "etdnn": {**ETDNN_MODEL_OPTS["etdnn"], "fc_layers": 3},
-        "resnet": {"input_dim": 1, "hidden_dim": [64, 128, 256],
-                   "residual_block_layers": [3, 3, 3], "fc_layers": 1, "embedding_dim": 256,
-                   "pooling": "average"},
-    },
-    "train": {
-        "device": "tpu", "type": "sgd", "bs": 256, "lr_decay": 0.1, "lr_decay_step": [15, 25],
-        "epoch": 30, "collate": "length_varied", "compute_dtype": "bf16", "loss": "LMCL",
-        "scale": 30, "margin": [0.2, 0.2], "frame_buckets": 11, "steps_per_dispatch": 1,
-        "loader_workers": 8, "log_every": 20,
-        "sgd": {"init_lr": 0.01, "weight_decay": 1e-05, "momentum": 0.9},
-        "adam": {"init_lr": 0.01, "weight_decay": 1e-05}, "resume": None, "train_type": "None",
-    },
-    "test": {"train_plda": False, "eval_lomgrid": False, "eval_grid": True, "use_cos": True,
-             "use_plda": False, "bucket_frames": 100, "batch_size": 64},
-}
 TRAIN_SPEAKERS, TRAIN_UTTS, TRAIN_EPOCHS = 128, 8, 2
 # per speaker: the utterances of the trial list, written beside the 8 of
 # the manifest and held out of training
@@ -921,7 +926,7 @@ def write_train_corpus(root: str, seed: int = 0) -> tuple[str, str]:
 def audio_train_config(root: str, manifest: str, trials: str) -> str:
     """``conf/audio_config.yaml`` with its manifest and trial list in
     ``root`` and ``TRAIN_EPOCHS`` epochs, written as JSON; returns its path."""
-    cfg = copy.deepcopy(AUDIO_CONFIG)
+    cfg = load_audio_config(AUDIO_CONFIG_PATH).to_dict()
     cfg["data"].update(train_manifest=manifest, test_root=root, trial_grid=trials)
     cfg["train"]["epoch"] = TRAIN_EPOCHS
     path = os.path.join(root, "audio_config.json")
@@ -1565,8 +1570,7 @@ VIDEO_SPEAKERS, VIDEO_CLIPS, VIDEO_BATCH = 32, 8, 128
 
 
 def video_config() -> dict:
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "conf", "video_config.json")) as fh:
+    with open(os.path.join(REPO, "conf", "video_config.json")) as fh:
         return json.load(fh)
 
 
@@ -1974,17 +1978,6 @@ def video_step_phase(trainer: VideoTrainer, batch: dict, bn: dict) -> dict:
 AV_SPEAKERS, AV_UTTS = 32, 4     # per speaker: utterances 0-1 enrol, 2-3 probe and calibrate
 AV_PART_TOL = 1e-4               # kernel-path vs plain-path parts
 BATCHED_TOL = 1e-5               # an embedding served alone vs in a micro-batch
-# the model and test sections of conf/fusion_config.yaml (the card's
-# machine reads no YAML); tests/test_torch_av_e2e.py holds them to the file
-FUSION_MODEL = {
-    "audio_config": ETDNN_MODEL_OPTS,
-    "video_config": {"arch": "tcn", "tcn": {
-        "extract_feats": True, "backbone_type": "resnet", "width_mult": 1.0,
-        "relu_type": "prelu", "tcn_num_layers": 4, "tcn_kernel_size": [3, 5, 7],
-        "tcn_dropout": 0.2, "tcn_dwpw": False, "tcn_width_mult": 1}},
-}
-FUSION_TEST = {"eval_lomgrid": True, "eval_grid": True, "use_cos": True, "use_plda": False,
-               "use_fusion_head": False}
 
 
 def write_av_corpus(root: str, seed: int = 0) -> dict:
@@ -2016,19 +2009,18 @@ def write_av_corpus(root: str, seed: int = 0) -> dict:
 
 
 def fusion_config(root: str, resume: dict, use_fusion_head: bool) -> str:
-    """Write the fusion config as JSON and return its path."""
-    cfg = {
-        "data": {"video_root": os.path.join(root, "video"),
-                 "test_root": os.path.join(root, "audio"),
-                 "trial_grid": os.path.join(root, "trials.txt"),
-                 "python_data_config": AUDIO_DATA_OPTS},
-        "model": FUSION_MODEL,
-        "train": {"max_clips": 2, "clip_frames": 32, "n_spk": AV_SPEAKERS,
-                  "resume": resume.get("head", "None"),
-                  "audio_config": {"resume": resume.get("audio", "None")},
-                  "video_config": {"resume": resume.get("video", "None")}},
-        "test": dict(FUSION_TEST, use_fusion_head=use_fusion_head, batch_size=64),
-    }
+    """``conf/fusion_config.yaml`` with the corpus's paths in ``root``, the
+    checkpoints of ``resume``, its speaker count and ``use_fusion_head``,
+    written as JSON; returns its path."""
+    cfg = load_fusion_config(FUSION_CONFIG_PATH).to_dict()
+    cfg["data"].update(video_root=os.path.join(root, "video"),
+                       test_root=os.path.join(root, "audio"),
+                       trial_grid=os.path.join(root, "trials.txt"),
+                       train_manifest=os.path.join(root, "no_manifest.csv"))
+    cfg["train"].update(n_spk=AV_SPEAKERS, resume=resume.get("head", "None"))
+    cfg["train"]["audio_config"]["resume"] = resume.get("audio", "None")
+    cfg["train"]["video_config"]["resume"] = resume.get("video", "None")
+    cfg["test"].update(use_fusion_head=use_fusion_head, batch_size=64)
     path = os.path.join(root, f"fusion_{'head' if use_fusion_head else 'concat'}_"
                               f"{'resumed' if resume else 'fresh'}.json")
     with open(path, "w") as fh:
@@ -2324,6 +2316,728 @@ def av_serving_phase(device=None) -> dict:
             "part_err": part_err, "chunk_split_ms": split, "microbatch": mb}
 
 
+# ---------------------------------------------------------------- phase 12
+FUSION_SPEAKERS, FUSION_UTTS, FUSION_EPOCHS = 64, 6, 2
+# per speaker: the utterances of the trial list, beside the 6 of the
+# manifest and held out of training; each has its two clips
+FUSION_TEST_UTTS = (6, 7)
+FUSION_NO_CLIP = 10               # every 10th training utterance has no clip
+FUSION_BATCH, FUSION_CLIPS, FUSION_CLIP_FRAMES = 60, 2, 32
+FUSION_STEP_LOSS_RTOL = 1e-5      # a K1 + P step vs a plain step, f32
+# The bf16 fusion step audited against float64 (fusion_bf16_audit): the
+# audio pooling and the video group mean in >= f32 (relative to their
+# largest value), the criterion's logits in f32 (relative to their largest).
+# Its loss is reported beside the f32 step's and held to be finite only:
+# the head takes bf16-rounded embeddings by design, and a trained
+# criterion's logits scale that rounding (6e-2 of the loss in a CPU
+# rehearsal at bs 4), so the loss does not tell a sound step from a fault.
+FUSION_AUDIT_BARS = {"audio_pool_err": 1e-4, "video_mean_err": 1e-4, "criterion_err": 1e-5}
+FUSION_FAULTS = ("audio_pool_bf16", "video_mean_bf16", "criterion_bf16")
+FUSION_KINDS = [
+    ("K1 (fbank_fft_kernel.cu)", re.compile(r"fbank_(fft|features)_kernel")),
+    ("max-pool (maxpool_kernel.cu)", re.compile(r"::maxpool_(fwd|bwd)_kernel\b")),
+    ("optimizer (SGD)", re.compile(r"multi_tensor_apply|sgd", re.I)),
+    ("cuDNN/cuBLAS", re.compile(r"cudnn|xmma|cublas|gemm|cutlass|wgrad|dgrad|fprop|conv", re.I)),
+    ("other PyTorch", re.compile(r"")),
+]
+_MASKED_MEAN = fusion_mod._masked_mean
+
+
+def write_fusion_corpus(root: str, seed: int = 0) -> tuple[str, str, dict]:
+    """64 speakers x 8 PCM16 wavs of 2-5 s (``audio/sNN/uK.wav``), each with
+    two 96x96 uint8 clips of 24-32 frames (``video/sNN/uK_{0,1}.npz``),
+    except every ``FUSION_NO_CLIP``-th training utterance; the manifest over
+    the first 6 of each speaker and a half-target trial list over the 2
+    held out. Returns the manifest's and the trial list's paths and
+    ``{speaker: [(wav, clips), ...]}``."""
+    def speaker(spk):
+        rng = np.random.default_rng((seed, spk))
+        name = f"s{spk:02d}"
+        for sub in ("audio", "video"):
+            os.makedirs(os.path.join(root, sub, name), exist_ok=True)
+        utts, items = [], []
+        for u in range(FUSION_UTTS + len(FUSION_TEST_UTTS)):
+            wav = os.path.join(root, "audio", name, f"u{u}.wav")
+            y = training_wave(rng, spk)
+            write_wav(wav, y, RATE)
+            clips = []
+            if u >= FUSION_UTTS or (spk * FUSION_UTTS + u) % FUSION_NO_CLIP != 3:
+                for c in range(FUSION_CLIPS):
+                    clips.append(os.path.join(root, "video", name, f"u{u}_{c}.npz"))
+                    np.savez(clips[-1], data=speaker_clip(rng, spk, int(rng.integers(24, 33))))
+            utts.append(Utterance(wav, len(y) / RATE, RATE))
+            items.append((wav, clips))
+        return utts[:FUSION_UTTS], items
+
+    with ThreadPoolExecutor(8) as pool:
+        done = list(pool.map(speaker, range(FUSION_SPEAKERS)))
+    manifest = os.path.join(root, "manifest.csv")
+    write_manifest(manifest, [utts for utts, _ in done])
+    names = [f"s{spk:02d}/u{u}.wav" for spk in range(FUSION_SPEAKERS) for u in FUSION_TEST_UTTS]
+    rng = np.random.default_rng(seed)
+    trials = os.path.join(root, "trials.txt")
+    with open(trials, "w") as fh:
+        for i in range(2000):
+            a = int(rng.integers(len(names)))
+            b = a ^ 1 if i % 2 == 0 else int(rng.integers(len(names)))
+            fh.write(f"{int(names[a][:3] == names[b][:3])} {names[a]} {names[b]}\n")
+    return manifest, trials, {f"s{spk:02d}": items for spk, (_, items) in enumerate(done)}
+
+
+def fusion_train_config(root: str, manifest: str, trials: str, resume: dict) -> str:
+    """``conf/fusion_config.yaml`` with the corpus's paths in ``root``, the
+    encoders of ``resume`` and ``FUSION_EPOCHS`` epochs, written as JSON;
+    returns its path."""
+    cfg = load_fusion_config(FUSION_CONFIG_PATH).to_dict()
+    cfg["data"].update(train_manifest=manifest, video_root=os.path.join(root, "video"),
+                       test_root=os.path.join(root, "audio"), trial_grid=trials,
+                       trial_lomgrid=trials)
+    cfg["train"]["epoch"] = FUSION_EPOCHS
+    cfg["train"]["audio_config"]["resume"] = resume["audio"]
+    cfg["train"]["video_config"]["resume"] = resume["video"]
+    path = os.path.join(root, "fusion_train.json")
+    with open(path, "w") as fh:
+        json.dump(cfg, fh)
+    return path
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.detach().double()
+    return float((got.detach().double() - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+@contextlib.contextmanager
+def fusion_bf16_audit(trainer, record: dict):
+    """Hold a bf16 fusion step to its recipe, filling ``record`` with the
+    worst reading of each rule: the E-TDNN blocks and the video trunk's
+    blocks compute in bf16 (``blocks_bf16``); the audio statistics pooling
+    is >= f32 (``audio_pool_err``: against the same pooling of its input in
+    float64), so are the video clip and group means (``video_mean_err``),
+    and the criterion's logits are f32 (``criterion_err``: against float64
+    logits of the same input)."""
+    record.update(blocks_bf16=True, audio_pool_err=0.0, video_mean_err=0.0, criterion_err=0.0)
+
+    def block_out(mod, args, out):
+        record["blocks_bf16"] &= out.dtype == torch.bfloat16
+
+    def pool_out(mod, args, kwargs, out):
+        want = type(mod).forward(mod, args[0].detach().double(), kwargs.get("lengths"))
+        record["audio_pool_err"] = max(record["audio_pool_err"], _rel_err(out, want))
+
+    def crit_out(mod, args, kwargs, out):
+        emb = args[0].detach().double()
+        if hasattr(mod, "fc"):
+            want = emb @ mod.fc.weight.double().T + mod.fc.bias.double()
+        else:
+            want = _unit64(emb) @ _unit64(mod.weights).T
+        record["criterion_err"] = max(record["criterion_err"], _rel_err(out[1], want))
+
+    inner = fusion_mod._masked_mean
+
+    def audited_mean(x, lengths):
+        out = inner(x, lengths)
+        record["video_mean_err"] = max(record["video_mean_err"],
+                                       _rel_err(out, _MASKED_MEAN(x.detach().double(), lengths)))
+        return out
+
+    blocks = list(trainer.audio_model.tdnn) + [
+        m for m in trainer.video_model.trunk.modules() if type(m).__name__ == "BasicBlock"]
+    hooks = [b.register_forward_hook(block_out) for b in blocks]
+    hooks.append(trainer.audio_model.pooling.register_forward_hook(pool_out, with_kwargs=True))
+    hooks.append(trainer.criterion.register_forward_hook(crit_out, with_kwargs=True))
+    fusion_mod._masked_mean = audited_mean
+    try:
+        yield record
+    finally:
+        fusion_mod._masked_mean = inner
+        for h in hooks:
+            h.remove()
+
+
+def fusion_audit_failures(record: dict) -> list:
+    return (["blocks_bf16"] if not record["blocks_bf16"] else []) + [
+        k for k, bar in FUSION_AUDIT_BARS.items() if record[k] > bar]
+
+
+@contextlib.contextmanager
+def planted_fusion_fault(fault: str, trainer):
+    """One way for the bf16 fusion recipe to go wrong: the audio statistics
+    pooling, the video clip and group means, or the criterion in bf16."""
+    pool = trainer.audio_model.pooling.forward
+    mean = fusion_mod._masked_mean
+    fc = getattr(trainer.criterion, "fc", None)
+    if fault == "audio_pool_bf16":
+        trainer.audio_model.pooling.forward = (
+            lambda x, lengths=None: pool(x.bfloat16(), lengths).float())
+    elif fault == "video_mean_bf16":
+        fusion_mod._masked_mean = lambda x, lengths: mean(x.bfloat16(), lengths).float()
+    elif fault == "criterion_bf16":
+        fc.forward = lambda x: torch.nn.functional.linear(
+            x.bfloat16(), fc.weight.bfloat16(), fc.bias.bfloat16()).float()
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        trainer.audio_model.pooling.__dict__.pop("forward", None)
+        fusion_mod._masked_mean = mean
+        if fc is not None:
+            fc.__dict__.pop("forward", None)
+
+
+@contextlib.contextmanager
+def nudged_frames(gen: torch.Generator):
+    """The video transform's frames times ``1 + NUDGE * N(0, 1)``, elementwise."""
+    transform = V.eval_transform
+
+    def nudged(clips, crop):
+        x = transform(clips, crop)
+        return x * (1.0 + NUDGE * torch.randn(x.shape, generator=gen, device=x.device))
+
+    V.eval_transform = nudged
+    try:
+        yield
+    finally:
+        V.eval_transform = transform
+
+
+def fusion_step_phase(trainer, root: str, smi: str, peaks) -> dict:
+    """A K1 + P step against a plain step and a bf16 step (audited, with
+    planted faults) from one state; then ms per step and pairs/s at bs 60 x
+    200/300/400 frames in f32 and bf16, the parts' times, P at the train
+    shape, peak memory and one profiled f32 step."""
+    dev = trainer.device
+    pipe = AVTrainPipeline(trainer.manifest, build_video_map(trainer.manifest,
+                                                             os.path.join(root, "video")),
+                           FUSION_BATCH, max_clips=FUSION_CLIPS, clip_frames=FUSION_CLIP_FRAMES)
+    sids = next(pipe.sampler.epoch(1))[0]
+    keys = ("pcm", "clips", "clip_lengths", "group_sizes", "labels")
+    batches = {n: [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in (
+        pipe._assemble(sids, n, (7, n))[k] for k in keys)] for n in STEP_FRAMES}
+    check(all(int((b[3] == 0).sum()) < FUSION_BATCH for b in batches.values()),
+          "a timing batch has no clip at all")
+    live = [(f"criterion.{n}", p) for n, p in trainer.criterion.named_parameters()] + [
+        (f"head.{n}", p) for n, p in trainer.fusion_head.named_parameters()
+        if any(p is q for g in trainer.optimizer.param_groups for q in g["params"])]
+    state = (copy.deepcopy(trainer.fusion_head.state_dict()),
+             copy.deepcopy(trainer.criterion.state_dict()),
+             copy.deepcopy(trainer.optimizer.state_dict()), trainer.step, trainer.compute_dtype)
+
+    def restore():
+        trainer.fusion_head.load_state_dict(state[0])
+        trainer.criterion.load_state_dict(state[1])
+        trainer.optimizer.load_state_dict(state[2])
+        trainer.step, trainer.compute_dtype = state[3], state[4]
+
+    def step(batch, dtype):
+        trainer.compute_dtype = dtype
+        loss = float(trainer.train_step(*batch)["loss"])
+        grads = {n: p.grad.detach().clone() for n, p in live}
+        restore()
+        return loss, grads
+
+    b300 = batches[300]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    nudged = [b300[0] * (1.0 + NUDGE * torch.randn(b300[0].shape, generator=gen, device=dev)),
+              *b300[1:]]
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        zero_fbank_counts()
+        zero_video_counts()
+        loss_k, grads_k = step(b300, None)
+        counts = {**fbank_counts(), **video_counts()}
+        check(counts == {"fft": 1, "dft": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
+                         "maxpool_fwd": 1, "maxpool_bwd": 0},
+              f"a fusion step launched {counts}: one FFT-kernel and one pool-forward launch "
+              "expected")
+        with plain_front_end(), plain_maxpool():
+            loss_p, grads_p = step(b300, None)
+            with nudged_frames(torch.Generator(device=dev).manual_seed(4)):
+                loss_n, grads_n = step(nudged, None)
+        check({**fbank_counts(), **video_counts()} == counts, "the plain steps launched a kernel")
+        audit: dict = {}
+        with fusion_bf16_audit(trainer, audit):
+            loss_b, _ = step(b300, torch.bfloat16)
+        planted = {}
+        for fault in FUSION_FAULTS:
+            record: dict = {}
+            with planted_fusion_fault(fault, trainer), fusion_bf16_audit(trainer, record):
+                loss_f, _ = step(b300, torch.bfloat16)
+            planted[fault] = {"loss_rel": abs(loss_f - loss_k) / abs(loss_k), "audit": record,
+                              "caught_by": fusion_audit_failures(record)}
+    loss_rel, bf16_rel = abs(loss_k - loss_p) / abs(loss_p), abs(loss_b - loss_k) / abs(loss_k)
+    d_kp, d_np = grad_distance(grads_k, grads_p), grad_distance(grads_n, grads_p)
+    log(f"fusion step, K1 + P vs the plain front-end and pool at bs {FUSION_BATCH} x 300 "
+        f"(f32, TF32 off, cuDNN deterministic): loss {loss_k:.8f} vs {loss_p:.8f} "
+        f"({loss_rel:.2e} relative, bar {FUSION_STEP_LOSS_RTOL}; nudged {loss_n:.8f}); head "
+        f"and criterion gradients from the plain step's: kernels {d_kp:.3e}, plain with the "
+        f"PCM and frames nudged by {NUDGE} {d_np:.3e} (ratio {d_kp / max(d_np, 1e-30):.2f}, bar "
+        f"{NUDGE_FACTOR}); bf16 step loss {loss_b:.6f}, {bf16_rel:.2e} from the f32 step "
+        f"audit {json.dumps(audit)} [{smi}]")
+    for fault, r in planted.items():
+        log(f"  planted bf16 fusion fault {fault}: loss {r['loss_rel']:.2e} from the f32 step, "
+            f"audit {json.dumps(r['audit'])}; caught by {r['caught_by']}")
+    check(loss_rel <= FUSION_STEP_LOSS_RTOL, f"fusion kernel-step loss {loss_k} vs plain "
+          f"{loss_p}: {loss_rel:.3e} relative, bar {FUSION_STEP_LOSS_RTOL}")
+    check(d_kp <= NUDGE_FACTOR * d_np, f"fusion kernel-step gradients {d_kp:.3e} from the "
+          f"plain step's; the nudge moves them {d_np:.3e}; bar {NUDGE_FACTOR} x that")
+    check(math.isfinite(loss_b), f"bf16 fusion step loss {loss_b}")
+    check(not fusion_audit_failures(audit), f"the bf16 fusion step breaks its recipe: {audit}")
+    check(all(r["caught_by"] for r in planted.values()), "planted bf16 fusion faults passed "
+          "the audit: " + ", ".join(f for f, r in planted.items() if not r["caught_by"]))
+    del grads_k, grads_p, grads_n
+
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    cfg = trainer.feat_cfg
+    for n in STEP_FRAMES:
+        batch = batches[n]
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+            trainer.compute_dtype = dtype
+            ms = time_ms(lambda: trainer.train_step(*batch), iters=5, warmup=2)
+            rows.append({"n_frames": n, "dtype": name, "step_ms": ms,
+                         "pairs_per_sec": FUSION_BATCH / ms * 1e3})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    restore()
+    parts = {}
+    pcm, clips, lengths, sizes, _ = b300
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        with torch.no_grad(), fp32_math():
+            pre = trainer.video_model
+            b, g, t = clips.shape[:3]
+            x = V.mask_pad_frames(V.eval_transform(
+                clips.reshape((b * g, t) + clips.shape[3:]), trainer.crop_size)[..., None],
+                lengths.reshape(b * g)).to(dtype or torch.float32)
+            conv, bn, act = pre.frontend3D
+            pre_pool = act(bn(conv_nhwc(conv, x))).contiguous()
+            trainer.compute_dtype = dtype
+            xv, em = trainer._audio_embed(pcm), trainer._video_group_embed(
+                clips, lengths, sizes, dtype)
+            p = {"K1": time_ms(lambda: audio_features(pcm.float(), cfg)),
+                 "P": time_ms(lambda: maxpool.maxpool_forward(pre_pool)),
+                 "P_library": time_ms(lambda: maxpool.maxpool_frontend_reference(pre_pool)),
+                 "video encoder": time_ms(lambda: trainer._video_group_embed(
+                     clips, lengths, sizes, dtype), iters=5),
+                 "audio encoder": time_ms(lambda: trainer._audio_embed(pcm), iters=5)}
+        p["head + SGD"] = time_ms(lambda: trainer.head_step(xv, em, sizes, b300[4]), iters=5)
+        p.update(pool_bounds_ms(tuple(pre_pool.shape), pre_pool.element_size(), peaks))
+        p["shape"] = list(pre_pool.shape)
+        parts[name] = p
+        del x, pre_pool, xv, em
+    restore()
+    for r in rows:
+        log(f"fusion train step, bs {FUSION_BATCH} x {r['n_frames']} {r['dtype']}: "
+            f"{r['step_ms']:.2f} ms, {r['pairs_per_sec']:.1f} pairs/s [{smi}]")
+    for name, p in parts.items():
+        step_ms = next(r["step_ms"] for r in rows if r["n_frames"] == 300 and r["dtype"] == name)
+        log(f"fusion step parts at 300 frames, {name} (device ms, share of the {step_ms:.2f} ms "
+            "step): " + ", ".join(f"{k} {v:.4f} ({v / step_ms:.1%})" for k, v in p.items()
+                                 if k in ("K1", "P", "video encoder", "audio encoder",
+                                          "head + SGD"))
+            + f"; P at {p['shape']}: {p['P']:.4f} ms vs bound {p['fwd_bound']:.4f} ms and "
+            f"F.max_pool3d {p['P_library']:.4f} ms [{smi}]")
+    log(f"fusion train steps: peak {peak_gb:.2f} GB allocated [{smi}]")
+
+    trainer.train_step(*b300)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(*b300)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kinds, busy = profile_kinds(prof, FUSION_KINDS)
+    restore()
+    if busy > 0:
+        log(f"profiled f32 fusion step at bs {FUSION_BATCH} x 300: {prof_wall:.2f} ms wall, "
+            f"{busy:.2f} ms of device kernels ({busy / prof_wall:.1%} busy, "
+            f"{1 - busy / prof_wall:.1%} idle); by kind: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+            + f" [{smi}]")
+    else:
+        log("profiled fusion step: the profiler saw no device time (not measured)")
+    return {"loss_rel": loss_rel, "grad_distance": d_kp, "nudge_distance": d_np,
+            "bf16_loss_rel": bf16_rel, "bf16_audit": audit, "bf16_planted": planted,
+            "step_losses": {"kernel": loss_k, "plain": loss_p, "nudged": loss_n, "bf16": loss_b},
+            "timings": rows, "parts_300": parts, "peak_gb": peak_gb,
+            "profiled_wall_ms": prof_wall, "profiled_busy_ms": busy, "profiled_by_kind_ms": kinds}
+
+
+def profile_kinds(prof, kinds_table) -> tuple[dict, float]:
+    """Device time by kind (first match wins) and in all, from a profile."""
+    kinds, busy = {}, 0.0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kind = next(k for k, pat in kinds_table if pat.search(ev.key))
+            kinds[kind] = kinds.get(kind, 0.0) + dev_us / 1e3
+            busy += dev_us / 1e3
+    return kinds, busy
+
+
+def fusion_train_phase(smi: str, peaks, device=None) -> dict:
+    """``device`` is for rehearsing the phase on the CPU at a small size;
+    the card check passes none."""
+    dev_args = ["--device", device] if device else []
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        manifest, trials, items = write_fusion_corpus(root)
+        corpus_s = time.perf_counter() - t0
+        resume = prepare_av_checkpoints(root, items, device)
+        cfg_path = fusion_train_config(root, manifest, trials, resume)
+        start: dict = {}
+        train = FusionTrainer.train
+
+        def recording_train(self, *args, **kw):
+            start.update(U=self.fusion_head.U.detach().clone(),
+                         V=self.fusion_head.V.detach().clone())
+            return train(self, *args, **kw)
+
+        chunks = [0]
+        zero_fbank_counts()
+        zero_video_counts()
+        FusionTrainer.train = recording_train
+        try:
+            with counting_calls(FusionTrainer, "extract_pair_embedding", chunks):
+                t0 = time.perf_counter()
+                trainer, out = train_fusion_cli.main(
+                    ["--config", cfg_path, "--mode", "train", "--exp-root",
+                     os.path.join(root, "exp"), "--log-time", "run"] + dev_args)
+                if trainer.device.type == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            FusionTrainer.train = train
+        counts = {**fbank_counts(), **video_counts()}
+        bpe = AVTrainPipeline(trainer.manifest, {}, FUSION_BATCH).batches_per_epoch()
+        steps, losses = trainer.step, out["losses"]
+        group = trainer.optimizer.param_groups[0]
+        check(trainer.fusion_head_name == "lowfer" and trainer.loss_name == "CrossEntropy"
+              and trainer.compute_dtype is None and trainer.schedule(0) == 0.5
+              and group["momentum"] == 0.9 and group["weight_decay"] == 1e-5
+              and trainer.n_spk == FUSION_SPEAKERS,
+              "the trainer did not take conf/fusion_config.yaml's recipe")
+        check(steps == FUSION_EPOCHS * bpe and bpe >= 4 and len(losses) == steps
+              and all(math.isfinite(v) for v in losses),
+              f"{steps} steps for {FUSION_EPOCHS} x {bpe} batches, losses {losses}")
+        want = {"fft": steps + chunks[0], "dft": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
+                "maxpool_fwd": steps + chunks[0], "maxpool_bwd": 0}
+        check(counts == want, f"launches {counts} for {steps} train steps and {chunks[0]} "
+              f"extraction chunks; expected {want}")
+        drift = {k: float((getattr(trainer.fusion_head, k).detach() - start[k]).abs().max())
+                 for k in ("U", "V")}
+        for tag in [f"net_{e}" for e in range(1, FUSION_EPOCHS + 1)] + ["net_avg"]:
+            path = os.path.join(trainer.exp_dir, tag)
+            check(os.path.exists(path), f"no {tag} written")
+            saved = torch.load(path, map_location="cpu", weights_only=True)["state_dict"]
+            for k in ("U", "V"):
+                drift[k] = max(drift[k], float((saved[k].to(start[k].device)
+                                                - start[k]).abs().max()))
+        check(drift == {"U": 0.0, "V": 0.0}, f"LowFER's dead U/V moved: {drift}")
+        eers = {k: v for k, v in out.items() if k.endswith("_eer")}
+        check(len(eers) == 2 and all(0.0 <= v <= 1.0 for v in eers.values()), f"EERs {eers}")
+        lengths = [n for e in range(1, FUSION_EPOCHS + 1) for _, n in
+                   AVTrainPipeline(trainer.manifest, {}, FUSION_BATCH).sampler.epoch(e)]
+        log(f"fusion training through cli/train_fusion.py (conf/fusion_config.yaml: flagship "
+            f"E-TDNN and Lipreading, LowFER, CE, SGD 0.5, bs {FUSION_BATCH}, {FUSION_CLIPS} clips x "
+            f"{FUSION_CLIP_FRAMES} frames): {FUSION_SPEAKERS} speakers x {FUSION_UTTS} training wavs (and "
+            f"{len(FUSION_TEST_UTTS)} held out) with their clips written in {corpus_s:.1f} s; "
+            f"{FUSION_EPOCHS} epochs x {bpe} steps, crop lengths {lengths}, losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)}; averaged net_1..net_{FUSION_EPOCHS}; "
+            f"{chunks[0]} extraction chunks; EERs {eers}; launches {counts}; U/V drift "
+            f"{drift}; {wall:.1f} s wall [{smi}]")
+        step = fusion_step_phase(trainer, root, smi, peaks)
+    return {"launches": counts, "steps": steps, "batches_per_epoch": bpe,
+            "extraction_chunks": chunks[0], "crop_lengths": lengths, "losses": losses,
+            "eers": eers, "dead_param_drift": drift, "wall_s": wall, **step}
+
+
+# ---------------------------------------------------------------- phase 13
+VIDEO_BF16_LOSS_RTOL = 2e-2       # a bf16 step vs the f32 step from one state
+# the bf16 video step audited against float64 (video_bf16_audit): K3's
+# batch statistics (mean in sigmas, variance relative), the trunk's spatial
+# mean, each TCN convolution and the logits (relative to their largest)
+VIDEO_AUDIT_BARS = {"stat_err": 1e-4, "trunk_mean_err": 1e-4, "tcn_err": 1e-4,
+                    "logits_err": 1e-5}
+VIDEO_FAULTS = ("stats_bf16", "trunk_mean_bf16", "tcn_bf16")
+
+
+@contextlib.contextmanager
+def video_bf16_audit(model, record: dict):
+    """Hold a bf16 Lipreading train step to its recipe, filling ``record``
+    with the worst reading of each rule: the trunk's blocks compute in bf16
+    (``blocks_bf16``); every fused BN+PReLU site takes its batch statistics
+    in f32 (``stat_err``, against float64 statistics of its input); the
+    trunk's spatial mean (``trunk_mean_err``), each TCN convolution
+    (``tcn_err``) and the classifier (``logits_err``) are >= f32, against
+    float64 on the same inputs."""
+    record.update(blocks_bf16=True, stat_err=0.0, trunk_mean_err=0.0, tcn_err=0.0,
+                  logits_err=0.0)
+    inner = bn_prelu.bn_prelu_train
+
+    def audited_bn(x, scale, bias, alpha, eps):
+        y, mean, var = inner(x, scale, bias, alpha, eps)
+        xd = x.detach().double().reshape(-1, x.shape[-1])
+        m, v = xd.mean(0), xd.var(0, unbiased=False)
+        sd = (v + eps).sqrt()
+        record["stat_err"] = max(record["stat_err"],
+                                 float(((mean.detach().double() - m).abs() / sd).max()),
+                                 float(((var.detach().double() - v).abs() / sd ** 2).max()))
+        return y, mean, var
+
+    def block_out(mod, args, out):
+        record["blocks_bf16"] &= out.dtype == torch.bfloat16
+
+    last: dict = {}
+
+    def trunk_last(mod, args, out):
+        # the trunk's last block output, before the spatial mean
+        last["x"] = out.detach()
+
+    def trunk_out(mod, args, out):
+        want = last.pop("x").double().mean(dim=(1, 2))
+        record["trunk_mean_err"] = max(record["trunk_mean_err"], _rel_err(out, want))
+
+    def conv_out(mod, args, out):
+        want = torch.nn.functional.conv1d(
+            args[0].detach().double(), mod.weight.double(),
+            None if mod.bias is None else mod.bias.double(), mod.stride, mod.padding,
+            mod.dilation, mod.groups)
+        record["tcn_err"] = max(record["tcn_err"], _rel_err(out, want))
+
+    def logits_out(mod, args, out):
+        want = args[0].detach().double() @ mod.weight.double().T + mod.bias.double()
+        record["logits_err"] = max(record["logits_err"], _rel_err(out, want))
+
+    trunk = model.trunk
+    blocks = [m for m in trunk.modules() if type(m).__name__ == "BasicBlock"]
+    hooks = [b.register_forward_hook(block_out) for b in blocks]
+    hooks.append(blocks[-1].register_forward_hook(trunk_last))
+    hooks.append(trunk.register_forward_hook(trunk_out))
+    hooks += [m.register_forward_hook(conv_out) for m in model.tcn.modules()
+              if isinstance(m, torch.nn.Conv1d)]
+    hooks.append(model.tcn.tcn_output.register_forward_hook(logits_out))
+    bn_prelu.bn_prelu_train = audited_bn
+    try:
+        yield record
+    finally:
+        bn_prelu.bn_prelu_train = inner
+        for h in hooks:
+            h.remove()
+
+
+def video_audit_failures(record: dict) -> list:
+    return (["blocks_bf16"] if not record["blocks_bf16"] else []) + [
+        k for k, bar in VIDEO_AUDIT_BARS.items() if record[k] > bar]
+
+
+@contextlib.contextmanager
+def planted_video_fault(fault: str, model):
+    """One way for the bf16 video recipe to go wrong: the fused sites'
+    statistics in bf16 (phase 8's fault), the trunk's spatial mean in bf16,
+    or the TCN's convolutions in bf16."""
+    convs = [m for m in model.tcn.modules() if isinstance(m, torch.nn.Conv1d)]
+    forward, backward = bn_prelu.bn_prelu_forward, bn_prelu.bn_prelu_backward
+
+    def bf16_mean_trunk(self, x):
+        for stage in range(1, 5):
+            x = getattr(self, f"layer{stage}")(x)
+        return x.mean(dim=(1, 2)).float()
+
+    def bf16_stats_forward(x, *args):
+        y, mean, var, inv = faulty_bn_prelu_forward("bf16")(x, *args)
+        return y.to(x.dtype), mean, var, inv
+
+    if fault == "stats_bf16":
+        bn_prelu.bn_prelu_forward = bf16_stats_forward
+        bn_prelu.bn_prelu_backward = bn_prelu.bn_prelu_backward_reference
+    elif fault == "trunk_mean_bf16":
+        model.trunk.forward = types.MethodType(bf16_mean_trunk, model.trunk)
+    elif fault == "tcn_bf16":
+        for m in convs:
+            m.forward = types.MethodType(lambda self, x: torch.nn.functional.conv1d(
+                x.bfloat16(), self.weight.bfloat16(), self.bias.bfloat16(), self.stride,
+                self.padding, self.dilation, self.groups).float(), m)
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        bn_prelu.bn_prelu_forward, bn_prelu.bn_prelu_backward = forward, backward
+        model.trunk.__dict__.pop("forward", None)
+        for m in convs:
+            m.__dict__.pop("forward", None)
+
+
+def video_bf16_phase(bn: dict, smi: str, device=None) -> dict:
+    """``device`` is for rehearsing the phase on the CPU at a small size;
+    the card check passes none."""
+    dev_args = ["--device", device] if device else []
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "clips")
+        write_clip_corpus(data)
+        cfg_path = os.path.join(REPO, "conf", "video_config.json")
+        calls: list = []
+        with recording_bn_calls(calls):
+            zero_video_counts()
+            t0 = time.perf_counter()
+            trainer, out = train_video_cli.main(
+                ["--config-path", cfg_path, "--data-dir", data, "--compute-dtype", "bf16",
+                 "--batch-size", str(VIDEO_BATCH), "--epochs", "1", "--exp-root",
+                 os.path.join(root, "exp"), "--log-time", "bf16"] + dev_args)
+            wall = time.perf_counter() - t0
+            launches = video_counts()
+        losses, steps = out["losses"], trainer.step
+        check(trainer.compute_dtype is torch.bfloat16 and steps >= 2 and len(losses) == steps
+              and all(math.isfinite(v) for v in losses), f"bf16 video epoch: {steps} steps, "
+              f"losses {losses}")
+        want = {"bn_prelu_fwd": 27 * steps, "bn_prelu_bwd": 27 * steps,
+                "maxpool_fwd": steps, "maxpool_bwd": steps}
+        check(launches == want, f"bf16 video launches {launches}, expected {want}")
+        seen = {(shape, dtype) for shape, dtype, _, _ in calls}
+        check(len(calls) == 9 * steps and {d for _, d in seen} == {torch.bfloat16},
+              f"{len(calls)} fused calls in {sorted({d for _, d in seen}, key=str)} for "
+              f"{steps} bf16 steps")
+        path_err = bn_prelu_path_check(seen)
+
+        net1 = os.path.join(trainer.exp_dir, "net_1")
+        emb_root = os.path.join(root, "embedding")
+        zero_video_counts()
+        _, ext = train_video_cli.main(
+            ["--config-path", cfg_path, "--data-dir", data, "--extract-feats",
+             "--batch-size", str(VIDEO_BATCH), "--model-path", net1,
+             "--mouth-embedding-out-path", emb_root] + dev_args)
+        extract_launches = video_counts()
+        written = {}
+        for d, _, files in os.walk(emb_root):
+            for f in files:
+                written[os.path.relpath(os.path.join(d, f), emb_root)[:-4]] = np.load(
+                    os.path.join(d, f))["data"]
+        direct = VideoTrainer(video_config(), trainer.num_classes, device=device)
+        direct.load(net1)
+        clips = scan_clip_dir(data)
+        want_feats = direct.extract_clip_features(VideoClipBatches(
+            clips, batch_size=VIDEO_BATCH, bucket_t=8, shuffle=False, pre_crop=(88, 88)))
+        check(sorted(written) == sorted(want_feats) == sorted(c.name for c in clips),
+              f"{len(written)} npz written for {len(clips)} clips")
+        ext_err = max(float(np.abs(written[n][0] - f).max()) for n, f in want_feats.items())
+        check(all(written[n].shape == (1, len(f), 512) and written[n].dtype == np.float32
+                  for n, f in want_feats.items()) and ext_err <= 1e-5,
+              f"--extract-feats npz differ from extract_clip_features by {ext_err:.3e}")
+        full_batch = full_clip_batch(clips)
+    log(f"bf16 video training through cli/train_video.py --compute-dtype bf16 (flagship "
+        f"Lipreading, bs {VIDEO_BATCH}): {steps} steps, losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; launches {launches} (27 K3 and 27 K4, "
+        f"1 + 1 pool per step); K3/K4 vs plain at its {len(seen)} bf16 site shapes: max err "
+        f"y {path_err['y']:.2e}, dx {path_err['dx']:.2e}; {wall:.2f} s wall; --extract-feats: "
+        f"{len(written)} (1, T, 512) f32 npz, {ext_err:.1e} from extract_clip_features, "
+        f"launches {extract_launches} [{smi}]")
+    step = video_bf16_step_phase(direct, full_batch, bn, smi)
+    return {"launches": launches, "steps": steps, "losses": losses, "path_err": path_err,
+            "extract_err": ext_err, "extract_launches": extract_launches, "wall_s": wall,
+            **step}
+
+
+def video_bf16_step_phase(trainer: VideoTrainer, batch: dict, bn: dict, smi: str) -> dict:
+    """A bs 128 x 29 bf16 step against an f32 step from one state, its
+    forward audited against float64 with planted faults; the steps' times,
+    K3/K4's bf16 time per step, and one profiled bf16 step."""
+    dev = trainer.device
+    clips, lengths, labels = (torch.from_numpy(batch[k]).to(dev)
+                              for k in ("clips", "lengths", "labels"))
+    x = V.mask_pad_frames(V.train_transform(clips, torch.Generator().manual_seed(1))[..., None],
+                          lengths)
+    state = (copy.deepcopy(trainer.model.state_dict()),
+             copy.deepcopy(trainer.optimizer.state_dict()), trainer.step)
+
+    def step(dtype):
+        trainer.compute_dtype = dtype
+        torch.manual_seed(0)   # the same dropout masks in every run
+        loss = float(trainer.train_step_frames(x, lengths, labels)["loss"])
+        trainer.model.load_state_dict(state[0])
+        trainer.optimizer.load_state_dict(state[1])
+        trainer.step = state[2]
+        return loss
+
+    loss_f = step(None)
+    audit: dict = {}
+    with video_bf16_audit(trainer.model, audit):
+        loss_b = step(torch.bfloat16)
+    planted = {}
+    for fault in VIDEO_FAULTS:
+        record: dict = {}
+        with planted_video_fault(fault, trainer.model), video_bf16_audit(trainer.model, record):
+            loss_x = step(torch.bfloat16)
+        planted[fault] = {"loss_rel": abs(loss_x - loss_f) / abs(loss_f), "audit": record,
+                          "caught_by": video_audit_failures(record)}
+    bf16_rel = abs(loss_b - loss_f) / abs(loss_f)
+    log(f"bf16 video step vs f32 step at bs {VIDEO_BATCH} x 29: loss {loss_b:.6f} vs "
+        f"{loss_f:.6f} ({bf16_rel:.2e} relative, bar {VIDEO_BF16_LOSS_RTOL}); audit "
+        f"{json.dumps(audit)} [{smi}]")
+    for fault, r in planted.items():
+        log(f"  planted bf16 video fault {fault}: loss {r['loss_rel']:.2e} from the f32 step, "
+            f"audit {json.dumps(r['audit'])}; caught by {r['caught_by']}")
+    check(bf16_rel <= VIDEO_BF16_LOSS_RTOL, f"bf16 video step loss {loss_b} vs f32 {loss_f}")
+    check(not video_audit_failures(audit), f"the bf16 video step breaks its recipe: {audit}")
+    check(all(r["caught_by"] for r in planted.values()), "planted bf16 video faults passed "
+          "the audit: " + ", ".join(f for f, r in planted.items() if not r["caught_by"]))
+
+    gen = torch.Generator().manual_seed(2)
+    walls = {"bf16": [], "f32": []}
+    for name in ("bf16", "f32", "f32", "bf16"):
+        trainer.compute_dtype = torch.bfloat16 if name == "bf16" else None
+        trainer.train_step(clips, lengths, labels, gen)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            trainer.train_step(clips, lengths, labels, gen)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    bf16_rows = [r for r in bn["rows"] if r["dtype"] == "bfloat16"]
+    k34 = {k: sum(r["sites"] * r[k] for r in bf16_rows)
+           for k in ("fwd", "bwd", "fwd_bound", "bwd_bound", "fwd_plain", "bwd_plain")}
+    log(f"video train step at bs {VIDEO_BATCH} x 29: bf16 {ms['bf16']:.1f} ms "
+        f"({VIDEO_BATCH / ms['bf16'] * 1e3:.1f} clips/s), f32 {ms['f32']:.1f} ms "
+        f"({VIDEO_BATCH / ms['f32'] * 1e3:.1f} clips/s), median of 6 each in turns; K3/K4 "
+        f"in bf16 per step {k34['fwd']:.3f} / {k34['bwd']:.3f} ms against the bf16 byte "
+        f"bounds {k34['fwd_bound']:.3f} / {k34['bwd_bound']:.3f} ms [{smi}]")
+
+    trainer.compute_dtype = torch.bfloat16
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(clips, lengths, labels, gen)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kinds, busy = profile_kinds(prof, KERNEL_KINDS)
+    convs = sorted(((getattr(ev, "device_time_total", 0) / 1e3, ev.key, ev.input_shapes[:2])
+                    for ev in prof.key_averages(group_by_input_shape=True)
+                    if ev.key in ("aten::cudnn_convolution", "aten::convolution_backward")),
+                   key=lambda t: -t[0])[:6]
+    frontend_wgrad = next((t for t, k, s in convs if k == "aten::convolution_backward"
+                           and s and len(s[0]) == 5), None)
+    if busy > 0:
+        log(f"profiled bf16 video step: {prof_wall:.1f} ms wall, {busy:.1f} ms of device "
+            f"kernels ({1 - busy / prof_wall:.1%} idle); by kind: " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+            + f"; the frontend Conv3d's backward {frontend_wgrad} ms [{smi}]")
+        for t, k, s in convs:
+            log(f"  {t:9.3f} ms  {k} {s}")
+    else:
+        log("profiled bf16 video step: the profiler saw no device time (not measured)")
+    return {"bf16_loss_rel": bf16_rel, "step_losses": {"f32": loss_f, "bf16": loss_b},
+            "bf16_audit": audit, "bf16_planted": planted, "step_ms": ms, "step_walls_ms": walls,
+            "clips_per_sec": {k: VIDEO_BATCH / v * 1e3 for k, v in ms.items()},
+            "k3_k4_bf16_per_step": k34, "profiled_wall_ms": prof_wall,
+            "profiled_busy_ms": busy, "profiled_by_kind_ms": kinds,
+            "frontend_conv_bwd_ms": frontend_wgrad,
+            "top_convs": [[k, t, s] for t, k, s in convs]}
+
+
 BN_REPLACES = {"fwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:56",
                        "deeplip_tpu/ops/pallas/bn_prelu_kernel.py:70"),
                "bwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:80",
@@ -2414,6 +3128,10 @@ def main() -> int:
     step = video_step_phase(video.pop("trainer"), video.pop("full_batch"), bn)
     torch.cuda.empty_cache()
     av = av_serving_phase()
+    torch.cuda.empty_cache()
+    fusion = fusion_train_phase(dev["smi"], peaks)
+    torch.cuda.empty_cache()
+    video_bf16 = video_bf16_phase(bn, dev["smi"])
     launches = {
         "launches": main_path["launches"]["fused_fbank"],
         "launches_sweep": sweep["launches"]["fft"],
@@ -2491,6 +3209,7 @@ def main() -> int:
         "bound_ms": kern["dft_510"]["bound_ms"],
         "bound_by": kern["dft_510"]["bound_by"],
         "algorithm_ops_ms": kern["dft_510"]["algorithm_ops_ms"],
+        "cufft_composite_ms": kern["dft_510"]["cufft_ms"],
         "ms_n_fft_512": kern["ms"]["dft"],
         "bound_ms_n_fft_512": kern["bound_ms"],
         "algorithm_ops_ms_n_fft_512": kern["algorithm_ops_ms"]["dft"],
@@ -2499,6 +3218,24 @@ def main() -> int:
         **fbank_common,
     }, bn_entry("bn_prelu_fwd", "fwd", bn, video), bn_entry("bn_prelu_bwd", "bwd", bn, video),
         pool_entry(pool, av, video)]}
+    by_name = {e["name"]: e for e in kernels["kernels"]}
+    for name in ("fused_fbank", "fused_fbank_v1_configs"):
+        by_name[name]["launches_fusion_train"] = fusion["launches"]["fft"]
+    by_name["fused_fbank_dft"]["launches_fusion_train"] = fusion["launches"]["dft"]
+    for name, kind in (("bn_prelu_fwd", "fwd"), ("bn_prelu_bwd", "bwd")):
+        by_name[name].update(
+            launches_fusion_train=fusion["launches"][name],
+            launches_video_bf16=video_bf16["launches"][name],
+            max_abs_err_bf16=max(by_name[name]["max_abs_err_bf16"],
+                                 video_bf16["path_err"]["y" if kind == "fwd" else "dx"]),
+            ms_bf16_per_step=video_bf16["k3_k4_bf16_per_step"][kind],
+            bound_ms_bf16_per_step=video_bf16["k3_k4_bf16_per_step"][f"{kind}_bound"])
+    by_name["maxpool_frontend"].update(
+        launches_fusion_train=fusion["launches"]["maxpool_fwd"],
+        launches_video_bf16={k: video_bf16["launches"][k] for k in ("maxpool_fwd",
+                                                                    "maxpool_bwd")},
+        fusion_train_shape={name: {k: p[k] for k in ("shape", "P", "P_library", "fwd_bound")}
+                            for name, p in fusion["parts_300"].items()})
     summary = {
         "card": dev["smi"],
         "peaks_part": part,
@@ -2538,6 +3275,8 @@ def main() -> int:
         "av_chunk_split_ms": av["chunk_split_ms"],
         "microbatch": av["microbatch"],
         "audio_train": {k: v for k, v in audio_train.items() if k != "k1_shapes"},
+        "fusion_train": fusion,
+        "video_bf16": video_bf16,
     }
     print(json.dumps(summary), flush=True)
     print(json.dumps(kernels), flush=True)

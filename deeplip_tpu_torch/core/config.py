@@ -1,8 +1,9 @@
 """Configuration tree: attribute access over nested YAML/JSON dicts.
 
-Counterpart of ``deeplip_tpu/core/config.py``. The loader imports ``yaml``
-only when it is given a ``.yaml``/``.yml`` file, so JSON configs and
-in-code dicts work on hosts without pyyaml.
+Counterpart of ``deeplip_tpu/core/config.py``. YAML files are read by the
+port's own reader of the subset the shipped configs use
+(:mod:`deeplip_tpu_torch.core.yaml_subset`), on every host: it gives what
+``yaml.safe_load`` gives, and needs no pyyaml.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import copy
 import json
 from collections import OrderedDict
 from typing import Any, Mapping
+
+from deeplip_tpu_torch.core.yaml_subset import load_yaml
 
 
 class Config(dict):
@@ -94,22 +97,19 @@ class Config(dict):
 
 
 def load_config(path: str) -> Config:
-    """Load a JSON (.json) or YAML (.yaml/.yml) config file."""
-    with open(path, "r") as f:
-        if path.endswith(".json"):
-            data = json.load(f)
-        else:
-            import yaml
-
-            data = yaml.safe_load(f)
-    return Config(data)
+    """Load a JSON (.json) config file, or any other as YAML of the subset
+    :func:`deeplip_tpu_torch.core.yaml_subset.load_yaml` reads."""
+    if path.endswith(".json"):
+        with open(path, "r") as f:
+            return Config(json.load(f))
+    return Config(load_yaml(path))
 
 
 def load_audio_config(path: str) -> Config:
     """Load the audio config: nested ``{data, model, train, test}``.
 
-    Missing sections, and empty ones (yaml parses a bare ``test:`` header
-    as None), become empty Configs.
+    Missing sections, and empty ones (a bare ``test:`` header reads as
+    None), become empty Configs.
     """
     cfg = load_config(path)
     _ensure_sections(cfg)

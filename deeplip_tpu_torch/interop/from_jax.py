@@ -18,7 +18,11 @@ arrays.
 - :func:`lowfer_state_dict` the same dict as ``export_lowfer_state_dict``
   (``U``, ``V``), plus ``gate_proj`` where the head has one;
 - :func:`linear_fusion_state_dict` the ``fc1``/``bn1``/``fc2`` layout of the
-  port's ``LinearFusion``.
+  port's ``LinearFusion``;
+- :func:`cbp_state_dict` the sketch buffers of ``CompactBilinearPooling``
+  from the JAX module's ``sketch`` collection;
+- :func:`fusion_state_dicts` a fusion trainer's head and criterion from the
+  JAX ``FusionTrainer``'s ``params`` and its head's other collections.
 """
 
 from __future__ import annotations
@@ -173,3 +177,35 @@ def linear_fusion_state_dict(params: Mapping[str, Any],
         _conv(out, name, params[name])
     _bn(out, "bn1", params["bn1"], batch_stats["bn1"])
     return out
+
+
+def cbp_state_dict(sketch: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``CompactBilinearPooling`` ``sketch`` collection (``hs1``, ``hs2``:
+    each a hash-index and sign pair) -> the port's ``h1, s1, h2, s2``."""
+    out: dict[str, torch.Tensor] = {}
+    for i in (1, 2):
+        h, sign = sketch[f"hs{i}"]
+        out[f"h{i}"] = torch.from_numpy(np.asarray(h, np.int64).copy())
+        out[f"s{i}"] = _t(np.asarray(sign, np.float32))
+    return out
+
+
+def fusion_state_dicts(params: Mapping[str, Any], extra: Mapping[str, Any] | None = None
+                       ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """A JAX ``FusionTrainer``'s trainable ``params`` (``{"fusion",
+    "criterion"}``) and its head's other collections (``batch_stats`` of
+    LinearFusion, ``sketch`` of CBP) -> ``(head, criterion)`` state dicts of
+    the port's ``FusionTrainer``, for the ``lowfer``, ``linear`` and ``cbp``
+    heads."""
+    extra = extra or {}
+    head = params.get("fusion") or {}
+    if "sketch" in extra:
+        head_sd = cbp_state_dict(extra["sketch"])
+    elif "U" in head:
+        head_sd = lowfer_state_dict(head)
+    elif "fc1" in head:
+        head_sd = linear_fusion_state_dict(head, extra["batch_stats"])
+    else:
+        raise ValueError(f"not a fusion head: params {sorted(head)}, other "
+                         f"collections {sorted(extra)}")
+    return head_sd, criterion_state_dict(params["criterion"])

@@ -18,8 +18,11 @@ reads:
   λ blend; the sign is a parity select, not ``pow``.
 
 The parameter names are the reference torch layouts that
-``interop.from_jax.criterion_state_dict`` writes. The cosine products run
-at the tensors' own precision: callers on the card keep TF32 off
+``interop.from_jax.criterion_state_dict`` writes. Embeddings of another
+type than the parameters are normalised in their own type and then
+promoted, as flax promotes them (the fusion trainer hands f32 embeddings to
+a criterion of any type). The cosine products run at the tensors' own
+precision: callers on the card keep TF32 off
 (``core.device.fp32_math``), as the JAX package asks for
 ``precision="highest"``.
 """
@@ -47,6 +50,11 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=1e-12)
 
 
+def _promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dtype), b.to(dtype))
+
+
 def _one_hot(labels: torch.Tensor, n: int, like: torch.Tensor) -> torch.Tensor:
     return F.one_hot(labels.long(), n).to(like.dtype)
 
@@ -62,7 +70,7 @@ class _CosineHead(nn.Module):
         nn.init.kaiming_normal_(self.weights)
 
     def cosines(self, embeddings: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(_unit(embeddings), _unit(self.weights).T)
+        return _promoted_matmul(_unit(embeddings), _unit(self.weights).T)
 
 
 class CrossEntropyHead(nn.Module):
@@ -75,7 +83,8 @@ class CrossEntropyHead(nn.Module):
 
     def forward(self, embeddings: torch.Tensor, labels: torch.Tensor,
                 reduction: str = "mean"):
-        logits = self.fc(embeddings)
+        logits = self.fc(embeddings.to(torch.promote_types(embeddings.dtype,
+                                                           self.fc.weight.dtype)))
         return softmax_cross_entropy(logits, labels, reduction), logits
 
 
@@ -138,7 +147,7 @@ class ASoftmax(_CosineHead):
                 reduction: str = "mean"):
         lam = self.base_lambda if lam is None else lam
         norms = torch.linalg.vector_norm(embeddings, dim=-1, keepdim=True).clamp(min=1e-12)
-        cos = torch.matmul(embeddings / norms, _unit(self.weights).T).clamp(
+        cos = _promoted_matmul(embeddings / norms, _unit(self.weights).T).clamp(
             -1.0 + 1e-7, 1.0 - 1e-7)
         theta = torch.arccos(cos)
         k = torch.floor(self.m * theta / math.pi)

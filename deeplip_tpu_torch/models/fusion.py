@@ -11,8 +11,16 @@ Counterpart of ``deeplip_tpu/models/fusion.py``:
   dims a ``gate_proj`` Linear maps ``e2`` onto ``d1`` first.
 - :class:`LinearFusion`: FC → BN → LeakyReLU(0.2) → FC over the concatenated
   pair; ``extract_feats`` returns the hidden layer.
+- :class:`CompactBilinearPooling`: count sketches of both inputs
+  (scatter-add by a random hash, times a random sign), their rFFTs
+  multiplied, and the inverse rFFT at ``output_dim``. The sketch pairs are
+  buffers drawn from a seeded generator; ``interop.from_jax.cbp_state_dict``
+  carries the JAX module's across.
 
-``CompactBilinearPooling`` comes with fusion training.
+A head fed bf16 embeddings computes in the type the JAX modules' promotion
+gives: LowFER's gated concat in bf16 (f32 behind a ``gate_proj``), the
+Dense layers of LinearFusion in f32. The JAX CBP's FFT takes no bf16 input,
+and neither does this one.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ class LowFER(nn.Module):
 
     def forward(self, e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
         if self.input_dims[0] != self.input_dims[1]:
-            e2 = self.gate_proj(e2)
+            e2 = self.gate_proj(_promoted(e2, self.gate_proj.weight))
         gate = torch.sigmoid(e2)
         return torch.cat([e1, gate, gate * e1], dim=-1)
 
@@ -63,5 +71,40 @@ class LinearFusion(nn.Module):
         self.fc2 = nn.Linear(hidden_size, hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.leaky_relu(self.bn1(self.fc1(x)), 0.2)
+        h = F.leaky_relu(self.bn1(self.fc1(_promoted(x, self.fc1.weight))), 0.2)
         return h if self.extract_feats else self.fc2(h)
+
+
+class CompactBilinearPooling(nn.Module):
+    """Count-sketch FFT bilinear pooling: ``(B, d1), (B, d2) -> (B, output_dim)``.
+
+    ``h1, s1`` and ``h2, s2`` (hash index and sign of each input feature)
+    are buffers drawn from ``torch.Generator().manual_seed(seed)``."""
+
+    def __init__(self, input_dims: tuple[int, int] = (512, 512), output_dim: int = 512,
+                 seed: int = 0):
+        super().__init__()
+        self.output_dim = output_dim
+        gen = torch.Generator().manual_seed(seed)
+        for i, d in enumerate(input_dims, start=1):
+            self.register_buffer(f"h{i}", torch.randint(0, output_dim, (d,), generator=gen))
+            sign = torch.randint(0, 2, (d,), generator=gen).to(torch.float32) * 2.0 - 1.0
+            self.register_buffer(f"s{i}", sign)
+
+    def sketch(self, x: torch.Tensor, h: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        """Scatter-add of ``x * s`` by index ``h`` into ``output_dim`` bins."""
+        out = x.new_zeros(x.shape[:-1] + (self.output_dim,))
+        return out.index_add(x.ndim - 1, h, x * s.to(x.dtype))
+
+    def forward(self, e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
+        if torch.bfloat16 in (e1.dtype, e2.dtype):
+            raise TypeError("CompactBilinearPooling takes float32 or float64 inputs: its "
+                            "rFFT, as the JAX module's, refuses bfloat16")
+        f1 = torch.fft.rfft(self.sketch(e1, self.h1, self.s1), dim=-1)
+        f2 = torch.fft.rfft(self.sketch(e2, self.h2, self.s2), dim=-1)
+        return torch.fft.irfft(f1 * f2, n=self.output_dim, dim=-1)
+
+
+def _promoted(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type flax's Dense computes a ``(x, weight)`` pair in."""
+    return x.to(torch.promote_types(x.dtype, weight.dtype))

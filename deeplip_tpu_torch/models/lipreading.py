@@ -19,6 +19,14 @@ and frame features ``(B, T, 512)``.
 - head: multi- or single-branch TCN over ``(B, T, C)``, a length-masked
   mean consensus and a Linear to the speaker classes.
 
+``compute_dtype`` (the Flax model's ``dtype`` field) sets the frame path's
+compute type: with ``torch.bfloat16`` the frontend Conv3d, its BN and
+PReLU, the max-pool and the ResNet trunk run in bf16, each weight cast to
+bf16 per call and every BN's statistics taken in >= f32; the trunk's
+spatial mean promotes the frame features to f32, so the TCN and the
+classifier run in f32 (the JAX TCN has no ``dtype`` field). The default,
+None, computes in the input's type.
+
 Module names follow the reference layout (``frontend3D.{0,1,2}``,
 ``trunk.layer{s}.{i}``, ``tcn.mb_ms_tcn`` / ``tcn.tcn_trunk``,
 ``tcn.tcn_output``), so ``interop.from_jax.lipreading_state_dict`` loads
@@ -34,7 +42,7 @@ import torch
 from torch import nn
 
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
-from deeplip_tpu_torch.models.resnet import ResNetTrunk, bn_act, make_act
+from deeplip_tpu_torch.models.resnet import ResNetTrunk, bn_act, conv_nhwc, make_act
 from deeplip_tpu_torch.models.tcn import MultibranchTemporalConvNet, TemporalConvNet
 from deeplip_tpu_torch.ops.cuda import maxpool as P
 from deeplip_tpu_torch.ops.masked import length_mask
@@ -98,11 +106,14 @@ class Lipreading(nn.Module):
         kw.update(overrides)
         return cls(**kw)
 
-    def frame_features(self, x: torch.Tensor) -> torch.Tensor:
+    def frame_features(self, x: torch.Tensor,
+                       compute_dtype: torch.dtype | None = None) -> torch.Tensor:
         """``(B, T, H, W, 1) -> (B, T, 512)`` per-frame embeddings."""
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
         b, t = x.shape[0], x.shape[1]
         conv, bn, act = self.frontend3D
-        y = bn_act(bn, act, conv(x.movedim(-1, 1)).movedim(1, -1))
+        y = bn_act(bn, act, conv_nhwc(conv, x))
         y = P.maxpool_frontend(y)
         feats = self.trunk(y.reshape((b * t,) + y.shape[2:]))
         return feats.reshape(b, t, -1)
@@ -117,5 +128,6 @@ class Lipreading(nn.Module):
             pooled = (out * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)
         return self.tcn.tcn_output(pooled)
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor | None = None):
-        return self.classify(self.frame_features(x), lengths=lengths)
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor | None = None,
+                compute_dtype: torch.dtype | None = None):
+        return self.classify(self.frame_features(x, compute_dtype), lengths=lengths)

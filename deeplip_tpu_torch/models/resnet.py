@@ -8,6 +8,11 @@ to ``(N, 512)``. Activations are ``(N, H, W, C)`` as in the JAX package;
 each convolution sees them through a permuted ``(N, C, H, W)`` view, which
 is channels-last in memory, so cuDNN keeps them channels-last.
 
+Each convolution casts its float32 weight to the activation's type per
+call, so a bf16 input (the Lipreading's ``compute_dtype``) runs the trunk
+in bf16 with BN statistics in >= f32; the global average pool promotes to
+>= f32, as the JAX trunk's does.
+
 In train mode each ``bn1`` + PReLU pair runs as one fused op,
 :func:`deeplip_tpu_torch.ops.cuda.bn_prelu.bn_prelu_train` (the K3/K4
 kernels on the card), followed by ``bn1``'s running update. Parameter names
@@ -60,10 +65,13 @@ def bn_act(bn: TorchBatchNorm, act: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply an ``(N, C, ...)`` convolution to a channels-last ``(N, ..., C)``
-    activation and return ``(N, ..., C)``."""
-    return conv(x.movedim(-1, 1)).movedim(1, -1)
+def conv_nhwc(conv: nn.Conv2d | nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
+    """Apply a bias-free ``(N, C, ...)`` convolution to a channels-last
+    ``(N, ..., C)`` activation and return ``(N, ..., C)``; the weight is
+    cast to the activation's type."""
+    fn = F.conv2d if isinstance(conv, nn.Conv2d) else F.conv3d
+    y = fn(x.movedim(-1, 1), conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+    return y.movedim(1, -1)
 
 
 class BasicBlock(nn.Module):

@@ -186,6 +186,14 @@ class AudioExtractor:
 _COMPUTE_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "float32": None}
 
 
+def compute_dtype_of(name: str, what: str = "compute_dtype") -> torch.dtype | None:
+    """A config's ``compute_dtype`` name as the type a train step computes
+    in: ``torch.bfloat16``, or None for the parameters' own."""
+    if str(name) not in _COMPUTE_DTYPES:
+        raise ValueError(f"{what} must be bf16 or float32, not {name!r}")
+    return _COMPUTE_DTYPES[str(name)]
+
+
 class AudioTrainer:
     """Config-driven E-TDNN x-vector trainer (``{data, model, train, test}``).
 
@@ -211,10 +219,8 @@ class AudioTrainer:
             raise NotImplementedError(
                 f"train.steps_per_dispatch={steps_per_dispatch}: grouped step "
                 "dispatch is not ported yet; set it to 1")
-        dtype = str(self.train_opts.get("compute_dtype", "float32"))
-        if dtype not in _COMPUTE_DTYPES:
-            raise ValueError(f"train.compute_dtype must be bf16 or float32, not {dtype!r}")
-        self.compute_dtype = _COMPUTE_DTYPES[dtype]
+        self.compute_dtype = compute_dtype_of(self.train_opts.get("compute_dtype", "float32"),
+                                              "train.compute_dtype")
 
         self.manifest = None
         manifest_path = self.data_opts.get("train_manifest")

@@ -13,8 +13,11 @@ the device: random crop and flip, the affine, zeroed pad frames, the
 Lipreading forward in train mode (its nine BN+PReLU sites through the fused
 K3/K4 kernels on the card), the masked loss, the backward and the Adam
 update. Every path runs in FP32 (no TF32), the precision the reference
-holds its bars in; bf16 training and grouped step dispatch are not ported
-yet.
+holds its bars in, except the train step under ``compute_dtype='bf16'``:
+its frame path (frontend, max-pool, trunk) runs in bf16 with f32
+parameters, BN statistics in f32, and the TCN, classifier and loss in
+FP32; extraction stays FP32, as in the JAX package. Grouped step dispatch
+(``steps_per_dispatch > 1``) is not ported; it raises.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from deeplip_tpu_torch.models.lipreading import Lipreading
 from deeplip_tpu_torch.ops import video as V
 from deeplip_tpu_torch.ops.masked import length_mask
 from deeplip_tpu_torch.train import checkpoint as ckpt
-from deeplip_tpu_torch.train.audio import fp32_math
+from deeplip_tpu_torch.train.audio import compute_dtype_of, fp32_math
 from deeplip_tpu_torch.train.metrics import NanGuard, StepLogger
 from deeplip_tpu_torch.train.schedules import cosine_annealing_schedule
 from deeplip_tpu_torch.train.state import torch_adam
@@ -47,7 +50,13 @@ class VideoTrainer:
                  lr: float = 3e-4, weight_decay: float = 1e-4, t_max: int = 5,
                  crop_size: tuple[int, int] = (88, 88), exp_root: str = "exp",
                  log_time: str | None = None, hidden_dim: int = 256,
-                 trunk_layers=(2, 2, 2, 2), seed: int = 0):
+                 trunk_layers=(2, 2, 2, 2), seed: int = 0, compute_dtype: str = "float32",
+                 steps_per_dispatch: int = 1):
+        self.compute_dtype = compute_dtype_of(compute_dtype)
+        if int(steps_per_dispatch) > 1:
+            raise NotImplementedError(
+                f"steps_per_dispatch={steps_per_dispatch}: grouped step dispatch is not "
+                "ported yet; set it to 1")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.num_classes = num_classes
@@ -88,7 +97,8 @@ class VideoTrainer:
         valid = (lengths > 0).to(torch.float32)
         denom = torch.clamp(valid.sum(), min=1.0)
         with fp32_math():
-            logits = self.model(x, lengths=torch.clamp(lengths, min=1))
+            logits = self.model(x, lengths=torch.clamp(lengths, min=1),
+                                compute_dtype=self.compute_dtype)
             per_ex = softmax_cross_entropy(logits, labels, reduction="none")
             loss = (per_ex * valid).sum() / denom
             acc = ((logits.argmax(-1) == labels) * valid).sum() / denom

@@ -462,13 +462,26 @@ def test_cli_modes_end_to_end(corpus, tmp_path, capsys):
         assert 0.0 <= fused["trial_grid_fusion_eer"] <= 1.0
 
 
-def test_chip_smoke_trains_the_config_file():
-    """``chip_smoke.py`` phase 11 trains ``conf/audio_config.yaml`` from a
-    dict (the card's machine reads no YAML): the dict is the file."""
+def test_chip_smoke_trains_the_config_file(tmp_path):
+    """``chip_smoke.py`` phase 11 trains ``conf/audio_config.yaml`` as the
+    file reads (it loads it itself: the port reads YAML without pyyaml),
+    with only its paths and epoch count set."""
     import yaml
 
     import chip_smoke
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(repo, "conf", "audio_config.yaml")) as fh:
-        assert chip_smoke.AUDIO_CONFIG == yaml.safe_load(fh)
+        want = yaml.safe_load(fh)
+    assert not hasattr(chip_smoke, "AUDIO_CONFIG")
+    path = chip_smoke.audio_train_config(str(tmp_path), "m.csv", "t.txt")
+    with open(path) as fh:
+        got = json.load(fh)
+    assert got["data"].pop("train_manifest") == "m.csv"
+    assert got["data"].pop("trial_grid") == "t.txt"
+    assert got["data"].pop("test_root") == str(tmp_path)
+    assert got["train"].pop("epoch") == chip_smoke.TRAIN_EPOCHS
+    for key in ("train_manifest", "trial_grid", "test_root"):
+        del want["data"][key]
+    del want["train"]["epoch"]
+    assert got == want

@@ -302,14 +302,28 @@ def test_make_trainer_and_extract_pairs(verifiers, tmp_path):
     cfg.train["video_config"]["resume"] = str(tmp_path / "no_such_checkpoint")
     with pytest.raises(FileNotFoundError, match="video encoder checkpoint not found"):
         make_trainer(cfg, str(tmp_path), "t", mode="av_test", device="cpu")
-    with pytest.raises(NotImplementedError, match="fusion training"):
-        make_trainer(cfg, str(tmp_path), "t", mode="train", device="cpu")
+    # train mode builds the trainer too (fusion training is ported); it
+    # loads the encoders but not the head a train.resume names
+    cfg.train["video_config"]["resume"] = "None"
+    head = str(tmp_path / "net_head")
+    moved = {k: v + 1.0 if v.is_floating_point() else v
+             for k, v in pv.trainer.fusion_head.state_dict().items()}
+    torch.save({"epoch": 3, "state_dict": moved}, head)
+    cfg.train["resume"] = head
+    trained = make_trainer(cfg, str(tmp_path), "t", mode="train", device="cpu")
+    assert trained.current_epoch == 0 and trained.manifest is None
+    assert not torch.equal(trained.fusion_head.state_dict()["U"], moved["U"])
+    for k, v in pv.trainer.audio_model.state_dict().items():
+        assert torch.equal(trained.audio_model.state_dict()[k], v), k
+    resumed = make_trainer(cfg, str(tmp_path), "t", mode="av_test", device="cpu")
+    assert resumed.current_epoch == 3 and torch.equal(resumed.fusion_head.U, moved["U"])
 
 
-def test_fusion_config_loads_and_the_card_check_carries_its_sections():
+def test_fusion_config_loads_and_the_card_check_carries_its_sections(tmp_path):
     """``load_fusion_config`` reads the repo's fusion config as the JAX
-    package's loader does, and the model and test sections that the card
-    check embeds (its machine reads no YAML) are the file's."""
+    package's loader does, and the card check's phase-10 config is that
+    file with only its paths, resume keys, speaker count and test switches
+    set (it loads the file itself: the port reads YAML without pyyaml)."""
     import chip_smoke
     from deeplip_tpu.core.config import load_fusion_config as jax_load_fusion_config
 
@@ -318,8 +332,15 @@ def test_fusion_config_loads_and_the_card_check_carries_its_sections():
     cfg = load_fusion_config(path)
     assert cfg.to_dict() == jax_load_fusion_config(path).to_dict()
     assert cfg.model.audio_config.etdnn.embedding_dim == 512 and cfg.train.max_clips == 2
-    assert chip_smoke.FUSION_MODEL == cfg.model.to_dict()
-    assert chip_smoke.FUSION_TEST == cfg.test.to_dict()
+    assert not hasattr(chip_smoke, "FUSION_MODEL") and not hasattr(chip_smoke, "FUSION_TEST")
+    card = load_fusion_config(chip_smoke.fusion_config(str(tmp_path), {"audio": "a"}, True))
+    assert card.model.to_dict() == cfg.model.to_dict()
+    assert card.data.python_data_config.to_dict() == cfg.data.python_data_config.to_dict()
+    assert {k: v for k, v in card.test.items() if k != "batch_size"} \
+        == dict(cfg.test.to_dict(), use_fusion_head=True)
+    assert card.test.use_fusion_head is True and card.train.audio_config.resume == "a"
+    for key in ("bs", "max_clips", "clip_frames", "sgd", "loss", "lr_decay_step"):
+        assert card.train[key] == cfg.train[key], key
 
 
 def test_fusion_config_fills_missing_sections(tmp_path):

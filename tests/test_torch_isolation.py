@@ -40,6 +40,11 @@ _PROBE = textwrap.dedent("""
         "deeplip_tpu_torch.train.audio", "deeplip_tpu_torch.eval.plda",
         "deeplip_tpu_torch.cli.common", "deeplip_tpu_torch.cli.train_audio"]
     assert set(audio_training) <= set(names), sorted(set(audio_training) - set(names))
+    fusion_and_video = [
+        "deeplip_tpu_torch.core.yaml_subset", "deeplip_tpu_torch.data.fusion_pipeline",
+        "deeplip_tpu_torch.data.video_io", "deeplip_tpu_torch.cli.train_fusion",
+        "deeplip_tpu_torch.cli.train_video"]
+    assert set(fusion_and_video) <= set(names), sorted(set(fusion_and_video) - set(names))
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0].startswith("jax")
                  or m == "deeplip_tpu" or m.startswith("deeplip_tpu."))
@@ -134,3 +139,38 @@ def test_audio_training_entry_points_raise_without_a_card(monkeypatch, tmp_path)
                           "--exp-root", str(tmp_path)])
     # asked for the CPU, they run there
     assert AudioTrainer(cfg, n_spk=4, device="cpu").device == torch.device("cpu")
+
+
+def test_fusion_and_video_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The fusion trainer (and so its ``train``) and both training CLIs run
+    on the card unless asked for the CPU."""
+    from deeplip_tpu_torch.cli import train_fusion, train_video
+
+    _no_card(monkeypatch)
+    video_tcn = {"backbone_type": "resnet", "relu_type": "prelu", "tcn_kernel_size": [3],
+                 "tcn_num_layers": 1}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FusionTrainer(ETDNN_MODEL_OPTS, video_tcn, 2, audio_data_opts=AUDIO_DATA_OPTS,
+                      fusion_head="cbp")
+    fusion = tmp_path / "fusion.json"
+    fusion.write_text(json.dumps({
+        "data": {"python_data_config": AUDIO_DATA_OPTS},
+        "model": {"audio_config": ETDNN_MODEL_OPTS, "video_config": {"tcn": video_tcn}},
+        "train": {"n_spk": 2}, "test": {}}))
+    for mode in ("train", "test"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_fusion.main(["--config", str(fusion), "--mode", mode,
+                               "--exp-root", str(tmp_path)])
+    clips = tmp_path / "clips" / "s0"
+    clips.mkdir(parents=True)
+    np.savez(str(clips / "c0.npz"), data=np.zeros((4, 96, 96), np.uint8))
+    video = tmp_path / "video.json"
+    video.write_text(json.dumps(video_tcn))
+    for extra in ([], ["--extract-feats"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_video.main(["--config-path", str(video), "--data-dir",
+                              str(tmp_path / "clips")] + extra)
+    # asked for the CPU, they run there
+    trainer = FusionTrainer(ETDNN_MODEL_OPTS, video_tcn, 2, audio_data_opts=AUDIO_DATA_OPTS,
+                            device="cpu")
+    assert trainer.device == torch.device("cpu")
