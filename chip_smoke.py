@@ -155,7 +155,32 @@ without the package, it exits non-zero and prints no result. Phases:
    turns, K3/K4's bf16 time per step beside its byte bound, one profiled
    bf16 step with the frontend Conv3d's backward.
 
-The phases run in the order 1-5, 11, 6, 9, 7, 8, 10, 12, 13. The last line is
+14. Grouped train-step dispatch (``steps_per_dispatch: K > 1``): K steps
+   captured as one CUDA graph and replayed, K1, K3/K4 and P inside it.
+   Audio: phase 11's corpus and ``conf/audio_config.yaml`` with K = 4,
+   7 epochs, the rate decayed after epoch 2 and the LMCL margin 0.2 -> 0.35
+   after epoch 5; in f32 (TF32 off, cuDNN deterministic) at one crop length
+   of 300 frames, so one graph lives through the decay and the margin
+   switch: grouped against single steps from one state, each step's loss
+   within 1e-5 relative, the final parameters within 3x what a 1e-6 nudge
+   of the PCM moves the single run; the rate and the margin frozen at
+   capture (planted) are each caught; then the config's bf16 recipe (11
+   crop lengths, a graph each) within phase 11's bf16 bar. K1 launches
+   once per step, counted over the replays (and once per eager warm-up
+   step before a capture). ms per step single and grouped at bs 256 x 300
+   in bf16, peak memory both ways, one profiled group's idle share. The
+   f32 run's last checkpoint, exported by ``cli/export_torch.py
+   --dp-prefix`` as a reference ``.pth``, enrolls through ``cli/verify.py
+   --checkpoint`` to the profile the port's own checkpoint gives. Video: a
+   32-speaker x 16-clip corpus of 29 frames through ``cli/train_video.py
+   --steps-per-dispatch 2`` for 2 epochs at bs 128, f32 and bf16, against
+   single steps from the same seed (TCN dropout 0.2: the replayed masks
+   are the eager ones), with the same bars (bf16: phase 13's); K3/K4 27 +
+   27 and P 1 + 1 per step over the replays; ms per step both ways, peak
+   memory, one profiled group. Last, a step that cannot be captured
+   raises, and no eager step runs in its place.
+
+The phases run in the order 1-5, 11, 6, 9, 7, 8, 10, 12, 13, 14. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the ``kernels``
 JSON record.
 """
@@ -165,6 +190,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
+import glob
 import json
 import math
 import os
@@ -181,10 +208,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from deeplip_tpu_torch.cli import export_torch as export_torch_cli  # noqa: E402
 from deeplip_tpu_torch.cli import train_audio as train_audio_cli  # noqa: E402
 from deeplip_tpu_torch.cli.common import utterances_from_trials  # noqa: E402
 from deeplip_tpu_torch.cli import train_fusion as train_fusion_cli  # noqa: E402
 from deeplip_tpu_torch.cli import train_video as train_video_cli  # noqa: E402
+from deeplip_tpu_torch.cli import verify as verify_cli  # noqa: E402
 from deeplip_tpu_torch.cli.train_fusion import build_video_map, make_trainer  # noqa: E402
 from deeplip_tpu_torch.core.config import (AUDIO_DATA_OPTS, ETDNN_MODEL_OPTS, Config,  # noqa: E402
                                            load_audio_config, load_fusion_config)
@@ -209,7 +238,9 @@ from deeplip_tpu_torch.models.norm import TorchBatchNorm  # noqa: E402
 from deeplip_tpu_torch.models.resnet import conv_nhwc  # noqa: E402
 from deeplip_tpu_torch.serve import AVSpeakerVerifier, MicroBatcher, SpeakerVerifier  # noqa: E402
 from deeplip_tpu_torch.train import checkpoint as ckpt  # noqa: E402
-from deeplip_tpu_torch.train.audio import AudioExtractor, fp32_math, masked_cmvn  # noqa: E402
+from deeplip_tpu_torch.train import dispatch  # noqa: E402
+from deeplip_tpu_torch.train.audio import (AudioExtractor, AudioTrainer, fp32_math,  # noqa: E402
+                                           masked_cmvn)
 from deeplip_tpu_torch.train import fusion as fusion_mod  # noqa: E402
 from deeplip_tpu_torch.train.fusion import FusionTrainer, embed_av_items  # noqa: E402
 from deeplip_tpu_torch.train.video import VideoTrainer  # noqa: E402
@@ -3038,6 +3069,496 @@ def video_bf16_step_phase(trainer: VideoTrainer, batch: dict, bn: dict, smi: str
             "top_convs": [[k, t, s] for t, k, s in convs]}
 
 
+# ---------------------------------------------------------------- phase 14
+GROUPED_EPOCHS = 7                # the rate decays after epoch 2, the margin after epoch 5
+GROUPED_DECAY, GROUPED_MARGIN = [2], [0.2, 0.35]
+GROUPED_K_AUDIO, GROUPED_K_VIDEO = 4, 2
+GROUPED_FRAMES = 300              # f32: one crop length, so one graph lives through all 7 epochs
+GROUPED_LOSS_RTOL = 1e-5          # each step's loss, grouped vs single, f32
+GROUPED_FAULTS = ("rate", "margin")
+GROUPED_VIDEO_CLIPS, GROUPED_VIDEO_FRAMES, GROUPED_VIDEO_EPOCHS = 16, 29, 2
+
+
+def floating_state(*modules) -> dict:
+    """A copy of the modules' floating parameters and buffers, by name."""
+    return {f"{i}.{n}": v.detach().clone() for i, m in enumerate(modules)
+            for n, v in m.state_dict().items() if v.is_floating_point()}
+
+
+def loss_rel(got: list, want: list) -> float:
+    check(len(got) == len(want), f"{len(got)} grouped losses for {len(want)} single ones")
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def zero_kernel_counts() -> None:
+    zero_fbank_counts()
+    zero_video_counts()
+
+
+@contextlib.contextmanager
+def frozen_at_capture(name: str):
+    """Plant a fault: the per-step scalar ``name`` keeps, in every replay,
+    the value it had when its graph was captured (as a rate or margin read
+    as a Python number would)."""
+    fill = dispatch.GroupedSteps._fill
+
+    def frozen(entry, inputs, scalars):
+        if entry.graph is not None:
+            scalars = {n: v for n, v in scalars.items() if n != name}
+        fill(entry, inputs, scalars)
+
+    dispatch.GroupedSteps._fill = staticmethod(frozen)
+    try:
+        yield
+    finally:
+        dispatch.GroupedSteps._fill = staticmethod(fill)
+
+
+class NudgedAudio:
+    """The pipeline's batches with the PCM (as f32) nudged elementwise by
+    ``NUDGE``, relative: the single run's own sensitivity."""
+
+    def __init__(self, pipeline, seed: int = 5):
+        self.pipeline, self.seed = pipeline, seed
+
+    def __getattr__(self, name):
+        return getattr(self.pipeline, name)
+
+    def epoch(self, epoch: int):
+        rng = np.random.default_rng((self.seed, epoch))
+        for batch in self.pipeline.epoch(epoch):
+            pcm = batch["pcm"].astype(np.float32) / 32768.0
+            yield {**batch, "pcm": (pcm * (1.0 + NUDGE * rng.standard_normal(pcm.shape))
+                                    ).astype(np.float32)}
+
+
+def grouped_audio_config(root: str, manifest: str, trials: str, dtype: str,
+                         frames: int | None) -> dict:
+    """``conf/audio_config.yaml`` for phase 14: K = 4, 7 epochs, the rate
+    decayed after epoch 2 and the margin switched after epoch 5."""
+    cfg = load_audio_config(AUDIO_CONFIG_PATH).to_dict()
+    cfg["data"].update(train_manifest=manifest, test_root=root, trial_grid=trials)
+    if frames:
+        cfg["data"]["frames"] = [frames, frames]
+    cfg["train"].update(epoch=GROUPED_EPOCHS, lr_decay_step=GROUPED_DECAY,
+                        margin=GROUPED_MARGIN, steps_per_dispatch=GROUPED_K_AUDIO,
+                        compute_dtype=dtype)
+    return cfg
+
+
+def release() -> None:
+    """Free what dropped trainers held on the card: a trainer and its graph
+    runner refer to each other, so only the cycle collector frees them (and
+    with them their graphs' memory pool)."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def grouped_audio_run(cfg: dict, root: str, tag: str, grouped: bool, nudged: bool = False,
+                      device=None, keep: bool = False) -> dict:
+    """Train ``cfg`` from the seeded init; ``grouped=False`` runs the same
+    batches (the sampler's runs of K) as single steps. The trainer is
+    returned with ``keep``, else released."""
+    trainer = AudioTrainer(Config(cfg), device=device, exp_root=os.path.join(root, "exp"),
+                           log_time=tag)
+    if not grouped:
+        trainer.steps_per_dispatch = 1
+    if nudged:
+        trainer.pipeline = NudgedAudio(trainer.pipeline)
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train()
+    if trainer.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runner = trainer.grouped
+    run = {"losses": losses, "wall_s": wall, "launches": fbank_counts(),
+           "state": floating_state(trainer.model, trainer.criterion),
+           "warmups": runner.warmup_steps, "graphs": len(runner.graphs),
+           "replays": sum(e.replays for e in runner.graphs.values()),
+           "steps": trainer.step, "batches_per_epoch": trainer.pipeline.batches_per_epoch(),
+           "crop_lengths": sorted({n for e in range(1, trainer.current_epoch + 1)
+                                   for _, n in trainer.pipeline.sampler.epoch(e)})}
+    if keep:
+        run["trainer"] = trainer
+    else:
+        del trainer, runner
+        release()
+    return run
+
+
+def grouped_launch_check(run: dict, steps: int, what: str, want) -> None:
+    runs = steps + run["warmups"]
+    check(run["launches"] == want(runs), f"{what}: launches {run['launches']} for {steps} "
+          f"steps and {run['warmups']} warm-up steps, expected {want(runs)}")
+
+
+def grouped_audio_phase(smi: str, root: str, device=None) -> dict:
+    """Phase 14, audio: grouped against single in f32 across the rate decay
+    and the margin switch, the planted faults, the bf16 recipe, step times
+    and one profiled group; then a reference .pth through cli/verify.py."""
+    manifest, trials = write_train_corpus(os.path.join(root, "audio"))
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        f32 = grouped_audio_config(root, manifest, trials, "float32", GROUPED_FRAMES)
+        single = grouped_audio_run(f32, root, "single", grouped=False, device=device)
+        grouped = grouped_audio_run(f32, root, "grouped", grouped=True, device=device,
+                                    keep=True)
+        nudged = grouped_audio_run(f32, root, "nudged", grouped=False, nudged=True,
+                                   device=device)
+        faults = {}
+        for name in GROUPED_FAULTS:
+            with frozen_at_capture(name):
+                run = grouped_audio_run(f32, root, f"fault_{name}", grouped=True, device=device)
+            faults[name] = {"loss_rel": loss_rel(run["losses"], single["losses"]),
+                            "distance": grad_distance(run["state"], single["state"])}
+            del run
+    steps, bpe = single["steps"], single["batches_per_epoch"]
+    rel = loss_rel(grouped["losses"], single["losses"])
+    d_group = grad_distance(grouped["state"], single["state"])
+    d_nudge = grad_distance(nudged["state"], single["state"])
+    bar = NUDGE_FACTOR * d_nudge
+    for f in faults.values():
+        f["caught_by"] = ((["loss"] if f["loss_rel"] > GROUPED_LOSS_RTOL else [])
+                          + (["parameters"] if f["distance"] > bar else []))
+    log(f"grouped audio training (conf/audio_config.yaml, f32, TF32 off, cuDNN deterministic, "
+        f"bs {BATCH} x {GROUPED_FRAMES}, K = {GROUPED_K_AUDIO}): {GROUPED_EPOCHS} epochs x "
+        f"{bpe} steps, the rate decayed after epoch {GROUPED_DECAY[0]} and the margin "
+        f"{GROUPED_MARGIN[0]} -> {GROUPED_MARGIN[1]} after epoch 5; {grouped['graphs']} graph, "
+        f"{grouped['replays']} replays, {grouped['warmups']} warm-up step; each step's loss "
+        f"within {rel:.2e} of the single run's (bar {GROUPED_LOSS_RTOL}); final parameters "
+        f"{d_group:.3e} of their norm from the single run's, a {NUDGE} nudge of the PCM moves "
+        f"them {d_nudge:.3e} (bar {NUDGE_FACTOR} x); walls grouped {grouped['wall_s']:.1f} s, "
+        f"single {single['wall_s']:.1f} s [{smi}]")
+    for name, f in faults.items():
+        log(f"  planted fault, the {name} frozen at capture: loss {f['loss_rel']:.2e}, "
+            f"parameters {f['distance']:.3e}; caught by {f['caught_by']}")
+    groups = GROUPED_EPOCHS * (bpe // GROUPED_K_AUDIO)
+    check(grouped["graphs"] == 1 and grouped["replays"] == groups,
+          f"{grouped['graphs']} graphs and {grouped['replays']} replays for {groups} groups")
+    check(rel <= GROUPED_LOSS_RTOL, f"grouped audio losses {rel:.3e} from the single run's")
+    check(0 < d_nudge and d_group <= bar, f"grouped audio parameters {d_group:.3e} from the "
+          f"single run's, bar {bar:.3e}")
+    check(all(f["caught_by"] for f in faults.values()),
+          f"planted grouped faults passed every bar: {faults}")
+    grouped_launch_check(grouped, steps, "grouped f32 audio",
+                         lambda n: {"fft": n, "dft": 0})
+    interop = reference_pth_check(grouped.pop("trainer"), root, smi, device)
+    release()
+
+    bf16 = grouped_audio_config(root, manifest, trials, "bf16", None)
+    bf16_single = grouped_audio_run(bf16, root, "bf16_single", grouped=False, device=device)
+    bf16_grouped = grouped_audio_run(bf16, root, "bf16_grouped", grouped=True, device=device,
+                                     keep=True)
+    bf16_rel = loss_rel(bf16_grouped["losses"], bf16_single["losses"])
+    lengths = bf16_grouped["crop_lengths"]
+    log(f"grouped bf16 audio training (the config's recipe, crop lengths {lengths}): "
+        f"{bf16_grouped['graphs']} graphs, {bf16_grouped['replays']} replays, "
+        f"{bf16_grouped['warmups']} warm-up steps; losses within {bf16_rel:.2e} of the single "
+        f"run's (bar {BF16_LOSS_BAR}); launches {bf16_grouped['launches']} [{smi}]")
+    check(bf16_rel <= BF16_LOSS_BAR, f"grouped bf16 audio losses {bf16_rel:.3e} from single")
+    grouped_launch_check(bf16_grouped, bf16_single["steps"], "grouped bf16 audio",
+                         lambda n: {"fft": n, "dft": 0})
+    timing = grouped_audio_timing(bf16_grouped.pop("trainer"), smi)
+    release()
+    return {"steps": steps, "loss_rel": rel, "distance": d_group, "nudge_distance": d_nudge,
+            "faults": faults, "graphs": grouped["graphs"], "replays": grouped["replays"],
+            "warmups": grouped["warmups"], "launches": grouped["launches"],
+            "walls_s": {"grouped": grouped["wall_s"], "single": single["wall_s"]},
+            "bf16": {"loss_rel": bf16_rel, "graphs": bf16_grouped["graphs"],
+                     "replays": bf16_grouped["replays"], "warmups": bf16_grouped["warmups"],
+                     "launches": bf16_grouped["launches"], "crop_lengths": lengths,
+                     "walls_s": {"grouped": bf16_grouped["wall_s"],
+                                 "single": bf16_single["wall_s"]}},
+            **timing, "reference_pth": interop}
+
+
+def group_timing(single_step, group_step, k: int, sync) -> dict:
+    """ms per step of K single steps and of one K-step group, in turns
+    (single, grouped, grouped, single), each the median of three; the peak
+    memory each way, from before its first call (a group's first call may
+    capture its graph: the pool's memory is allocated then, and a replay
+    allocates nothing)."""
+    walls = {"single": [], "grouped": []}
+    peaks = {}
+    for name in ("single", "grouped", "grouped", "single"):
+        fn = single_step if name == "single" else group_step
+        if torch.cuda.is_available() and name not in peaks:
+            torch.cuda.reset_peak_memory_stats()
+        fn()
+        sync()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls[name].append((time.perf_counter() - t0) * 1e3 / k)
+        if torch.cuda.is_available():
+            peaks[name] = max(peaks.get(name, 0.0), torch.cuda.max_memory_allocated() / 1e9)
+    return {"ms": {n: sorted(v)[len(v) // 2] for n, v in walls.items()}, "walls_ms": walls,
+            "peak_gb": peaks}
+
+
+def profiled_idle(fn, sync, kinds_table) -> dict:
+    """One profiled call of ``fn``: wall, device busy time, idle share."""
+    sync()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    kinds, busy = profile_kinds(prof, kinds_table)
+    return {"wall_ms": wall, "busy_ms": busy,
+            "idle": (1 - busy / wall) if busy > 0 else None, "by_kind_ms": kinds}
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def grouped_audio_timing(trainer: AudioTrainer, smi: str) -> dict:
+    """bf16 at bs 256 x 300: ms per step of 4 single steps against one
+    group of 4, peak memory both ways, and one profiled group and one
+    profiled run of 4 single steps with their idle shares."""
+    k, dev = GROUPED_K_AUDIO, trainer.device
+    sids = next(trainer.pipeline.sampler.epoch(1))[0]
+    batches = [trainer.pipeline._assemble(sids, GROUPED_FRAMES, (9, i)) for i in range(k)]
+    pcm = torch.from_numpy(np.stack([b["pcm"] for b in batches])).to(dev)
+    labels = torch.from_numpy(np.stack([b["labels"] for b in batches])).to(dev)
+    margin = trainer.end_margin
+
+    def singles():
+        for i in range(k):
+            trainer.train_step(pcm[i], labels[i], margin)
+
+    def group():
+        trainer.train_group(pcm, labels, margin)
+
+    times = group_timing(singles, group, k, _sync)
+    prof = {"grouped": profiled_idle(group, _sync, AUDIO_KINDS),
+            "single": profiled_idle(singles, _sync, AUDIO_KINDS)}
+    log(f"audio bf16 at bs {BATCH} x {GROUPED_FRAMES}: {times['ms']['single']:.2f} ms a single "
+        f"step, {times['ms']['grouped']:.2f} ms a step in a group of {k} (median of 3 each, in "
+        f"turns); peak {times['peak_gb']} GB; profiled: " + "; ".join(
+            f"{n} {p['wall_ms']:.1f} ms wall, {p['busy_ms']:.1f} ms busy, idle "
+            + (f"{p['idle']:.1%}" if p["idle"] is not None else "not measured")
+            for n, p in prof.items()) + f" [{smi}]")
+    return {"timing_bf16_300": times, "profiled_bf16_300": prof}
+
+
+def reference_pth_check(trainer: AudioTrainer, root: str, smi: str, device=None) -> dict:
+    """The trainer's last checkpoint exported by ``cli/export_torch.py
+    --dp-prefix`` as a reference ``.pth``, served by ``cli/verify.py
+    --checkpoint``: its embeddings equal those of the port's own checkpoint."""
+    own = os.path.join(trainer.exp_dir, f"net_{trainer.current_epoch}")
+    ref = export_torch_cli.main(["audio", "--checkpoint", own, "--out",
+                                 os.path.join(root, "reference.pth"), "--dp-prefix"])
+    keys = list(torch.load(ref, weights_only=True)["state_dict"])
+    check(keys and all(k.startswith("module.") for k in keys), "the export has no module. keys")
+    cfg_path = os.path.join(root, "verify_config.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(trainer.cfg.to_dict(), fh)
+    wavs = sorted(glob.glob(os.path.join(root, "audio", "s00*", "u8.wav")))[:1] + sorted(
+        glob.glob(os.path.join(root, "audio", "s001", "u*.wav")))[:2]
+    dev_args = ["--device", device] if device else []
+    profiles = {}
+    for tag, ckpt_path in (("reference", ref), ("own", own)):
+        prof = os.path.join(root, f"profiles_{tag}")
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            verify_cli.main(["enroll", "-c", cfg_path, "-p", prof, "--checkpoint", ckpt_path,
+                             *dev_args, "spk", *wavs])
+        profiles[tag] = np.load(os.path.join(prof, "spk.npy"))
+    equal = bool(np.array_equal(profiles["reference"], profiles["own"]))
+    log(f"reference .pth: {os.path.basename(own)} exported with --dp-prefix ({len(keys)} "
+        f"module. keys) and enrolled through cli/verify.py --checkpoint: profile "
+        f"{'bit-equal to' if equal else 'differs from'} the port's own checkpoint's [{smi}]")
+    check(equal, "the reference .pth serves other embeddings than the port's checkpoint")
+    return {"keys": len(keys), "profile_equal": equal}
+
+
+def write_grouped_clip_corpus(root: str, seed: int = 1) -> None:
+    """32 speakers x 16 clips of 29 frames (:func:`speaker_clip`)."""
+    rng = np.random.default_rng(seed)
+    for spk in range(VIDEO_SPEAKERS):
+        os.makedirs(os.path.join(root, f"s{spk:02d}"), exist_ok=True)
+        for c in range(GROUPED_VIDEO_CLIPS):
+            np.savez(os.path.join(root, f"s{spk:02d}", f"c{c:02d}.npz"),
+                     data=speaker_clip(rng, spk, GROUPED_VIDEO_FRAMES))
+
+
+@contextlib.contextmanager
+def nudged_video_frames(seed: int = 11):
+    """The train frames nudged elementwise by ``NUDGE``, relative, from a
+    generator of their own (the dropout masks stay the run's)."""
+    inner = VideoTrainer._train_frames
+    gens = {}
+
+    def nudged(self, *args):
+        x = inner(self, *args)
+        gen = gens.setdefault(x.device, torch.Generator(device=x.device).manual_seed(seed))
+        return x * (1.0 + NUDGE * torch.randn(x.shape, generator=gen, device=x.device,
+                                               dtype=x.dtype))
+
+    VideoTrainer._train_frames = nudged
+    try:
+        yield
+    finally:
+        VideoTrainer._train_frames = inner
+
+
+def grouped_video_run(data: str, root: str, tag: str, dtype: str, k: int,
+                      device=None, keep: bool = False) -> dict:
+    dev_args = ["--device", device] if device else []
+    torch.manual_seed(0)   # the dropout masks of every run start from one state
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    trainer, out = train_video_cli.main(
+        ["--config-path", os.path.join(REPO, "conf", "video_config.json"), "--data-dir", data,
+         "--batch-size", str(VIDEO_BATCH), "--epochs", str(GROUPED_VIDEO_EPOCHS),
+         "--compute-dtype", dtype, "--steps-per-dispatch", str(k), "--exp-root",
+         os.path.join(root, "exp"), "--log-time", tag] + dev_args)
+    _sync()
+    wall = time.perf_counter() - t0
+    run = {"losses": out["losses"], "wall_s": wall, "launches": video_counts(),
+           "state": floating_state(trainer.model), "steps": trainer.step,
+           "warmups": trainer.grouped.warmup_steps,
+           "replays": sum(e.replays for e in trainer.grouped.graphs.values())}
+    if keep:
+        run["trainer"] = trainer
+    else:
+        del trainer
+        release()
+    return run
+
+
+def grouped_video_phase(smi: str, root: str, device=None) -> dict:
+    """Phase 14, video: cli/train_video.py --steps-per-dispatch 2 against
+    single steps, f32 and bf16, 2 epochs; step times and one profiled
+    group."""
+    data = os.path.join(root, "clips")
+    write_grouped_clip_corpus(data)
+    per_step = lambda n: {"bn_prelu_fwd": 27 * n, "bn_prelu_bwd": 27 * n,  # noqa: E731
+                          "maxpool_fwd": n, "maxpool_bwd": n}
+    out = {}
+    cudnn = torch.backends.cudnn
+    for dtype in ("float32", "bf16"):
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+            single = grouped_video_run(data, root, f"{dtype}_single", dtype, 1, device)
+            grouped = grouped_video_run(data, root, f"{dtype}_grouped", dtype, GROUPED_K_VIDEO,
+                                        device, keep=True)
+            nudged = None
+            if dtype == "float32":
+                with nudged_video_frames():
+                    nudged = grouped_video_run(data, root, "nudged", dtype, 1, device)
+        steps = single["steps"]
+        rel = loss_rel(grouped["losses"], single["losses"])
+        d_group = grad_distance(grouped["state"], single["state"])
+        row = {"steps": steps, "loss_rel": rel, "distance": d_group,
+               "replays": grouped["replays"], "warmups": grouped["warmups"],
+               "launches": grouped["launches"],
+               "walls_s": {"grouped": grouped["wall_s"], "single": single["wall_s"]}}
+        if nudged is not None:
+            row["nudge_distance"] = grad_distance(nudged["state"], single["state"])
+        log(f"grouped video training through cli/train_video.py --steps-per-dispatch "
+            f"{GROUPED_K_VIDEO} ({dtype}, bs {VIDEO_BATCH} x {GROUPED_VIDEO_FRAMES}, TCN "
+            f"dropout {video_config()['tcn_dropout']}): {steps} steps, {grouped['replays']} "
+            f"replays, {grouped['warmups']} warm-up step; losses within {rel:.2e} of the single "
+            f"run's; final parameters {d_group:.3e} of their norm from the single run's"
+            + (f", a {NUDGE} nudge of the frames moves them {row['nudge_distance']:.3e}"
+               if nudged else "") + f"; launches {grouped['launches']} [{smi}]")
+        if dtype == "float32":
+            check(rel <= GROUPED_LOSS_RTOL, f"grouped video losses {rel:.3e} from single")
+            check(0 < row["nudge_distance"] and d_group <= NUDGE_FACTOR * row["nudge_distance"],
+                  f"grouped video parameters {d_group:.3e} from the single run's")
+        else:
+            check(rel <= VIDEO_BF16_LOSS_RTOL, f"grouped bf16 video losses {rel:.3e}")
+        groups = GROUPED_VIDEO_EPOCHS * (steps // GROUPED_VIDEO_EPOCHS // GROUPED_K_VIDEO)
+        check(grouped["replays"] == groups, f"{grouped['replays']} replays for {groups} groups")
+        grouped_launch_check(grouped, steps, f"grouped {dtype} video", per_step)
+        row.update(grouped_video_timing(grouped.pop("trainer"), smi))
+        out[dtype] = row
+        del single, grouped, nudged
+        release()
+    return out
+
+
+def grouped_video_timing(trainer: VideoTrainer, smi: str) -> dict:
+    """ms per step of two single steps against one group of two at bs 128 x
+    29, peak memory both ways, and one profiled group's idle share."""
+    k, dev = GROUPED_K_VIDEO, trainer.device
+    rng = np.random.default_rng(3)
+    clips = torch.from_numpy(rng.integers(0, 256, (k, VIDEO_BATCH, GROUPED_VIDEO_FRAMES, 96, 96),
+                                          dtype=np.uint8)).to(dev)
+    lengths = torch.full((k, VIDEO_BATCH), GROUPED_VIDEO_FRAMES, dtype=torch.int32, device=dev)
+    labels = torch.from_numpy(rng.integers(0, VIDEO_SPEAKERS, (k, VIDEO_BATCH))).to(dev)
+    gen = torch.Generator().manual_seed(4)
+    draws = {"dh": torch.randint(0, 9, (k, VIDEO_BATCH), generator=gen),
+             "dw": torch.randint(0, 9, (k, VIDEO_BATCH), generator=gen),
+             "flip": torch.rand((k, VIDEO_BATCH), generator=gen) < 0.5}
+
+    def singles():
+        for i in range(k):
+            trainer.train_step(clips[i], lengths[i], labels[i], gen)
+
+    def group():
+        trainer.train_group(clips, lengths, labels, draws)
+
+    times = group_timing(singles, group, k, _sync)
+    prof = {"grouped": profiled_idle(group, _sync, KERNEL_KINDS),
+            "single": profiled_idle(singles, _sync, KERNEL_KINDS)}
+    dtype = "bf16" if trainer.compute_dtype is torch.bfloat16 else "f32"
+    log(f"video {dtype} at bs {VIDEO_BATCH} x {GROUPED_VIDEO_FRAMES}: "
+        f"{times['ms']['single']:.1f} ms a single step, {times['ms']['grouped']:.1f} ms a step "
+        f"in a group of {k}; peak {times['peak_gb']} GB; profiled: " + "; ".join(
+            f"{n} {p['wall_ms']:.1f} ms wall, {p['busy_ms']:.1f} ms busy, idle "
+            + (f"{p['idle']:.1%}" if p["idle"] is not None else "not measured")
+            for n, p in prof.items()) + f" [{smi}]")
+    return {"timing": times, "profiled": prof}
+
+
+def failed_capture_check() -> dict:
+    """A step that reads a number on the host cannot be captured: the
+    runner raises, and nothing runs in its place. It runs in a thread of
+    its own: the current stream is per thread, so a capture cut short
+    leaves the main thread's stream as it was."""
+    x = torch.ones(4, device="cuda")
+
+    def body(i, inputs, scalars):
+        return {"loss": torch.full((), float(inputs["x"][i].sum()), device="cuda")}
+
+    runner = dispatch.GroupedSteps(body, lambda: [x], torch.device("cuda"))
+
+    def attempt():
+        try:
+            runner.run({"x": torch.ones(2, 4, device="cuda")},
+                       {"rate": torch.zeros(2, dtype=torch.float64)})
+        except RuntimeError as exc:
+            return f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+        return None
+
+    with ThreadPoolExecutor(1) as pool:
+        raised = pool.submit(attempt).result()
+    torch.cuda.synchronize()
+    log(f"a capture that fails (a host read inside the step): raised {raised!r}; "
+        f"{len(runner.graphs)} graphs kept; the card still runs")
+    check(raised is not None and not runner.graphs, "a failed capture did not raise")
+    return {"raised": raised}
+
+
+def grouped_dispatch_phase(smi: str) -> dict:
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        audio = grouped_audio_phase(smi, root)
+        torch.cuda.empty_cache()
+        video = grouped_video_phase(smi, root)
+        failed = failed_capture_check()
+        wall = time.perf_counter() - t0
+    log(f"phase 14: {wall:.1f} s")
+    return {"audio": audio, "video": video, "failed_capture": failed, "wall_s": wall}
+
+
 BN_REPLACES = {"fwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:56",
                        "deeplip_tpu/ops/pallas/bn_prelu_kernel.py:70"),
                "bwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:80",
@@ -3132,6 +3653,8 @@ def main() -> int:
     fusion = fusion_train_phase(dev["smi"], peaks)
     torch.cuda.empty_cache()
     video_bf16 = video_bf16_phase(bn, dev["smi"])
+    torch.cuda.empty_cache()
+    grouped = grouped_dispatch_phase(dev["smi"])
     launches = {
         "launches": main_path["launches"]["fused_fbank"],
         "launches_sweep": sweep["launches"]["fft"],
@@ -3230,6 +3753,22 @@ def main() -> int:
                                  video_bf16["path_err"]["y" if kind == "fwd" else "dx"]),
             ms_bf16_per_step=video_bf16["k3_k4_bf16_per_step"][kind],
             bound_ms_bf16_per_step=video_bf16["k3_k4_bf16_per_step"][f"{kind}_bound"])
+    # phase 14: the launches of the grouped runs, counted over the graph
+    # replays, with the eager warm-up steps that preceded each capture
+    audio_g, video_g = grouped["audio"], grouped["video"]
+    for name in ("fused_fbank", "fused_fbank_v1_configs"):
+        by_name[name]["launches_grouped_audio"] = {
+            "f32": audio_g["launches"]["fft"], "bf16": audio_g["bf16"]["launches"]["fft"],
+            "steps": audio_g["steps"], "warmup_steps": {
+                "f32": audio_g["warmups"], "bf16": audio_g["bf16"]["warmups"]}}
+    by_name["fused_fbank_dft"]["launches_grouped_audio"] = audio_g["launches"]["dft"]
+    for name, key in (("bn_prelu_fwd", "bn_prelu_fwd"), ("bn_prelu_bwd", "bn_prelu_bwd"),
+                      ("maxpool_frontend", "maxpool_fwd")):
+        by_name[name]["launches_grouped_video"] = {
+            dtype: {"launches": row["launches"][key], "steps": row["steps"],
+                    "warmup_steps": row["warmups"]} for dtype, row in video_g.items()}
+    by_name["maxpool_frontend"]["launches_grouped_video_bwd"] = {
+        dtype: row["launches"]["maxpool_bwd"] for dtype, row in video_g.items()}
     by_name["maxpool_frontend"].update(
         launches_fusion_train=fusion["launches"]["maxpool_fwd"],
         launches_video_bf16={k: video_bf16["launches"][k] for k in ("maxpool_fwd",
@@ -3277,6 +3816,7 @@ def main() -> int:
         "audio_train": {k: v for k, v in audio_train.items() if k != "k1_shapes"},
         "fusion_train": fusion,
         "video_bf16": video_bf16,
+        "grouped_dispatch": grouped,
     }
     print(json.dumps(summary), flush=True)
     print(json.dumps(kernels), flush=True)

@@ -16,7 +16,9 @@ Usage::
     python -m deeplip_tpu_torch.cli.train_audio --config conf/audio_config.yaml \\
         --mode train [--exp-root exp] [--resume exp/<t>/net_avg] [--device cpu]
 
-It runs on the card unless ``--device`` names another device.
+It runs on the card unless ``--device`` names another device. The config's
+``train.steps_per_dispatch: K > 1`` trains K same-shape steps as one
+captured CUDA graph on the card (``train/dispatch.py``).
 """
 
 from __future__ import annotations

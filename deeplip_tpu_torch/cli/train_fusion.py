@@ -85,11 +85,16 @@ def _resolve(resume, which: str) -> str | None:
     return str(resume)
 
 
+def _is_pth(path: str | None) -> bool:
+    return path is not None and path.endswith(".pth")
+
+
 def make_trainer(cfg, exp_root: str, log_time: str | None, mode: str = "train",
                  device: str | torch.device | None = None) -> FusionTrainer:
     """The fusion config's trainer with its encoders loaded from the
     ``resume`` keys and, in the eval modes, the fusion head from
-    ``train.resume``. With a train manifest, the speaker count and the steps
+    ``train.resume``; each key names the port's ``net_<tag>`` or a
+    reference DeepLip ``.pth``. With a train manifest, the speaker count and the steps
     per epoch come from it (``trainer.manifest``); the MultiStep milestones
     ``train.lr_decay_step`` are epochs."""
     model_opts, train_opts = cfg.model, cfg.train
@@ -125,12 +130,20 @@ def make_trainer(cfg, exp_root: str, log_time: str | None, mode: str = "train",
         loss=str(train_opts.get("loss", "CrossEntropy")), exp_root=exp_root,
         log_time=log_time, compute_dtype=str(train_opts.get("compute_dtype", "float32")))
     trainer.manifest = manifest
-    trainer.load_encoders(
-        _resolve((train_opts.get("audio_config") or {}).get("resume"), "audio encoder"),
-        _resolve((train_opts.get("video_config") or {}).get("resume"), "video encoder"))
+    audio_resume = _resolve((train_opts.get("audio_config") or {}).get("resume"),
+                            "audio encoder")
+    video_resume = _resolve((train_opts.get("video_config") or {}).get("resume"),
+                            "video encoder")
+    # a reference DeepLip checkpoint is a .pth; the port's are net_<tag>
+    # files: dispatch by suffix, as the JAX package does
+    trainer.load_torch_encoders(*(p if _is_pth(p) else None
+                                  for p in (audio_resume, video_resume)))
+    trainer.load_encoders(*(None if _is_pth(p) else p for p in (audio_resume, video_resume)))
     if mode != "train":
         fusion_resume = _resolve(train_opts.get("resume"), "fusion head")
-        if fusion_resume is not None:
+        if _is_pth(fusion_resume):
+            trainer.load_torch_fusion_head(fusion_resume)
+        elif fusion_resume is not None:
             trainer.load_head_checkpoint(fusion_resume)
     return trainer
 

@@ -53,7 +53,8 @@ def main(argv=None) -> tuple[VideoTrainer, dict]:
                    help="the train step's frame-path type (parameters stay f32; bf16 "
                         "for throughput)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="train steps per device dispatch; only 1 is ported")
+                   help="train steps per dispatch: K > 1 runs K same-shape batches as one "
+                        "captured CUDA graph on the card (K eager steps on the CPU)")
     p.add_argument("--extract-feats", action="store_true")
     p.add_argument("--mouth-embedding-out-path", default=None)
     p.add_argument("--device", default=None, help="default: the card")

@@ -35,7 +35,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="audio config, .json or .yaml (the file the trainer uses)")
     p.add_argument("-p", "--profiles", required=True,
                    help="state dir: profiles npy tree + _threshold.json + _cohort.npz")
-    p.add_argument("--checkpoint", default=None, help="checkpoint file of the audio model")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file of the audio model: the port's net_<tag> or a "
+                        "reference .pth (dispatch by suffix)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
 
 

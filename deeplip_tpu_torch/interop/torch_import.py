@@ -1,0 +1,171 @@
+"""Read reference DeepLip ``.pth`` checkpoints into the port's state dicts.
+
+Counterpart of ``deeplip_tpu/interop/torch_import.py``. The port's modules
+already use the reference's state-dict layouts, so an import is container
+handling, not a layout change:
+
+- only a leading ``module.`` (the DataParallel prefix) is stripped, never a
+  submodule named ``module`` inside a key;
+- ``fc3*`` keys (the reference's unused third layer) are dropped;
+- floating tensors become float32, the port's parameter type;
+- every BatchNorm (a ``.running_mean`` key) gets a ``num_batches_tracked``
+  counter, 0 where the file has none, because ``TorchBatchNorm`` carries
+  one and the port's loaders are strict.
+
+A file is read with ``weights_only=True`` first. A reference fusion
+checkpoint also pickles its live criterion module, whose class lives in the
+reference package; for such a ``.pth``, and only for a file the caller
+names, :func:`read_checkpoint` falls back to an unpickler that rebuilds
+torch's tensors and turns every other class into an inert stub, so the
+criterion's parameters are still recovered (:func:`criterion_state_from_object`)
+and no code of the file's choosing is imported.
+"""
+
+from __future__ import annotations
+
+import pickle
+import types
+from typing import Any, Mapping
+
+import torch
+
+# the tensor machinery a checkpoint pickle needs; everything else is stubbed
+_SAFE_GLOBALS = {("collections", "OrderedDict"), ("copyreg", "_reconstructor"),
+                 ("builtins", "object"), ("torch", "Size"), ("torch", "device")}
+CLASSIFIER_PREFIX = "tcn.tcn_output."
+
+
+def clean_state_dict(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A reference state dict in the port's terms: ``module.`` stripped,
+    ``fc3*`` dropped, floats as float32, a ``num_batches_tracked`` for every
+    BatchNorm."""
+    out = {}
+    for key, value in state_dict.items():
+        if key.startswith("module."):
+            key = key[len("module."):]
+        if key.startswith("fc3"):
+            continue
+        value = torch.as_tensor(value).detach().cpu()
+        out[key] = value.to(torch.float32) if value.is_floating_point() else value.clone()
+    for key in [k for k in out if k.endswith(".running_mean")]:
+        counter = key[:-len("running_mean")] + "num_batches_tracked"
+        out.setdefault(counter, torch.tensor(0, dtype=torch.long))
+    return out
+
+
+class _Stub:
+    """Stands in for a class the checkpoint names and the port does not
+    import; keeps whatever state the pickle hands it."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        if isinstance(state, dict):
+            self.__dict__.update(state)
+        else:
+            self.__dict__["_state"] = state
+
+
+class _TolerantUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        safe = ((module, name) in _SAFE_GLOBALS
+                or (module == "torch._utils" and name.startswith("_rebuild_"))
+                or (module == "torch" and (name.endswith("Storage")
+                                           or isinstance(getattr(torch, name, None),
+                                                         torch.dtype))))
+        if safe:
+            return super().find_class(module, name)
+        return type(name, (_Stub,), {"__module__": module})
+
+
+_TOLERANT = types.ModuleType("deeplip_tolerant_pickle")
+_TOLERANT.Unpickler = _TolerantUnpickler
+_TOLERANT.Pickler = pickle.Pickler
+_TOLERANT.load = pickle.load
+
+
+def read_checkpoint(path: str) -> Any:
+    """``torch.load`` a checkpoint onto the CPU with ``weights_only=True``;
+    a ``.pth`` that this refuses (a pickled module inside) is read again
+    with the tolerant unpickler. Any other file that holds more than
+    tensors raises."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        if not str(path).endswith(".pth"):
+            raise
+    return torch.load(path, map_location="cpu", weights_only=False, pickle_module=_TOLERANT)
+
+
+def _state_dict_of(tree: Any) -> Mapping[str, Any]:
+    return tree["state_dict"] if isinstance(tree, Mapping) and "state_dict" in tree else tree
+
+
+def criterion_state_from_object(obj) -> dict[str, torch.Tensor]:
+    """The parameters of a pickled criterion module, real or stubbed, by
+    name (``weights``; ``fc.weight``, ``fc.bias``). Running statistics are
+    left out, as the reference criteria have none worth keeping."""
+    if isinstance(obj, torch.nn.Module):
+        return dict(obj.state_dict())
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix=""):
+        d = getattr(node, "__dict__", {})
+        for k, v in (d.get("_parameters") or {}).items():
+            if v is not None:
+                out[prefix + k] = v
+        for k, v in (d.get("_buffers") or {}).items():
+            if v is not None and "running" not in k:
+                out[prefix + k] = v
+        for k, v in (d.get("_modules") or {}).items():
+            if v is not None:
+                walk(v, prefix + k + ".")
+
+    walk(obj)
+    return out
+
+
+def load_reference_audio_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """The E-TDNN state dict of a reference audio ``net_*.pth``
+    (``{"epoch", "state_dict", ...}`` or a bare state dict)."""
+    return clean_state_dict(_state_dict_of(read_checkpoint(path)))
+
+
+def load_reference_video_checkpoint(path: str, initial: Mapping[str, torch.Tensor]
+                                    ) -> dict[str, torch.Tensor]:
+    """A reference Lipreading checkpoint merged over ``initial`` (the
+    receiving network's own state dict), as the JAX package's
+    ``load_torch_encoders`` merges it. Only the classifier
+    (``tcn.tcn_output.*``) may be missing, or of another size; any other
+    missing or unexpected key raises."""
+    loaded = clean_state_dict(_state_dict_of(read_checkpoint(path)))
+    unexpected = sorted(set(loaded) - set(initial))
+    missing = sorted(k for k in set(initial) - set(loaded)
+                     if not (k.startswith(CLASSIFIER_PREFIX)
+                             or k.endswith(".num_batches_tracked")))
+    if unexpected or missing:
+        raise KeyError(f"{path}: not a Lipreading checkpoint of this network "
+                       f"(unexpected keys {unexpected[:5]}, missing keys {missing[:5]})")
+    return {**{k: v.detach().cpu() for k, v in initial.items()}, **loaded}
+
+
+def load_reference_fusion_checkpoint(path: str) -> tuple[dict, dict | None]:
+    """``(head, criterion)`` of a reference fusion ``net_*.pth``: LowFER's
+    ``U`` and ``V``, and the criterion's parameters from the file's
+    ``criterion_state_dict`` (as the exporters write it) or from its
+    pickled ``criterion`` module, or None where neither is there."""
+    tree = read_checkpoint(path)
+    sd = clean_state_dict(_state_dict_of(tree))
+    missing = [k for k in ("U", "V") if k not in sd]
+    if missing:
+        raise KeyError(f"{path}: no LowFER {missing} in the fusion checkpoint")
+    head = {"U": sd["U"], "V": sd["V"]}
+    if not isinstance(tree, Mapping):
+        return head, None
+    if tree.get("criterion_state_dict") is not None:
+        return head, clean_state_dict(tree["criterion_state_dict"])
+    if tree.get("criterion") is not None:
+        crit = criterion_state_from_object(tree["criterion"])
+        return head, clean_state_dict(crit) if crit else None
+    return head, None

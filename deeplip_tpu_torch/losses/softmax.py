@@ -10,7 +10,7 @@ reads:
 - :class:`LMCL` (AM-Softmax): cosine logits against the L2-normalised class
   ``weights``, an additive margin on the target class, scale ``s``, plus
   ``1e-5 * ||W||_1``. The margin is a per-call argument (the trainer's
-  margin schedule);
+  margin schedule), a float or a 0-d tensor;
 - :class:`AAMSoftmax` (ArcFace): ``cos(θ + m)`` on the target, the cosine
   clipped to ±(1 − 1e-7), the linear surrogate ``cos θ − m·sin m`` past
   ``cos(π − m)``;
@@ -119,14 +119,17 @@ class AAMSoftmax(_CosineHead):
 
     def forward(self, embeddings: torch.Tensor, labels: torch.Tensor, margin=None,
                 reduction: str = "mean"):
-        margin = float(self.init_margin if margin is None else margin)
+        margin = self.init_margin if margin is None else margin
+        # a margin tensor stays on the device (a train step captured in a
+        # CUDA graph reads the value written before each replay)
+        trig = (torch if isinstance(margin, torch.Tensor) else math)
         # strictly inside [-1, 1]: at +-1 sqrt(1 - cos^2) has an infinite
         # derivative, which would NaN the first aligned embedding's gradient
         cos = self.cosines(embeddings).clamp(-1.0 + 1e-7, 1.0 - 1e-7)
         sin = torch.sqrt(torch.clamp(1.0 - cos * cos, min=0.0))
-        cos_m, sin_m = math.cos(margin), math.sin(margin)
+        cos_m, sin_m = trig.cos(margin), trig.sin(margin)
         phi = cos * cos_m - sin * sin_m
-        phi = torch.where(cos > math.cos(math.pi - margin), phi, cos - margin * sin_m)
+        phi = torch.where(cos > trig.cos(math.pi - margin), phi, cos - margin * sin_m)
         onehot = _one_hot(labels, self.num_classes, cos)
         logits_m = torch.where(onehot > 0, phi, cos)
         return softmax_cross_entropy(self.scale * logits_m, labels, reduction), cos

@@ -8,8 +8,9 @@ tensor and the affine comes last (the same values as normalising first,
 with less traffic).
 
 The random draws come from an explicit ``torch.Generator`` on the host;
-:func:`train_transform_at` takes the offsets and flip flags themselves, so a
-test can hand both packages the same draws.
+:func:`train_transform_at` takes the offsets and flip flags themselves, on
+the host or the device, so a test can hand both packages the same draws and
+a grouped train step can read them from its buffers on the card.
 """
 
 from __future__ import annotations
@@ -30,16 +31,27 @@ def center_crop(clips: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     return clips[..., dh:dh + th, dw:dw + tw]
 
 
+def _tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.tensor(x)
+
+
 def crop_at(clips: torch.Tensor, size: tuple[int, int], dh, dw) -> torch.Tensor:
-    """Per-clip crop of ``(B, T, H, W)`` at offsets ``dh[b]``, ``dw[b]``."""
+    """Per-clip crop of ``(B, T, H, W)`` at offsets ``dh[b]``, ``dw[b]``: a
+    gather, so offsets that lie on the card are read there (a train step
+    captured in a CUDA graph takes them from its input buffers)."""
     th, tw = size
-    return torch.stack([clips[i, :, int(oh):int(oh) + th, int(ow):int(ow) + tw]
-                        for i, (oh, ow) in enumerate(zip(dh, dw))])
+    dev = clips.device
+    dh, dw = (_tensor(v).to(dev, non_blocking=True) for v in (dh, dw))
+    b = torch.arange(clips.shape[0], device=dev)[:, None, None, None]
+    t = torch.arange(clips.shape[1], device=dev)[None, :, None, None]
+    rows = (dh[:, None] + torch.arange(th, device=dev))[:, None, :, None]
+    cols = (dw[:, None] + torch.arange(tw, device=dev))[:, None, None, :]
+    return clips[b, t, rows, cols]
 
 
 def flip_at(clips: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
     """Horizontal flip of the clips where ``flip[b]`` is true."""
-    flip = flip.to(device=clips.device, dtype=torch.bool)
+    flip = _tensor(flip).to(device=clips.device, dtype=torch.bool, non_blocking=True)
     return torch.where(flip[:, None, None, None], clips.flip(-1), clips)
 
 

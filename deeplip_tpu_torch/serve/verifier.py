@@ -241,7 +241,9 @@ class SpeakerVerifier(ProfileVerifier):
         config: an audio config path or loaded :class:`Config` (only the
             ``data.python_data_config``, ``model``, ``train.loss`` and
             ``test`` sections matter for serving).
-        checkpoint: optional checkpoint file (``AudioExtractor.load_checkpoint``).
+        checkpoint: optional checkpoint file (``AudioExtractor.load_checkpoint``):
+            the port's ``net_<tag>``, or a reference DeepLip ``.pth``
+            (dispatch by suffix, as the train CLIs do).
         threshold: accept threshold for :meth:`verify`; usually left unset
             and obtained from :meth:`calibrate`.
         device: ``None`` runs on the card and raises where there is none.

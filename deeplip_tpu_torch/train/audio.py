@@ -12,9 +12,15 @@ Adam step with the MultiStep learning rate. The next batch's host→device
 copy is staged on a side stream while the current step runs. Per-epoch
 ``net_<epoch>`` checkpoints, resume with the learning-rate fast-forward,
 finetuning of the head alone, and the average of the last epochs
-(``net_avg``) follow the JAX trainer. Grouped dispatch
-(``train.steps_per_dispatch > 1``) and the Kaldi feature path are not
-ported; they raise.
+(``net_avg``) follow the JAX trainer. With ``train.steps_per_dispatch: K >
+1`` the sampler draws crop lengths in runs of K, and K consecutive
+same-shape batches run as one group (:func:`group_batches`): one captured
+CUDA graph of K steps on the card (``train.dispatch``), K eager steps on the
+CPU; a partial run at the tail of an epoch runs as single steps. The
+learning rate and the margin reach every step as tensors on the device.
+The Kaldi feature path is not ported; it raises. A reference DeepLip
+``.pth`` loads through :meth:`AudioTrainer.load_torch_checkpoint` and
+:meth:`AudioExtractor.load_checkpoint`.
 
 :class:`AudioExtractor` embeds bucketed PCM batches as ``_embed_fn`` does:
 int16 → f32 rescale on the device, the front-end with pre-emphasis masked at
@@ -35,6 +41,7 @@ import dataclasses
 import os
 import time
 
+import numpy as np
 import torch
 
 from deeplip_tpu_torch.core.config import Config
@@ -43,12 +50,14 @@ from deeplip_tpu_torch.data.audio_io import read_wav
 from deeplip_tpu_torch.data.audio_pipeline import AudioTrainPipeline, EvalUtteranceSet
 from deeplip_tpu_torch.data.manifest import SpeakerManifest
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore, TrialList, cosine_eer
+from deeplip_tpu_torch.interop.torch_import import load_reference_audio_checkpoint
 from deeplip_tpu_torch.losses.softmax import AAMSoftmax, LMCL, build_criterion
 from deeplip_tpu_torch.losses.triplet import OnlineTripletLoss
 from deeplip_tpu_torch.models.tdnn import SpeakerEmbNet
 from deeplip_tpu_torch.ops import features as F
 from deeplip_tpu_torch.ops.masked import length_mask
 from deeplip_tpu_torch.train import checkpoint as ckpt
+from deeplip_tpu_torch.train.dispatch import GroupedSteps
 from deeplip_tpu_torch.train.metrics import NanGuard, StepLogger
 from deeplip_tpu_torch.train.schedules import multistep_schedule
 from deeplip_tpu_torch.train.state import build_optimizer
@@ -62,6 +71,44 @@ def masked_cmvn(feat: torch.Tensor, lengths: torch.Tensor,
     mean = (feat * mask).sum(dim=1, keepdim=True) / count
     var = (((feat - mean) ** 2) * mask).sum(dim=1, keepdim=True) / count
     return (feat - mean) / (torch.sqrt(var) + eps)
+
+
+def group_batches(source, k: int):
+    """Stack runs of ``k`` consecutive same-shape PCM batches into ``(k, B,
+    ...)`` group batches (``"group": k``), as the JAX package's
+    ``_group_batches`` does. A shape change or a Kaldi-feature batch flushes
+    the pending run; a partial run (the tail of an epoch or a bucket) comes
+    out as its single batches."""
+    pending = []
+
+    def flush():
+        if len(pending) == k and k > 1:
+            return [{"pcm": np.stack([b["pcm"] for b in pending]),
+                     "labels": np.stack([b["labels"] for b in pending]),
+                     "n_frames": pending[-1]["n_frames"], "group": len(pending)}]
+        return list(pending)
+
+    for batch in source:
+        if "feats" in batch:
+            yield from flush()
+            pending = []
+            yield batch
+            continue
+        if pending and pending[-1]["pcm"].shape != batch["pcm"].shape:
+            yield from flush()
+            pending = []
+        pending.append(batch)
+        if len(pending) == k:
+            yield from flush()
+            pending = []
+    yield from flush()
+
+
+def device_scalar(device: torch.device) -> torch.Tensor:
+    """A float64 0-d tensor on ``device`` for a per-step scalar (the rate,
+    the margin) that a step reads on the device; each use casts it to the
+    type it meets."""
+    return torch.zeros((), dtype=torch.float64, device=device)
 
 
 def stage_arrays(arrays, device: torch.device, stream):
@@ -126,7 +173,13 @@ class AudioExtractor:
 
     def load_checkpoint(self, path: str) -> None:
         """Load a checkpoint file: ``{"epoch", "state_dict"}`` as the port's
-        trainers save it, or a bare reference-layout state dict."""
+        trainers save it, or a bare reference-layout state dict. A ``.pth``
+        is read as a reference DeepLip checkpoint
+        (:func:`~deeplip_tpu_torch.interop.torch_import.load_reference_audio_checkpoint`:
+        the DataParallel prefix and ``fc3*`` keys are taken off)."""
+        if str(path).endswith(".pth"):
+            self.load_state_dict(load_reference_audio_checkpoint(path))
+            return
         tree = torch.load(path, map_location=self.device, weights_only=True)
         self.load_state_dict(tree["state_dict"] if "state_dict" in tree else tree)
 
@@ -214,11 +267,7 @@ class AudioTrainer:
         self.test_opts = self.cfg.get("test") or Config()
         if self.data_opts.get("data_format", "python") != "python":
             raise NotImplementedError("the Kaldi feature path is not ported yet")
-        steps_per_dispatch = int(self.train_opts.get("steps_per_dispatch", 1))
-        if steps_per_dispatch > 1:
-            raise NotImplementedError(
-                f"train.steps_per_dispatch={steps_per_dispatch}: grouped step "
-                "dispatch is not ported yet; set it to 1")
+        self.steps_per_dispatch = max(int(self.train_opts.get("steps_per_dispatch", 1)), 1)
         self.compute_dtype = compute_dtype_of(self.train_opts.get("compute_dtype", "float32"),
                                               "train.compute_dtype")
 
@@ -263,7 +312,8 @@ class AudioTrainer:
                 rate=self.feat_cfg.rate,
                 n_buckets=int(self.train_opts.get("frame_buckets", 11)),
                 num_workers=int(self.train_opts.get("loader_workers", 8)),
-                reader=read_wav, transport=str(self.train_opts.get("transport", "auto")))
+                reader=read_wav, transport=str(self.train_opts.get("transport", "auto")),
+                bucket_run=self.steps_per_dispatch)
 
         steps_per_epoch = self.pipeline.batches_per_epoch() if self.pipeline else 1
         opt_type = self.train_opts.get("type", "sgd")
@@ -291,6 +341,9 @@ class AudioTrainer:
         self.step = 0
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        self._rate, self._margin = device_scalar(self.device), device_scalar(self.device)
+        self.grouped = GroupedSteps(self._group_body, self._state_tensors, self.device,
+                                    prepare=self.optimizer.init_state)
 
         self.loaded_checkpoint = False
         resume = self.train_opts.get("resume")
@@ -321,35 +374,73 @@ class AudioTrainer:
             return self.criterion(emb, labels, margin=margin)
         return self.criterion(emb, labels)
 
+    def _state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a train step updates in place."""
+        modules = [m for m in (self.model, self.criterion) if isinstance(m, torch.nn.Module)]
+        return ([t for m in modules for t in (*m.parameters(), *m.buffers())]
+                + [t for s in self.optimizer.state.values() for t in s.values()])
+
+    def _scalars(self, margin) -> tuple[torch.Tensor, torch.Tensor]:
+        """This step's rate and margin as device tensors."""
+        self._rate.fill_(self.schedule(self.step))
+        if isinstance(margin, torch.Tensor):
+            return self._rate, margin
+        self._margin.fill_(float(margin))
+        return self._rate, self._margin
+
     def train_step(self, pcm: torch.Tensor, labels: torch.Tensor, margin) -> dict:
         """One optimizer step from a ``(B, S)`` PCM batch on the device
-        (int16 or float32). Returns the step's ``loss`` and ``acc`` as
-        tensors on the device."""
+        (int16 or float32); ``margin`` a float or a 0-d tensor. Returns the
+        step's ``loss`` and ``acc`` as tensors on the device."""
         with fp32_math():
-            if pcm.dtype == torch.int16:
-                # exact power-of-two rescale: PCM16 crops give the float32
-                # transport's samples bit for bit
-                pcm = pcm.to(torch.float32) / 32768.0
-            feats = F.extract_features(pcm, self.feat_cfg)
-            return self._step_on_features(feats, labels, margin)
+            metrics = self._pcm_step(pcm, labels, *self._scalars(margin))
+        self.step += 1
+        return metrics
 
     def train_step_feats(self, feats: torch.Tensor, labels: torch.Tensor, margin) -> dict:
         """One optimizer step from precomputed ``(B, T, D)`` features."""
         with fp32_math():
-            return self._step_on_features(feats, labels, margin)
+            metrics = self._step_on_features(feats, labels, *self._scalars(margin))
+        self.step += 1
+        return metrics
 
-    def _step_on_features(self, feats, labels, margin) -> dict:
+    def train_group(self, pcm: torch.Tensor, labels: torch.Tensor, margin: float) -> dict:
+        """K optimizer steps from ``(K, B, S)`` PCM and ``(K, B)`` labels on
+        the device, as one dispatch (:class:`~deeplip_tpu_torch.train.dispatch.GroupedSteps`).
+        Returns every step's ``loss`` and ``acc`` as ``(K,)`` tensors."""
+        k = pcm.shape[0]
+        rates = torch.tensor([self.schedule(self.step + i) for i in range(k)],
+                             dtype=torch.float64)
+        with fp32_math():
+            metrics = self.grouped.run(
+                {"pcm": pcm, "labels": labels},
+                {"rate": rates, "margin": torch.tensor([float(margin)], dtype=torch.float64)})
+        self.step += k
+        return metrics
+
+    def _group_body(self, i: int, inputs, scalars) -> dict:
+        return self._pcm_step(inputs["pcm"][i], inputs["labels"][i], scalars["rate"][i],
+                              scalars["margin"][0])
+
+    def _pcm_step(self, pcm, labels, rate, margin) -> dict:
+        if pcm.dtype == torch.int16:
+            # exact power-of-two rescale: PCM16 crops give the float32
+            # transport's samples bit for bit
+            pcm = pcm.to(torch.float32) / 32768.0
+        feats = F.extract_features(pcm, self.feat_cfg)
+        return self._step_on_features(feats, labels, rate, margin)
+
+    def _step_on_features(self, feats, labels, rate, margin) -> dict:
+        """One step at the device-tensor ``rate`` and ``margin``; it touches
+        no Python number that changes from step to step, so a CUDA graph
+        can capture it."""
         self.model.train()
         emb = self.model(feats, compute_dtype=self.compute_dtype)
         loss, logits = self._criterion_apply(emb, labels, margin)
         acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.step += 1
+        self.optimizer.step(rate)
         return {"loss": loss.detach(), "acc": acc.detach()}
 
     def _margin_for_epoch(self, epoch: int) -> float:
@@ -390,15 +481,23 @@ class AudioTrainer:
             self.current_epoch = epoch
             margin = self._margin_for_epoch(epoch)
             metrics, last_log = None, self.step
-            for batch, (pcm, labels) in self._device_batches(self.pipeline.epoch(epoch)):
-                metrics = self.train_step(pcm, labels, margin)
-                losses.append(metrics["loss"])
+            source = self.pipeline.epoch(epoch)
+            if self.steps_per_dispatch > 1:
+                source = group_batches(source, self.steps_per_dispatch)
+            for batch, (pcm, labels) in self._device_batches(source):
+                if "group" in batch:
+                    group = self.train_group(pcm, labels, margin)
+                    losses.extend(group["loss"])
+                    metrics = {k: v[-1] for k, v in group.items()}
+                else:
+                    metrics = self.train_step(pcm, labels, margin)
+                    losses.append(metrics["loss"])
                 # a metric read waits for the card: only on logging steps
                 if self.step - last_log >= log_every:
                     last_log = self.step
                     loss = float(metrics["loss"])
                     guard.check(loss)
-                    logger.log(self.step, examples=len(batch["labels"]), loss=loss,
+                    logger.log(self.step, examples=batch["labels"].shape[-1], loss=loss,
                                acc=float(metrics["acc"]), lr=self.schedule(self.step),
                                epoch=epoch, n_frames=batch["n_frames"])
             if metrics is None:
@@ -444,6 +543,11 @@ class AudioTrainer:
             self.step = self.current_epoch * self.pipeline.batches_per_epoch()
         self.exp_dir = exp_dir
         self.log_time = os.path.basename(self.exp_dir)
+
+    def load_torch_checkpoint(self, path: str) -> None:
+        """Load the E-TDNN of a reference DeepLip ``net_*.pth``; the
+        criterion, the optimizer, the epoch and the step keep theirs."""
+        self.model.load_state_dict(load_reference_audio_checkpoint(path), strict=True)
 
     def load_finetune(self, path_or_tag: str) -> None:
         """Load the backbone (weights and BN statistics) alone and keep the

@@ -41,6 +41,9 @@ from deeplip_tpu_torch.core.device import fp32_math, resolve_device
 from deeplip_tpu_torch.data.audio_io import read_wav
 from deeplip_tpu_torch.data.video_dataset import load_clip
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore
+from deeplip_tpu_torch.interop.torch_import import (load_reference_audio_checkpoint,
+                                                    load_reference_fusion_checkpoint,
+                                                    load_reference_video_checkpoint)
 from deeplip_tpu_torch.losses.softmax import build_criterion
 from deeplip_tpu_torch.models.fusion import CompactBilinearPooling, LinearFusion, LowFER
 from deeplip_tpu_torch.models.lipreading import Lipreading
@@ -202,9 +205,10 @@ class FusionTrainer:
 
     @staticmethod
     def _read_state_dict(path: str, device) -> dict:
-        """A checkpoint file as a state dict: the port's ``net_<tag>``
-        (``{"epoch", "state_dict"}``), a reference ``.pth`` of the same
-        container, or a bare state dict."""
+        """A checkpoint file of the port's as a state dict: a ``net_<tag>``
+        (``{"epoch", "state_dict"}``) or a bare state dict. Reference DeepLip
+        ``.pth`` files go through :meth:`load_torch_encoders` and
+        :meth:`load_torch_fusion_head`."""
         tree = torch.load(path, map_location=device, weights_only=True)
         return tree["state_dict"] if "state_dict" in tree else tree
 
@@ -214,6 +218,30 @@ class FusionTrainer:
         self.load_state_dicts(
             audio=self._read_state_dict(audio_ckpt, self.device) if audio_ckpt else None,
             video=self._read_state_dict(video_ckpt, self.device) if video_ckpt else None)
+
+    def load_torch_encoders(self, audio_pth: str | None, video_pth: str | None) -> None:
+        """Load the frozen encoders from reference DeepLip ``.pth`` files. The
+        video file is merged over the video encoder's own state: only its
+        classifier may be missing, or of another size."""
+        self.load_state_dicts(
+            audio=load_reference_audio_checkpoint(audio_pth) if audio_pth else None,
+            video=load_reference_video_checkpoint(video_pth, self.video_model.state_dict())
+            if video_pth else None)
+
+    def load_torch_fusion_head(self, fusion_pth: str) -> None:
+        """Load LowFER's ``U``/``V`` and, where the file has it, the criterion
+        from a reference fusion ``net_*.pth`` (its pickled criterion module
+        is read even though its class cannot be imported). The other head
+        parameters, and the criterion where the file has none, keep theirs;
+        the optimizer's momentum starts afresh. Only a LowFER head takes
+        one."""
+        if self.fusion_head_name != "lowfer":
+            raise NotImplementedError(
+                "reference fusion checkpoints hold LowFER U/V; construct the trainer with "
+                "fusion_head='lowfer' to import one")
+        head, crit = load_reference_fusion_checkpoint(fusion_pth)
+        self.load_state_dicts(head={**self.fusion_head.state_dict(), **head}, criterion=crit)
+        self.optimizer.state.clear()
 
     def load_head_checkpoint(self, path: str) -> None:
         """Load a fusion checkpoint file: this trainer's ``net_<epoch>``

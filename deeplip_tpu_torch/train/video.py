@@ -16,8 +16,15 @@ update. Every path runs in FP32 (no TF32), the precision the reference
 holds its bars in, except the train step under ``compute_dtype='bf16'``:
 its frame path (frontend, max-pool, trunk) runs in bf16 with f32
 parameters, BN statistics in f32, and the TCN, classifier and loss in
-FP32; extraction stays FP32, as in the JAX package. Grouped step dispatch
-(``steps_per_dispatch > 1``) is not ported; it raises.
+FP32; extraction stays FP32, as in the JAX package.
+
+With ``steps_per_dispatch: K > 1``, K consecutive same-shape batches run as
+one group, flushed as the JAX trainer flushes them: one captured CUDA graph
+of K steps on the card (``train.dispatch``), K eager steps on the CPU; a
+partial run (a shape change, the end of an epoch) runs as single steps. The
+crop offsets and flips of a group are drawn on the host in the order K
+single steps draw them, and reach the graph, with each step's rate, through
+its input buffers.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ from deeplip_tpu_torch.models.lipreading import Lipreading
 from deeplip_tpu_torch.ops import video as V
 from deeplip_tpu_torch.ops.masked import length_mask
 from deeplip_tpu_torch.train import checkpoint as ckpt
-from deeplip_tpu_torch.train.audio import compute_dtype_of, fp32_math
+from deeplip_tpu_torch.train.audio import compute_dtype_of, device_scalar, fp32_math
+from deeplip_tpu_torch.train.dispatch import GroupedSteps
 from deeplip_tpu_torch.train.metrics import NanGuard, StepLogger
 from deeplip_tpu_torch.train.schedules import cosine_annealing_schedule
 from deeplip_tpu_torch.train.state import torch_adam
@@ -53,10 +61,7 @@ class VideoTrainer:
                  trunk_layers=(2, 2, 2, 2), seed: int = 0, compute_dtype: str = "float32",
                  steps_per_dispatch: int = 1):
         self.compute_dtype = compute_dtype_of(compute_dtype)
-        if int(steps_per_dispatch) > 1:
-            raise NotImplementedError(
-                f"steps_per_dispatch={steps_per_dispatch}: grouped step dispatch is not "
-                "ported yet; set it to 1")
+        self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.num_classes = num_classes
@@ -74,18 +79,35 @@ class VideoTrainer:
         self.exp_dir = os.path.join(exp_root, self.log_time)
         self.current_epoch = 0
         self.step = 0
+        self._rate = device_scalar(self.device)
+        self.grouped = GroupedSteps(self._group_body, self._state_tensors, self.device,
+                                    prepare=self.optimizer.init_state)
 
     # ------------------------------------------------------------------
+    def _state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a train step updates in place."""
+        return ([*self.model.parameters(), *self.model.buffers()]
+                + [t for s in self.optimizer.state.values() for t in s.values()])
+
     def train_step(self, clips_u8: torch.Tensor, lengths: torch.Tensor,
                    labels: torch.Tensor, generator: torch.Generator) -> dict:
         """One optimizer step from a uint8 ``(B, T, H, W)`` batch on the
         device; ``generator`` draws the crop offsets and flips."""
-        x = V.train_transform(clips_u8, generator, self.crop_size)[..., None]
+        dh, dw = V.crop_offsets(clips_u8, self.crop_size, generator)
+        flip = V.flip_flags(clips_u8.shape[0], generator)
+        return self.train_step_frames(self._train_frames(clips_u8, lengths, dh, dw, flip),
+                                      lengths, labels)
+
+    def _train_frames(self, clips_u8, lengths, dh, dw, flip) -> torch.Tensor:
+        """The train transform at the given draws, ``(B, T, H, W, 1)`` in the
+        parameters' type (f32 pixels meet f64 weights as Flax promotes
+        them)."""
+        x = V.train_transform_at(clips_u8, dh, dw, flip, self.crop_size)[..., None]
         # zero the pad frames after the transform. A length-0 row (a pad row
         # that repeats row 0's pixels) is masked with row 0's length, so the
         # BN statistics never see normalised black pad frames
         x = V.mask_pad_frames(x, torch.where(lengths > 0, lengths, lengths[0]))
-        return self.train_step_frames(x, lengths, labels)
+        return x.to(next(self.model.parameters()).dtype)
 
     def train_step_frames(self, x: torch.Tensor, lengths: torch.Tensor,
                           labels: torch.Tensor) -> dict:
@@ -93,6 +115,37 @@ class VideoTrainer:
         ``(B, T, H, W, 1)``. Rows of length 0 are left out of the loss and
         the accuracy. Returns the step's ``loss`` and ``acc`` as tensors on
         the device; the gradients stay in the parameters' ``.grad``."""
+        self._rate.fill_(self.schedule(self.step))
+        metrics = self._frames_step(x, lengths, labels, self._rate)
+        self.step += 1
+        return metrics
+
+    def train_group(self, clips_u8: torch.Tensor, lengths: torch.Tensor,
+                    labels: torch.Tensor, draws: dict) -> dict:
+        """K optimizer steps from ``(K, B, T, H, W)`` uint8 clips and ``(K,
+        B)`` lengths and labels on the device, as one dispatch; ``draws``
+        holds each step's crop offsets and flips (``dh``, ``dw``, ``flip``,
+        ``(K, B)`` each). Returns every step's ``loss`` and ``acc`` as
+        ``(K,)`` tensors."""
+        k = clips_u8.shape[0]
+        rates = torch.tensor([self.schedule(self.step + i) for i in range(k)],
+                             dtype=torch.float64)
+        inputs = {"clips": clips_u8, "lengths": lengths, "labels": labels,
+                  **{n: v.to(self.device, non_blocking=True) for n, v in draws.items()}}
+        metrics = self.grouped.run(inputs, {"rate": rates})
+        self.step += k
+        return metrics
+
+    def _group_body(self, i: int, inputs, scalars) -> dict:
+        lengths = inputs["lengths"][i]
+        x = self._train_frames(inputs["clips"][i], lengths, inputs["dh"][i], inputs["dw"][i],
+                               inputs["flip"][i])
+        return self._frames_step(x, lengths, inputs["labels"][i], scalars["rate"][i])
+
+    def _frames_step(self, x, lengths, labels, rate) -> dict:
+        """One step at the device-tensor ``rate``; it touches no Python
+        number that changes from step to step, so a CUDA graph can capture
+        it."""
         self.model.train()
         valid = (lengths > 0).to(torch.float32)
         denom = torch.clamp(valid.sum(), min=1.0)
@@ -104,11 +157,30 @@ class VideoTrainer:
             acc = ((logits.argmax(-1) == labels) * valid).sum() / denom
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
-            for group in self.optimizer.param_groups:
-                group["lr"] = self.schedule(self.step)
-            self.optimizer.step()
-        self.step += 1
+            self.optimizer.step(rate)
         return {"loss": loss.detach(), "acc": acc.detach()}
+
+    def _flush(self, pending: list, generator: torch.Generator, losses: list) -> dict:
+        """Run the pending same-shape batches: one group for a full run of
+        K > 1, single steps otherwise, as the JAX trainer's ``flush`` does.
+        Returns the last step's metrics."""
+        device_args = [[torch.from_numpy(p[k]).to(self.device, non_blocking=True)
+                        for k in ("clips", "lengths", "labels")] for p in pending]
+        if len(pending) == self.steps_per_dispatch > 1:
+            size = self.crop_size
+            draws = []
+            for p in pending:   # the order in which single steps draw them
+                dh, dw = V.crop_offsets(torch.from_numpy(p["clips"]), size, generator)
+                draws.append((dh, dw, V.flip_flags(len(p["labels"]), generator)))
+            group = self.train_group(
+                *(torch.stack(a) for a in zip(*device_args)),
+                {n: torch.stack(d) for n, d in zip(("dh", "dw", "flip"), zip(*draws))})
+            losses.extend(group["loss"])
+            return {k: v[-1] for k, v in group.items()}
+        for clips, lengths, labels in device_args:
+            metrics = self.train_step(clips, lengths, labels, generator)
+            losses.append(metrics["loss"])
+        return metrics
 
     def train(self, batches: VideoClipBatches, epochs: int = 1, seed: int = 0,
               auto_resume: bool = False) -> list[float]:
@@ -125,20 +197,25 @@ class VideoTrainer:
         losses: list[torch.Tensor] = []
         for epoch in range(self.current_epoch + 1, epochs + 1):
             self.current_epoch = epoch
-            metrics, b, last_log = None, 0, self.step
+            metrics, b, last_log, pending = None, 0, self.step, []
             for batch in batches.epoch(epoch):
                 b = len(batch["labels"])
-                clips, lengths, labels = (
-                    torch.from_numpy(batch[k]).to(self.device, non_blocking=True)
-                    for k in ("clips", "lengths", "labels"))
-                metrics = self.train_step(clips, lengths, labels, generator)
-                losses.append(metrics["loss"])
+                if pending and pending[-1]["clips"].shape != batch["clips"].shape:
+                    metrics = self._flush(pending, generator, losses)
+                    pending = []
+                pending.append(batch)
+                if len(pending) < self.steps_per_dispatch:
+                    continue
+                metrics = self._flush(pending, generator, losses)
+                pending = []
                 if self.step - last_log >= log_every:
                     last_log = self.step
                     loss = float(metrics["loss"])
                     guard.check(loss)
                     logger.log(self.step, examples=b, loss=loss, acc=float(metrics["acc"]),
                                lr=self.schedule(self.step), epoch=epoch)
+            if pending:
+                metrics = self._flush(pending, generator, losses)
             if metrics is None:
                 raise RuntimeError(f"epoch {epoch}: no batches produced — is the clip "
                                    "directory empty or fully filtered out?")

@@ -233,8 +233,19 @@ def test_bf16_recipe_audit(fault, tmp_path):
 
 
 def test_config_options_that_are_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        AudioTrainer(Config(_cfg(steps_per_dispatch=4)), device="cpu", n_spk=2)
+    # grouped dispatch is ported: a group of 4 equals 4 single steps
+    feats, labels = _feature_batches(np.float32, 4, seed=8)
+    single, grouped = (AudioTrainer(Config(_cfg(steps_per_dispatch=k)), device="cpu",
+                                    n_spk=N_SPK) for k in (1, 4))
+    assert grouped.steps_per_dispatch == 4
+    pcm = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (4, BS, 160 * (T - 1) + 400)).astype(np.float32))
+    want = [float(single.train_step(pcm[i], torch.tensor(labels[i]), 0.3)["loss"])
+            for i in range(4)]
+    got = grouped.train_group(pcm, torch.tensor(np.stack(labels)), 0.3)
+    assert got["loss"].tolist() == want and grouped.step == 4
+    for a, b in zip(single.model.state_dict().values(), grouped.model.state_dict().values()):
+        assert torch.equal(a, b)
     cfg = _cfg()
     cfg["data"]["data_format"] = "kaldi"
     with pytest.raises(NotImplementedError, match="Kaldi"):

@@ -45,6 +45,11 @@ _PROBE = textwrap.dedent("""
         "deeplip_tpu_torch.data.video_io", "deeplip_tpu_torch.cli.train_fusion",
         "deeplip_tpu_torch.cli.train_video"]
     assert set(fusion_and_video) <= set(names), sorted(set(fusion_and_video) - set(names))
+    dispatch_and_interop = [
+        "deeplip_tpu_torch.train.dispatch", "deeplip_tpu_torch.interop.torch_import",
+        "deeplip_tpu_torch.interop.torch_export", "deeplip_tpu_torch.cli.export_torch"]
+    assert set(dispatch_and_interop) <= set(names), sorted(
+        set(dispatch_and_interop) - set(names))
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0].startswith("jax")
                  or m == "deeplip_tpu" or m.startswith("deeplip_tpu."))

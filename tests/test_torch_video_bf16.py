@@ -12,7 +12,8 @@
   port's is held to the JAX f32 forward within 2e-2.
 - 2 bf16 ``VideoTrainer`` steps against the JAX bf16 trainer's
   ``_train_step_frames``: loss within 2e-2 relative.
-- The trainer's ``compute_dtype`` and ``steps_per_dispatch`` checks.
+- The trainer's ``compute_dtype`` check, and a bf16 group of two steps
+  (``steps_per_dispatch=2``) equal to two single steps.
 - ``cli/train_video.py``: train (bf16) and ``--extract-feats`` end to end on
   the CPU; extraction from a checkpoint the JAX CLI trained (carried by
   ``interop.from_jax``) writes the JAX CLI's npz tree within 1e-4.
@@ -41,6 +42,7 @@ from deeplip_tpu_torch.interop.from_jax import lipreading_state_dict
 from deeplip_tpu_torch.models.lipreading import Lipreading
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.models.resnet import BasicBlock
+from deeplip_tpu_torch.ops import video as V
 from deeplip_tpu_torch.ops.cuda import bn_prelu
 from deeplip_tpu_torch.train.video import VideoTrainer
 
@@ -197,10 +199,28 @@ def test_two_bf16_steps_match_the_jax_bf16_trainer(tmp_path):
 def test_video_trainer_checks_its_dispatch_options():
     with pytest.raises(ValueError, match="bf16 or float32"):
         VideoTrainer(CFG, NC, device="cpu", compute_dtype="fp16", **SMALL)
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch=2"):
-        VideoTrainer(CFG, NC, device="cpu", steps_per_dispatch=2, **SMALL)
     assert VideoTrainer(CFG, NC, device="cpu", compute_dtype="bfloat16",
                         **SMALL).compute_dtype is torch.bfloat16
+    # grouped dispatch: a bf16 group of 2 steps equals 2 single bf16 steps
+    # with the same draws (on the CPU a group runs its steps eagerly)
+    single, grouped = (VideoTrainer(CFG, NC, device="cpu", compute_dtype="bf16",
+                                    steps_per_dispatch=k, **SMALL) for k in (1, 2))
+    assert (single.steps_per_dispatch, grouped.steps_per_dispatch) == (1, 2)
+    rng = np.random.default_rng(5)
+    clips = torch.from_numpy(rng.integers(0, 256, (2, BS, T, HW + 4, HW + 4), np.uint8))
+    lengths = torch.full((2, BS), T)
+    labels = torch.from_numpy(rng.integers(0, NC, (2, BS)))
+    gen = torch.Generator().manual_seed(3)
+    losses = [float(single.train_step(clips[i], lengths[i], labels[i], gen)["loss"])
+              for i in range(2)]
+    gen = torch.Generator().manual_seed(3)
+    draws = [(*V.crop_offsets(clips[i], SMALL["crop_size"], gen), V.flip_flags(BS, gen))
+             for i in range(2)]
+    out = grouped.train_group(clips, lengths, labels, {
+        n: torch.stack(d) for n, d in zip(("dh", "dw", "flip"), zip(*draws))})
+    assert out["loss"].tolist() == losses and grouped.step == 2
+    for a, b in zip(single.model.state_dict().values(), grouped.model.state_dict().values()):
+        assert torch.equal(a, b)
 
 
 def _npz_tree(root):
