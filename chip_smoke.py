@@ -178,9 +178,36 @@ without the package, it exits non-zero and prints no result. Phases:
    are the eager ones), with the same bars (bf16: phase 13's); K3/K4 27 +
    27 and P 1 + 1 per step over the replays; ms per step both ways, peak
    memory, one profiled group. Last, a step that cannot be captured
-   raises, and no eager step runs in its place.
+   raises, no eager step runs in its place, and the card's random-number
+   generator is not left capturing (an eager dropout runs after it).
 
-The phases run in the order 1-5, 11, 6, 9, 7, 8, 10, 12, 13, 14. The last line is
+15. The model and front-end variants. (a) ``conf/audio_config.yaml`` with
+   ``arch: resnet`` (64/128/256 channels x 3/3/3 BasicBlocks, embedding
+   256) on phase 11's corpus through ``cli/train_audio.py``, one epoch in
+   f32 and one in bf16: K1 once per step and extraction batch, the held-out
+   EER; phase 11's step rule (a K1 step against the plain front-end: loss
+   1e-4, gradients 3x a 1e-6 nudge), the bf16 step audited against float64
+   (BN statistics and the pooled vector 1e-4, cosines 2e-6) with planted
+   faults caught, and its step times at 200/300/400 frames. (b) The flagship
+   E-TDNN with each attentive pooling (seeded, calibrated): K1 against the
+   plain front-end on a ragged 256 x 1-3 s batch (1e-4), a bf16 train step
+   at bs 256 x 300 timed beside the statistics pooling's, and
+   ``cli/export_torch.py --pooling`` (attentive statistics, mono-head) read
+   back by ``SpeakerVerifier`` to a bit-equal profile. (c)
+   ``conf/video_config.json`` with the ShuffleNetV2 trunk (width 1.0) and
+   the depthwise-separable TCN on phase 7's corpus through
+   ``cli/train_video.py``, one f32 and one bf16 epoch at bs 128 (3 + 3
+   K3/K4 and 1 + 1 P launches a step: the 24-channel frontend is the one
+   fused site), then ``--extract-feats`` ((1, T, 1024) npz); K3/K4 and P at
+   (128, 29, 44, 44, 24) against their plain versions with times and
+   bounds; one f32 step against the plain step (phase 8's rule at the one
+   site); the bf16 trunk asserted f32; f32 and bf16 step times, peak
+   memory, a profiled step of each; a reference ``.pth`` export read back
+   to bit-equal frame features. (d) The config's ``stft`` section on a
+   ragged 256 x 1-3 s batch against float64 (1e-4), its time beside K1's
+   MFCC time, and one E-TDNN extraction batch at 257 features.
+
+The phases run in the order 1-5, 11, 6, 9, 7, 8, 10, 12, 13, 14, 15. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the ``kernels``
 JSON record.
 """
@@ -244,6 +271,7 @@ from deeplip_tpu_torch.train.audio import (AudioExtractor, AudioTrainer, fp32_ma
 from deeplip_tpu_torch.train import fusion as fusion_mod  # noqa: E402
 from deeplip_tpu_torch.train.fusion import FusionTrainer, embed_av_items  # noqa: E402
 from deeplip_tpu_torch.train.video import VideoTrainer  # noqa: E402
+from deeplip_tpu_torch.interop import torch_import  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 AUDIO_CONFIG_PATH = os.path.join(REPO, "conf", "audio_config.yaml")
@@ -673,6 +701,9 @@ def seeded_state_dict(model: torch.nn.Module, seed: int) -> dict:
         z = torch.randn(v.shape, generator=g)
         if ".bn." in k or k.startswith(("bn1.", "bn2.")):
             out[k] = (1.0 + 0.1 * z) if k.endswith("weight") else 0.1 * z
+        elif k.startswith("pooling."):
+            # an attentive pooling's W, b, v, k: unit-scale scores
+            out[k] = z / math.sqrt(v.shape[-1])
         elif k.endswith("weight"):
             out[k] = z * math.sqrt(2.0 / v[0].numel())
         else:
@@ -1017,7 +1048,7 @@ def bf16_audit(model, criterion, record: dict):
         inputs[mod] = args[0].detach()
 
     def pool_out(mod, args, kwargs, out):
-        want = type(mod).forward(mod, args[0].detach().double(), kwargs.get("lengths"))
+        want = type(mod).forward(mod, args[0].detach().double(), *args[1:], **kwargs)
         err = float((out.detach().double() - want).abs().max() / want.abs().max())
         record["pool_err"] = max(record["pool_err"], err)
 
@@ -1039,7 +1070,8 @@ def bf16_audit(model, criterion, record: dict):
         record["stat_err"] = max(record["stat_err"], err)
         return update(self, mean, var, n)
 
-    hooks = [blk.register_forward_hook(block_out) for blk in model.tdnn]
+    blocks = model.tdnn if hasattr(model, "tdnn") else model.blocks()
+    hooks = [blk.register_forward_hook(block_out) for blk in blocks]
     hooks += [m.register_forward_pre_hook(bn_in) for m in model.modules()
               if isinstance(m, TorchBatchNorm)]
     hooks.append(model.pooling.register_forward_hook(pool_out, with_kwargs=True))
@@ -1114,10 +1146,13 @@ def planted_bf16_fault(fault: str, model):
         model.pooling.__dict__.pop("forward", None)
 
 
-def audio_step_phase(trainer, smi: str, peaks) -> dict:
+def audio_step_phase(trainer, smi: str, peaks, faults=BF16_FAULTS,
+                     bf16_bars: bool = True) -> dict:
     """A K1 step against a plain-front-end step and a bf16 step from one
-    state; then ms per step at bs 256 x ``STEP_FRAMES``, in bf16 and f32,
-    K1's share, peak memory and one profiled bf16 step."""
+    state, ``faults`` planted in the bf16 step (``bf16_bars``: the bf16
+    loss and gradients held to phase 11's bars, else reported); then ms per
+    step at bs 256 x ``STEP_FRAMES``, in bf16 and f32, K1's share, peak
+    memory and one profiled bf16 step."""
     cfg, margin, dev = trainer.feat_cfg, trainer.init_margin, trainer.device
     configured = trainer.compute_dtype
     sids = next(trainer.pipeline.sampler.epoch(1))[0]
@@ -1164,7 +1199,7 @@ def audio_step_phase(trainer, smi: str, peaks) -> dict:
         with bf16_audit(trainer.model, trainer.criterion, audit):
             loss_b, grads_b = step(pcm, torch.bfloat16)
         planted = {}
-        for fault in BF16_FAULTS:
+        for fault in faults:
             record: dict = {}
             with planted_bf16_fault(fault, trainer.model), \
                     bf16_audit(trainer.model, trainer.criterion, record):
@@ -1172,7 +1207,7 @@ def audio_step_phase(trainer, smi: str, peaks) -> dict:
             rel = abs(loss_f - loss_k) / abs(loss_k)
             planted[fault] = {"loss_rel": rel, "grad_distance": grad_distance(grads_f, grads_k),
                               "audit": record, "caught_by": bf16_audit_failures(record)
-                              + (["loss"] if rel > BF16_LOSS_BAR else [])}
+                              + (["loss"] if bf16_bars and rel > BF16_LOSS_BAR else [])}
             del grads_f
     loss_rel, bf16_rel = abs(loss_k - loss_p) / abs(loss_p), abs(loss_b - loss_k) / abs(loss_k)
     d_kp, d_np = grad_distance(grads_k, grads_p), grad_distance(grads_n, grads_p)
@@ -1198,10 +1233,11 @@ def audio_step_phase(trainer, smi: str, peaks) -> dict:
     check(d_kp <= NUDGE_FACTOR * d_np, f"K1-step gradients {d_kp:.3e} of the plain norm from "
           f"the plain step; a {NUDGE} nudge of the PCM moves them {d_np:.3e}; bar "
           f"{NUDGE_FACTOR} x that")
-    check(bf16_rel <= min(BF16_LOSS_RTOL, BF16_LOSS_BAR), f"bf16 step loss {loss_b} vs f32 "
-          f"{loss_k}: {bf16_rel:.3e} relative, bar {min(BF16_LOSS_RTOL, BF16_LOSS_BAR)}")
-    check(d_bf16 <= BF16_GRAD_BAR, f"bf16 step gradients {d_bf16:.3e} of the f32 norm from "
-          f"the f32 step, bar {BF16_GRAD_BAR}")
+    check(not bf16_bars or bf16_rel <= min(BF16_LOSS_RTOL, BF16_LOSS_BAR),
+          f"bf16 step loss {loss_b} vs f32 {loss_k}: {bf16_rel:.3e} relative, bar "
+          f"{min(BF16_LOSS_RTOL, BF16_LOSS_BAR)}")
+    check(not bf16_bars or d_bf16 <= BF16_GRAD_BAR, f"bf16 step gradients {d_bf16:.3e} of "
+          f"the f32 norm from the f32 step, bar {BF16_GRAD_BAR}")
     check(not bf16_audit_failures(audit), f"the bf16 step breaks its recipe: {audit}")
     check(all(r["caught_by"] for r in planted.values()),
           "planted bf16 faults passed every bar: "
@@ -1423,10 +1459,12 @@ def bn_prelu_check(x, dy, scale, bias, alpha, eps: float, what: str):
     return err, (mean, inv)
 
 
-def bn_prelu_phase(peaks) -> dict:
+def bn_prelu_phase(peaks, shapes=BN_SHAPES) -> dict:
+    """K3/K4 against their plain versions at ``(shape, sites per step)``,
+    f32 and bf16, with kernel, plain and library times and the bounds."""
     rows, eps = [], 1e-5
     with fp32_math():
-        for i, (shape, sites) in enumerate(BN_SHAPES):
+        for i, (shape, sites) in enumerate(shapes):
             for dtype in (torch.float32, torch.bfloat16):
                 x, dy, scale, bias, alpha = bn_inputs(shape, dtype, 100 + i)
                 what = f"bn_prelu {shape} {str(dtype)[6:]}"
@@ -1459,8 +1497,8 @@ def bn_prelu_phase(peaks) -> dict:
     per_step = {k: sum(r["sites"] * r[k] for r in f32) for k in (
         "fwd", "fwd_plain", "fwd_library", "fwd_bound", "bwd", "bwd_plain", "bwd_library",
         "bwd_bound")}
-    log("bn_prelu per bs 128 x 29 train step (9 sites, f32): " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in per_step.items()))
+    log(f"bn_prelu per step ({sum(r['sites'] for r in f32)} sites of {shapes[0][0][:2]}, "
+        "f32): " + ", ".join(f"{k} {v:.4f} ms" for k, v in per_step.items()))
     return {"rows": rows, "per_step": per_step}
 
 
@@ -1560,10 +1598,12 @@ def pool_bounds_ms(shape, itemsize: int, peaks) -> dict:
     return out
 
 
-def maxpool_phase(peaks) -> dict:
+def maxpool_phase(peaks, shapes=POOL_SHAPES) -> dict:
+    """P against its plain version at each ``(shape, what)``, f32 and bf16,
+    timed at the train-step and serving-chunk shapes."""
     pool_nan_check()
     rows = []
-    for i, (shape, what) in enumerate(POOL_SHAPES):
+    for i, (shape, what) in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
             x, dy = pool_inputs(shape, what, dtype, 300 + i)
             label = f"maxpool {shape} {str(dtype)[6:]} ({what})"
@@ -1828,11 +1868,12 @@ def grad_distance(a: dict, b: dict) -> float:
     return math.sqrt(num / sum(float((v.double() ** 2).sum()) for v in b.values()))
 
 
-def stat_distance(a: list, b: list) -> tuple[float, int]:
+def stat_distance(a: list, b: list, sites: int = 9) -> tuple[float, int]:
     """The largest gap between two steps' batch statistics at the fused
     sites, in forward order: a mean's in units of ``b``'s standard
     deviation, a variance's relative to ``b``'s. Returns it and its site."""
-    check(len(a) == len(b) == 9, f"{len(a)} and {len(b)} fused sites recorded, 9 expected")
+    check(len(a) == len(b) == sites,
+          f"{len(a)} and {len(b)} fused sites recorded, {sites} expected")
     return max((max(float(((ma - mb).abs() / vb.sqrt()).max()),
                     float(((va - vb).abs() / vb).max())), site)
                for site, ((_, _, ma, va), (_, _, mb, vb)) in enumerate(zip(a, b)))
@@ -2452,7 +2493,7 @@ def fusion_bf16_audit(trainer, record: dict):
         record["blocks_bf16"] &= out.dtype == torch.bfloat16
 
     def pool_out(mod, args, kwargs, out):
-        want = type(mod).forward(mod, args[0].detach().double(), kwargs.get("lengths"))
+        want = type(mod).forward(mod, args[0].detach().double(), *args[1:], **kwargs)
         record["audio_pool_err"] = max(record["audio_pool_err"], _rel_err(out, want))
 
     def crit_out(mod, args, kwargs, out):
@@ -3541,8 +3582,11 @@ def failed_capture_check() -> dict:
     with ThreadPoolExecutor(1) as pool:
         raised = pool.submit(attempt).result()
     torch.cuda.synchronize()
+    # the card's generator is not left capturing: an eager dropout runs
+    kept = torch.nn.functional.dropout(torch.ones(1024, device="cuda"), 0.5, training=True)
     log(f"a capture that fails (a host read inside the step): raised {raised!r}; "
-        f"{len(runner.graphs)} graphs kept; the card still runs")
+        f"{len(runner.graphs)} graphs kept; the card still runs, eager dropout included "
+        f"({int((kept > 0).sum())} of 1024 kept)")
     check(raised is not None and not runner.graphs, "a failed capture did not raise")
     return {"raised": raised}
 
@@ -3557,6 +3601,426 @@ def grouped_dispatch_phase(smi: str) -> dict:
         wall = time.perf_counter() - t0
     log(f"phase 14: {wall:.1f} s")
     return {"audio": audio, "video": video, "failed_capture": failed, "wall_s": wall}
+
+
+# ---------------------------------------------------------------- phase 15
+ATTENTIVE_POOLINGS = ("attentive_statistic", "mono_head_attention", "multi_head_attention")
+RESNET_FAULTS = ("bn_stats_bf16", "head_bf16", "head_tf32")   # the pool is f32 by type
+VARIANT_SPEAKERS = 128            # the criterion's classes in the attentive steps
+SHUFFLENET = {"backbone_type": "shufflenet", "width_mult": 1.0, "tcn_dwpw": True}
+C24_SHAPE = (128, 29, 44, 44, 24)  # the ShuffleNet frontend's BN+PReLU and pool input
+STFT_TOL = 1e-4                   # the stft front-end in f32 vs float64
+
+
+def ragged_pcm_batch(n: int, seed: int):
+    """``n`` speaker waves of 1-3 s (:func:`speaker_wave`) zero-padded into
+    one int16 batch: ``(pcm, feat_lengths, sample_lengths)`` as numpy."""
+    rng = np.random.default_rng(seed)
+    waves = [speaker_wave(rng, i % 16) for i in range(n)]
+    width = max(len(w) for w in waves)
+    pcm = np.zeros((n, width), np.int16)
+    for i, w in enumerate(waves):
+        pcm[i, :len(w)] = np.clip(np.round(w * 32768.0), -32768, 32767)
+    lens = np.array([len(w) for w in waves], np.int32)
+    feat = np.array([num_frames(int(m), 400, 160) for m in lens], np.int32)
+    return pcm, feat, lens
+
+
+def pooling_config(pooling: str, batch_size: int = 64) -> Config:
+    cfg = flagship_config(batch_size).to_dict()
+    cfg["model"]["etdnn"]["pooling"] = pooling
+    cfg["train"] = {"loss": "LMCL", "bs": BATCH, "compute_dtype": "bf16"}
+    return Config(cfg)
+
+
+def resnet_phase(root: str, manifest: str, trials: str, smi: str, peaks,
+                 device=None) -> dict:
+    """(a) ``arch: resnet`` through ``cli/train_audio.py``, one epoch in f32
+    and one in the config's bf16, then phase 11's step rule and timings."""
+    dev_args = ["--device", device] if device else []
+    runs, trainer = {}, None
+    for dtype in ("float32", "bf16"):
+        cfg = load_audio_config(AUDIO_CONFIG_PATH).to_dict()
+        cfg["model"]["arch"] = "resnet"
+        cfg["data"].update(train_manifest=manifest, test_root=root, trial_grid=trials)
+        cfg["train"].update(epoch=1, compute_dtype=dtype)
+        path = os.path.join(root, f"resnet_{dtype}.json")
+        with open(path, "w") as fh:
+            json.dump(cfg, fh)
+        zero_fbank_counts()
+        t0 = time.perf_counter()
+        trainer, out = train_audio_cli.main(["--config", path, "--mode", "train",
+                                             "--exp-root", os.path.join(root, "exp"),
+                                             "--log-time", f"resnet_{dtype}"] + dev_args)
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fbank_counts()
+        n_eval = sum(1 for _ in EvalUtteranceSet(
+            utterances_from_trials(trials, root),
+            **eval_set_kwargs(trainer.feat_cfg, trainer.test_opts)).batches())
+        losses = out["losses"]
+        check(type(trainer.model).__name__ == "AudioResNet"
+              and trainer.model.fc2.out_features == 256, "the resnet arch was not built")
+        check(counts == {"fft": trainer.step + n_eval, "dft": 0}, f"resnet {dtype}: front-end "
+              f"launches {counts} for {trainer.step} steps and {n_eval} extraction batches")
+        check(len(losses) == trainer.step and all(math.isfinite(v) for v in losses),
+              f"resnet {dtype} losses {losses}")
+        check(math.isfinite(out["eer"]) and 0.0 <= out["eer"] <= 1.0, f"EER {out['eer']}")
+        runs[dtype] = {"steps": trainer.step, "losses": losses, "eer": out["eer"],
+                       "launches": counts, "extraction_batches": n_eval, "wall_s": wall}
+        widths = cfg["model"]["resnet"]
+        log(f"resnet audio training through cli/train_audio.py (conf/audio_config.yaml, "
+            f"arch resnet {widths['hidden_dim']} x {widths['residual_block_layers']}, "
+            f"embedding {widths['embedding_dim']}, {dtype}, bs {trainer.batch_size}): "
+            f"{trainer.step} steps, losses {', '.join(f'{v:.4f}' for v in losses)}; "
+            f"{n_eval} extraction batches; EER {out['eer']:.4f}; front-end launches "
+            f"{counts}; {wall:.1f} s wall [{smi}]")
+    step = audio_step_phase(trainer, smi, peaks, faults=RESNET_FAULTS, bf16_bars=False)
+    return {"runs": runs, **step}
+
+
+def attentive_phase(root: str, smi: str, device=None) -> dict:
+    """(b) The flagship E-TDNN with each attentive pooling: K1 against the
+    plain front-end on a ragged batch, a bf16 train step timed beside the
+    statistics pooling's, and the reference ``.pth`` layouts through
+    ``cli/export_torch.py --pooling`` and ``SpeakerVerifier``."""
+    pcm, feat, lens = ragged_pcm_batch(BATCH, seed=21)
+    batch = {"pcm": pcm, "feat_lengths": feat, "sample_lengths": lens}
+    rng = np.random.default_rng(22)
+    s300 = samples_for_frames(300, 0.025, 0.01, RATE)
+    crops = torch.from_numpy(rng.integers(-8000, 8000, (BATCH, s300)).astype(np.int16))
+    labels = torch.from_numpy(rng.integers(0, VARIANT_SPEAKERS, BATCH).astype(np.int64))
+    rows, extractors = {}, {}
+    for pooling in ("statistic",) + ATTENTIVE_POOLINGS:
+        cfg = pooling_config(pooling)
+        ext = AudioExtractor(cfg, device=device)
+        ext.load_state_dict(seeded_state_dict(ext.model, seed=0))
+        calibrate_bn(ext, batch, seed=1)
+        args = [torch.from_numpy(batch[k]).to(ext.device)
+                for k in ("pcm", "feat_lengths", "sample_lengths")]
+        zero_fbank_counts()
+        e_k = ext.embed(*args)
+        launches = fbank_counts()
+        with plain_front_end():
+            e_p = ext.embed(*args)
+        err = float((e_k - e_p).abs().max())
+        check(launches == {"fft": 1, "dft": 0}, f"{pooling}: an extraction batch launched "
+              f"{launches}")
+        check(bool(torch.isfinite(e_k).all()) and err <= EMB_TOL, f"{pooling}: kernel-path "
+              f"embeddings {err:.3e} from the plain path, bar {EMB_TOL}")
+        trainer = AudioTrainer(cfg, device=device, n_spk=VARIANT_SPEAKERS,
+                               exp_root=os.path.join(root, "exp"))
+        trainer.model.load_state_dict(ext.model.state_dict())
+        check(trainer.compute_dtype is torch.bfloat16, "the attentive step is not bf16")
+        x, y = crops.to(trainer.device), labels.to(trainer.device)
+        loss = float(trainer.train_step(x, y, 0.2)["loss"])
+        check(math.isfinite(loss), f"{pooling}: bf16 step loss {loss}")
+        ms = time_ms(lambda: trainer.train_step(x, y, 0.2), iters=5, warmup=2)
+        rows[pooling] = {"emb_err": err, "launches": launches, "bf16_loss": loss,
+                         "bf16_step_ms": ms, "crops_per_sec": BATCH / ms * 1e3}
+        extractors[pooling] = ext
+        del trainer
+        log(f"E-TDNN with {pooling} pooling: K1 vs plain embeddings of a ragged {BATCH} x "
+            f"1-3 s batch {err:.2e} (bar {EMB_TOL}); bf16 train step at bs {BATCH} x 300 "
+            f"loss {loss:.4f}, {ms:.2f} ms ({BATCH / ms * 1e3:.1f} crops/s) [{smi}]")
+    exports = {}
+    waves = [pcm[i, :lens[i]].astype(np.float32) / 32768.0 for i in range(3)]
+    for layout in ("attentive_statistic", "mono_head_attention"):
+        ext = extractors[layout]
+        own = os.path.join(root, f"net_{layout}")
+        torch.save({"epoch": 1, "state_dict": ext.model.state_dict()}, own)
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            ref = export_torch_cli.main(["audio", "--checkpoint", own, "--out",
+                                         os.path.join(root, f"{layout}.pth"),
+                                         "--pooling", layout])
+        w_shape = tuple(torch.load(ref, weights_only=True)["state_dict"]["pooling.W"].shape)
+        check(len(w_shape) == (3 if layout == "mono_head_attention" else 2),
+              f"{layout}: the export's pooling.W has shape {w_shape}")
+        profiles = {tag: SpeakerVerifier(pooling_config(layout), checkpoint=path,
+                                         device=device).enroll("spk", waves)
+                    for tag, path in (("reference", ref), ("own", own))}
+        equal = bool(np.array_equal(profiles["reference"], profiles["own"]))
+        check(equal, f"{layout}: the reference .pth enrolls another profile")
+        exports[layout] = {"pooling_W_shape": list(w_shape), "profile_equal": equal}
+    log(f"attentive exports through cli/export_torch.py --pooling, read back by "
+        f"SpeakerVerifier: {json.dumps(exports)}")
+    return {"poolings": rows, "exports": exports}
+
+
+@contextlib.contextmanager
+def trunk_dtypes(trunk, record: set):
+    """Add the type of every ShuffleNet unit's input and output to ``record``."""
+    def hook(mod, args, out):
+        record.update({args[0].dtype, out.dtype})
+
+    hooks = [unit.register_forward_hook(hook) for unit in trunk[0]]
+    try:
+        yield record
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def c24_kernel_rows(peaks) -> dict:
+    """K3/K4 and P at the ShuffleNet frontend's (128, 29, 44, 44, 24), f32
+    and bf16, against their plain versions (phase 6's and phase 9's bars),
+    with their times and bounds."""
+    return {"bn_prelu": bn_prelu_phase(peaks, [(C24_SHAPE, 1)])["rows"],
+            "maxpool": maxpool_phase(peaks, [(C24_SHAPE, "train step")])["rows"]}
+
+
+def shufflenet_step_check(trainer: VideoTrainer, batch: dict, smi: str) -> dict:
+    """One f32 bs 128 x 29 step through K3/K4 and P against the plain step
+    from the same state (phase 8's rule at the one fused site); then the
+    bf16 step's types, f32 and bf16 step times in turns, peak memory and
+    one profiled step of each."""
+    dev = trainer.device
+    clips, lengths, labels = (torch.from_numpy(batch[k]).to(dev)
+                              for k in ("clips", "lengths", "labels"))
+    x = V.mask_pad_frames(V.train_transform(clips, torch.Generator().manual_seed(1))[..., None],
+                          lengths)
+    state = (copy.deepcopy(trainer.model.state_dict()),
+             copy.deepcopy(trainer.optimizer.state_dict()), trainer.step)
+
+    def step(frames, dtype=None):
+        trainer.compute_dtype = dtype
+        torch.manual_seed(0)   # the same dropout masks in every run
+        stats: list = []
+        with recording_bn_calls(stats):
+            loss = float(trainer.train_step_frames(frames, lengths, labels)["loss"])
+        grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
+        trainer.model.load_state_dict(state[0])
+        trainer.optimizer.load_state_dict(state[1])
+        trainer.step = state[2]
+        return loss, grads, stats
+
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        zero_video_counts()
+        loss_k, grads_k, stats_k = step(x)
+        launches = video_counts()
+        check(launches == {"bn_prelu_fwd": 3, "bn_prelu_bwd": 3, "maxpool_fwd": 1,
+                           "maxpool_bwd": 1}, f"a ShuffleNet kernel step launched {launches}: "
+              "3 + 3 BN+PReLU (one site) and 1 + 1 max-pool expected")
+        check(len(stats_k) == 1 and stats_k[0][0] == (VIDEO_BATCH, 29, 44, 44, 24),
+              f"fused sites {[s[0] for s in stats_k]}: the 24-channel frontend alone expected")
+        zero_video_counts()
+        with plain_maxpool(), plain_bn_prelu():
+            loss_p, grads_p, stats_p = step(x)
+            loss_n, grads_n, stats_n = step(x * (1.0 + NUDGE))
+        check(not any(video_counts().values()), "the plain steps launched the kernels")
+        seen: set = set()
+        with trunk_dtypes(trainer.model.trunk, seen):
+            loss_b, _, _ = step(x, torch.bfloat16)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    d_kp, d_np = grad_distance(grads_k, grads_p), grad_distance(grads_n, grads_p)
+    s_kp = stat_distance(stats_k, stats_p, sites=1)[0]
+    s_np = stat_distance(stats_n, stats_p, sites=1)[0]
+    del grads_k, grads_p, grads_n
+    log(f"ShuffleNet kernel vs plain step at bs {VIDEO_BATCH} x 29 (f32, cuDNN deterministic): "
+        f"loss {loss_k:.8f} vs {loss_p:.8f} ({loss_rel:.2e} relative, bar {STEP_LOSS_RTOL}); "
+        f"frontend batch statistics {s_kp:.2e} (bar {STEP_STAT_RTOL}; nudged {s_np:.2e}); "
+        f"gradient distance {d_kp:.3e}, nudge {d_np:.3e} (ratio {d_kp / d_np:.2f}, bar "
+        f"{NUDGE_FACTOR}); bf16 step loss {loss_b:.6f}, trunk unit types "
+        f"{sorted(str(d)[6:] for d in seen)} [{smi}]")
+    check(loss_rel <= STEP_LOSS_RTOL, f"ShuffleNet kernel-step loss {loss_rel:.3e} relative")
+    check(s_kp <= STEP_STAT_RTOL, f"ShuffleNet frontend statistics {s_kp:.3e} from the plain")
+    check(d_kp <= NUDGE_FACTOR * d_np, f"ShuffleNet kernel-step gradients {d_kp:.3e} from the "
+          f"plain step; the nudge moves them {d_np:.3e}")
+    check(seen == {torch.float32} and math.isfinite(loss_b),
+          f"the bf16 ShuffleNet trunk ran in {seen}, float32 expected; loss {loss_b}")
+
+    gen = torch.Generator().manual_seed(2)
+    walls = {"bf16": [], "f32": []}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for name in ("f32", "bf16", "bf16", "f32"):
+        trainer.compute_dtype = torch.bfloat16 if name == "bf16" else None
+        trainer.train_step(clips, lengths, labels, gen)
+        sync()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            trainer.train_step(clips, lengths, labels, gen)
+            sync()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    ms = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    profiled = {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name in ("f32", "bf16"):
+        trainer.compute_dtype = torch.bfloat16 if name == "bf16" else None
+        with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(clips, lengths, labels, gen)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        kinds, busy = profile_kinds(prof, KERNEL_KINDS)
+        top = sorted(((ev.self_device_time_total / 1e3, ev.key) for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and (getattr(ev, "self_device_time_total", 0) or 0) > 0),
+                     key=lambda t: -t[0])[:6]
+        convs = sorted(((getattr(ev, "device_time_total", 0) / 1e3, ev.key, ev.input_shapes[:2])
+                        for ev in prof.key_averages(group_by_input_shape=True)
+                        if ev.key in ("aten::cudnn_convolution", "aten::convolution_backward")),
+                       key=lambda t: -t[0])[:4]
+        profiled[name] = {"wall_ms": wall, "busy_ms": busy, "by_kind_ms": kinds,
+                          "top_convs": [[k, t, str(sh)] for t, k, sh in convs],
+                          "top_kernels": [[k[:120], t] for t, k in top]}
+        log(f"profiled ShuffleNet {name} step: {wall:.1f} ms wall, {busy:.1f} ms of device "
+            f"kernels; by kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+                kinds.items(), key=lambda kv: -kv[1]))
+            + "; top convolutions " + "; ".join(f"{k} {t:.1f} ms {sh}" for t, k, sh in convs)
+            + f" [{smi}]")
+        for t, k in top:
+            log(f"  {t:9.3f} ms  {k[:150]}")
+    log(f"ShuffleNet Lipreading train step at bs {VIDEO_BATCH} x 29: f32 {ms['f32']:.1f} ms "
+        f"({VIDEO_BATCH / ms['f32'] * 1e3:.1f} clips/s), bf16 {ms['bf16']:.1f} ms "
+        f"({VIDEO_BATCH / ms['bf16'] * 1e3:.1f} clips/s), median of 4 each in turns; peak "
+        f"{peak_gb} GB [{smi}]")
+    trainer.compute_dtype = None
+    return {"loss_rel": loss_rel, "stat_distance": s_kp, "grad_distance": d_kp,
+            "nudge_distance": d_np, "step_launches": launches, "bf16_loss": loss_b,
+            "trunk_dtypes": sorted(str(d) for d in seen), "step_ms": ms, "step_walls_ms": walls,
+            "clips_per_sec": {k: VIDEO_BATCH / v * 1e3 for k, v in ms.items()},
+            "peak_gb": peak_gb, "profiled": profiled}
+
+
+def shufflenet_phase(root: str, smi: str, peaks, device=None) -> dict:
+    """(c) ``conf/video_config.json`` with the ShuffleNetV2 trunk and the
+    depthwise-separable TCN through ``cli/train_video.py``: one f32 and one
+    bf16 epoch on phase 7's corpus, ``--extract-feats``, the step rule, the
+    24-channel kernels and the reference ``.pth``."""
+    dev_args = ["--device", device] if device else []
+    data = os.path.join(root, "clips")
+    write_clip_corpus(data)
+    cfg = {**video_config(), **SHUFFLENET}
+    cfg_path = os.path.join(root, "shufflenet.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+    runs, trainer = {}, None
+    for dtype in ("float32", "bf16"):
+        calls: list = []
+        with recording_bn_calls(calls):
+            zero_video_counts()
+            t0 = time.perf_counter()
+            trainer, out = train_video_cli.main(
+                ["--config-path", cfg_path, "--data-dir", data, "--compute-dtype", dtype,
+                 "--batch-size", str(VIDEO_BATCH), "--epochs", "1", "--exp-root",
+                 os.path.join(root, "exp"), "--log-time", f"shufflenet_{dtype}"] + dev_args)
+            wall = time.perf_counter() - t0
+            launches = video_counts()
+        steps, losses = trainer.step, out["losses"]
+        want = {"bn_prelu_fwd": 3 * steps, "bn_prelu_bwd": 3 * steps, "maxpool_fwd": steps,
+                "maxpool_bwd": steps}
+        check(launches == want, f"ShuffleNet {dtype} launches {launches}, expected {want}")
+        check(steps >= 3 and all(math.isfinite(v) for v in losses),
+              f"ShuffleNet {dtype}: {steps} steps, losses {losses}")
+        check(trainer.model.backend_out == 1024
+              and {s[-1] for s, _, _, _ in calls} == {24}, "not the 24-channel ShuffleNet")
+        runs[dtype] = {"steps": steps, "losses": losses, "launches": launches, "wall_s": wall,
+                       "shapes": sorted({shape for shape, _, _, _ in calls})}
+        log(f"ShuffleNet Lipreading (width {cfg['width_mult']}, dwpw TCN) through "
+            f"cli/train_video.py "
+            f"--compute-dtype {dtype}, bs {VIDEO_BATCH}: {steps} steps, losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)}; launches {launches}; {wall:.1f} s wall "
+            f"[{smi}]")
+    net1 = os.path.join(trainer.exp_dir, "net_1")
+    emb_root = os.path.join(root, "embedding")
+    zero_video_counts()
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        train_video_cli.main(["--config-path", cfg_path, "--data-dir", data, "--extract-feats",
+                              "--batch-size", str(VIDEO_BATCH), "--model-path", net1,
+                              "--mouth-embedding-out-path", emb_root] + dev_args)
+    extract_launches = video_counts()
+    written = {os.path.relpath(os.path.join(d, f), emb_root)[:-4]: np.load(os.path.join(d, f))
+               ["data"] for d, _, files in os.walk(emb_root) for f in files}
+    clips = scan_clip_dir(data)
+    direct = VideoTrainer(cfg, trainer.num_classes, device=device)
+    direct.load(net1)
+    eval_batches = VideoClipBatches(clips, batch_size=VIDEO_BATCH, bucket_t=8, shuffle=False,
+                                    pre_crop=(88, 88))
+    want_feats = direct.extract_clip_features(eval_batches)
+    ext_err = max(float(np.abs(written[n][0] - f).max()) for n, f in want_feats.items())
+    check(sorted(written) == sorted(want_feats) and all(
+        written[n].shape == (1, len(f), 1024) for n, f in want_feats.items())
+        and ext_err <= 1e-5, f"--extract-feats npz differ from extract_clip_features by "
+        f"{ext_err:.3e}")
+    # the reference .pth: exported, read back into a fresh network, frame
+    # features bit-equal
+    ref = os.path.join(root, "shufflenet.pt")
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        export_torch_cli.main(["video", "--checkpoint", net1, "--out", ref])
+    again = VideoTrainer(cfg, trainer.num_classes, device=device)
+    again.model.load_state_dict(torch_import.load_reference_video_checkpoint(
+        ref, again.model.state_dict()), strict=True)
+    again_feats = again.extract_clip_features(eval_batches)
+    pth_equal = all(np.array_equal(again_feats[n], f) for n, f in want_feats.items())
+    check(pth_equal, "the ShuffleNet reference .pth extracts other frame features")
+    log(f"ShuffleNet --extract-feats: {len(written)} (1, T, 1024) f32 npz, {ext_err:.1e} from "
+        f"extract_clip_features, launches {extract_launches}; reference .pth round trip: frame "
+        f"features bit-equal [{smi}]")
+    rows = c24_kernel_rows(peaks)
+    step = shufflenet_step_check(direct, full_clip_batch(clips), smi)
+    return {"runs": runs, "extract_err": ext_err, "extract_launches": extract_launches,
+            "pth_frame_features_equal": pth_equal, "c24": rows, **step}
+
+
+def stft_phase(smi: str, device=None) -> dict:
+    """(d) The config's ``stft`` section on a ragged 256 x 1-3 s batch with
+    ``sample_lengths`` against float64, its time beside K1's MFCC time on
+    the same batch, and one E-TDNN extraction batch at the ``stft`` width."""
+    dev = torch.device(device or "cuda")
+    opts = load_audio_config(AUDIO_CONFIG_PATH).to_dict()["data"]["python_data_config"]
+    cfg = F.FeatureConfig.from_config({**opts, "feat_type": "stft"})
+    raw = dataclasses.replace(cfg, normalize=False)
+    mfcc = F.FeatureConfig.from_config(opts)
+    pcm16, feat, lens = ragged_pcm_batch(BATCH, seed=31)
+    pcm = torch.from_numpy(pcm16).to(dev).float() / 32768.0
+    slen = torch.from_numpy(lens).to(dev)
+    with fp32_math():
+        got = F.stft_features(pcm, raw, sample_lengths=slen)
+        want = F.stft_features(pcm.double(), raw, sample_lengths=slen)
+        err = float((got.double() - want).abs().max())
+        ms = time_ms(lambda: F.stft_features(pcm, raw, sample_lengths=slen), iters=10)
+        k1_ms = time_ms(lambda: audio_features(pcm, mfcc, slen), iters=10)
+    check(bool(torch.isfinite(got).all()) and err <= STFT_TOL,
+          f"stft front-end {err:.3e} from float64, bar {STFT_TOL}")
+    model = Config({"data": {"python_data_config": {**opts, "feat_type": "stft"}},
+                    "model": ETDNN_MODEL_OPTS, "train": {"loss": "LMCL"}, "test": {}})
+    ext = AudioExtractor(model, device=device)
+    ext.load_state_dict(seeded_state_dict(ext.model, seed=0))
+    zero_fbank_counts()
+    emb = ext.embed(torch.from_numpy(pcm16).to(dev), torch.from_numpy(feat).to(dev), slen)
+    launches = fbank_counts()
+    check(ext.model.tdnn[0].context_layer.in_channels == 257 and tuple(emb.shape) == (BATCH, 512)
+          and bool(torch.isfinite(emb).all()) and launches == {"fft": 0, "dft": 0},
+          f"stft extraction: {tuple(emb.shape)}, launches {launches}")
+    log(f"stft front-end (n_fft 512, 257 bins, librosa framing) on a ragged {BATCH} x 1-3 s "
+        f"batch: {err:.2e} from float64 (bar {STFT_TOL}); {ms:.4f} ms, K1's MFCC on the same "
+        f"batch {k1_ms:.4f} ms; one E-TDNN extraction batch at 257 features: "
+        f"{tuple(emb.shape)}, front-end kernel launches {launches} [{smi}]")
+    return {"err": err, "ms": ms, "k1_mfcc_ms": k1_ms, "extraction_launches": launches,
+            "shape": list(pcm.shape)}
+
+
+def variants_phase(smi: str, peaks, device=None) -> dict:
+    """Phase 15; ``device`` is for rehearsing it on the CPU at a small size."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        manifest, trials = write_train_corpus(os.path.join(root, "audio"))
+        resnet = resnet_phase(os.path.join(root, "audio"), manifest, trials, smi, peaks, device)
+        release()
+        attentive = attentive_phase(root, smi, device)
+        release()
+        shufflenet = shufflenet_phase(root, smi, peaks, device)
+        release()
+        stft = stft_phase(smi, device)
+    wall = time.perf_counter() - t0
+    log(f"phase 15: {wall:.1f} s")
+    return {"resnet": resnet, "attentive": attentive, "shufflenet": shufflenet, "stft": stft,
+            "wall_s": wall}
 
 
 BN_REPLACES = {"fwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:56",
@@ -3655,6 +4119,8 @@ def main() -> int:
     video_bf16 = video_bf16_phase(bn, dev["smi"])
     torch.cuda.empty_cache()
     grouped = grouped_dispatch_phase(dev["smi"])
+    release()
+    variants = variants_phase(dev["smi"], peaks)
     launches = {
         "launches": main_path["launches"]["fused_fbank"],
         "launches_sweep": sweep["launches"]["fft"],
@@ -3775,6 +4241,31 @@ def main() -> int:
                                                                     "maxpool_bwd")},
         fusion_train_shape={name: {k: p[k] for k in ("shape", "P", "P_library", "fwd_bound")}
                             for name, p in fusion["parts_300"].items()})
+    # phase 15: the variants' launches, and K3/K4 and P at 24 channels
+    resnet_runs, shuffle = variants["resnet"]["runs"], variants["shufflenet"]
+    for name in ("fused_fbank", "fused_fbank_v1_configs", "fused_fbank_dft"):
+        kernel = "dft" if name == "fused_fbank_dft" else "fft"
+        by_name[name]["launches_variants"] = {
+            **{f"resnet_train_{k}": run["launches"][kernel] for k, run in resnet_runs.items()},
+            "resnet_steps": {k: run["steps"] for k, run in resnet_runs.items()},
+            "attentive_extraction_batch": {p: r["launches"][kernel] for p, r in
+                                           variants["attentive"]["poolings"].items()},
+            "stft_extraction_batch": variants["stft"]["extraction_launches"][kernel]}
+    for name, kind, err in (("bn_prelu_fwd", "fwd", "err_y"), ("bn_prelu_bwd", "bwd", "err_dx")):
+        by_name[name]["launches_shufflenet_train"] = {
+            k: run["launches"][name] for k, run in shuffle["runs"].items()}
+        by_name[name]["shape_24_channels"] = {
+            r["dtype"]: {"shape": r["shape"], "max_abs_err": r[err], "ms": r[kind],
+                         "plain_ms": r[f"{kind}_plain"], "bound_ms": r[f"{kind}_bound"],
+                         "bound_by": r[f"{kind}_bound_by"],
+                         "library_two_calls_ms": r.get(f"{kind}_library")}
+            for r in shuffle["c24"]["bn_prelu"]}
+    by_name["maxpool_frontend"]["launches_shufflenet_train"] = {
+        k: {p: run["launches"][p] for p in ("maxpool_fwd", "maxpool_bwd")}
+        for k, run in shuffle["runs"].items()}
+    by_name["maxpool_frontend"]["shape_24_channels"] = {
+        r["dtype"]: {k: v for k, v in r.items() if k not in ("dtype", "what")}
+        for r in shuffle["c24"]["maxpool"]}
     summary = {
         "card": dev["smi"],
         "peaks_part": part,
@@ -3817,6 +4308,7 @@ def main() -> int:
         "fusion_train": fusion,
         "video_bf16": video_bf16,
         "grouped_dispatch": grouped,
+        "variants": variants,
     }
     print(json.dumps(summary), flush=True)
     print(json.dumps(kernels), flush=True)

@@ -15,8 +15,9 @@ Usage::
 
 ``--dp-prefix`` adds the ``module.`` DataParallel prefix that a wrapped
 reference trainer expects when it loads the file directly. ``--pooling``
-names a reference attention-pooling layout; the port builds no attentive
-pooling yet, so naming one raises.
+names the reference layout of an audio model's attentive pooling
+(``attentive_statistic`` or ``mono_head_attention``); it is read only where
+the model has one.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import argparse
 
 import torch
 
-from deeplip_tpu_torch.interop.torch_export import (save_reference_audio_checkpoint,
+from deeplip_tpu_torch.interop.torch_export import (POOLING_LAYOUTS,
+                                                    save_reference_audio_checkpoint,
                                                     save_reference_fusion_checkpoint,
                                                     save_reference_video_checkpoint)
 
@@ -38,16 +40,12 @@ def main(argv=None) -> str:
     p.add_argument("--checkpoint", required=True,
                    help="a port checkpoint file, e.g. exp/<t>/net_avg")
     p.add_argument("--out", required=True, help="output .pth path")
-    p.add_argument("--pooling", default=None,
-                   choices=["attentive_statistic", "mono_head_attention"],
-                   help="reference attention-pooling layout (not built by the port yet)")
+    p.add_argument("--pooling", default=None, choices=list(POOLING_LAYOUTS),
+                   help="reference attention-pooling layout (audio only; read only when "
+                        "the model has attention pooling)")
     p.add_argument("--dp-prefix", action="store_true",
                    help="emit module.-prefixed keys (DataParallel container)")
     args = p.parse_args(argv)
-    if args.pooling is not None:
-        raise NotImplementedError(
-            f"--pooling {args.pooling}: the port builds no attentive pooling yet, so it "
-            "has no such parameters to export")
 
     tree = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
     state_dict = tree["state_dict"] if "state_dict" in tree else tree
@@ -55,7 +53,8 @@ def main(argv=None) -> str:
     if args.kind == "audio":
         save_reference_audio_checkpoint(args.out, state_dict, epoch=epoch,
                                         criterion_state_dict=tree.get("criterion"),
-                                        data_parallel_prefix=args.dp_prefix)
+                                        data_parallel_prefix=args.dp_prefix,
+                                        pooling=args.pooling)
     elif args.kind == "video":
         save_reference_video_checkpoint(args.out, state_dict,
                                         data_parallel_prefix=args.dp_prefix)

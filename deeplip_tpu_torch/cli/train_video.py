@@ -3,8 +3,9 @@ extraction for the fusion back-ends.
 
 Counterpart of ``deeplip_tpu/cli/train_video.py``, with its flags plus
 ``--device``: the JSON model config, the npz clip directory, the training
-hyperparameters, and the extraction mode that writes one ``(1, T, 512)``
-float32 array per clip under key ``'data'`` in
+hyperparameters, and the extraction mode that writes one ``(1, T, D)``
+float32 array per clip (``D`` = 512 for the ResNet trunk, 1024 or 2048
+for ShuffleNetV2) under key ``'data'`` in
 ``<out>/<speaker>/<clip>.npz``.
 
 Usage::
@@ -32,7 +33,7 @@ from deeplip_tpu_torch.train.video import VideoTrainer
 
 def main(argv=None) -> tuple[VideoTrainer, dict]:
     """Returns the trainer and what the mode computed: ``losses`` (train) or
-    ``features`` (``{clip name: (T, 512) array}``, extraction)."""
+    ``features`` (``{clip name: (T, D) array}``, extraction)."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config-path", default="conf/video_config.json")

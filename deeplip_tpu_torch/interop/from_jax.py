@@ -8,13 +8,18 @@ without importing the JAX package: callers hand in nested dicts of numpy
 arrays.
 
 - :func:`speaker_embnet_state_dict` computes the same dict as
-  ``deeplip_tpu.interop.torch_export.export_speaker_embnet_state_dict``;
+  ``deeplip_tpu.interop.torch_export.export_speaker_embnet_state_dict``
+  (an attentive pooling's ``pooling.{W,b,v,k}`` in the JAX package's
+  shapes, as that function writes them by default);
+- :func:`audio_resnet_state_dict` the port's own layout of the audio
+  ``AudioResNet``, which the reference and the JAX exporter have none of;
 - :func:`criterion_state_dict` the same dict as
   ``export_criterion_state_dict`` (LMCL/AAM/A-Softmax ``weights``;
   CrossEntropy ``fc.weight``/``fc.bias``);
 - :func:`lipreading_state_dict` the same dict as
-  ``export_lipreading_state_dict`` (ResNet trunk; multi- or single-branch
-  TCN);
+  ``export_lipreading_state_dict`` (ResNet or ShuffleNetV2 trunk; multi- or
+  single-branch TCN), and for a depthwise-separable (``dwpw``) TCN, which
+  that exporter has no layout for, the port's own names;
 - :func:`lowfer_state_dict` the same dict as ``export_lowfer_state_dict``
   (``U``, ``V``), plus ``gate_proj`` where the head has one;
 - :func:`linear_fusion_state_dict` the ``fc1``/``bn1``/``fc2`` layout of the
@@ -61,13 +66,48 @@ def speaker_embnet_state_dict(params: Mapping[str, Any],
     n_blocks = sum(1 for k in params if k.startswith("tdnn_"))
     if n_blocks == 0:
         raise ValueError("not a SpeakerEmbNet param tree: no tdnn_{i} blocks")
-    if "pool" in params:
-        raise NotImplementedError("attentive poolings are not ported yet")
     out: dict[str, torch.Tensor] = {}
     for i in range(n_blocks):
         blk = params[f"tdnn_{i}"]
         _conv(out, f"tdnn.{i}.context_layer", blk["conv"])
         _bn(out, f"tdnn.{i}.bn", blk["bn"], batch_stats[f"tdnn_{i}"]["bn"])
+    for name in ("fc1", "fc2"):
+        _conv(out, name, params[name])
+    for name in ("bn1", "bn2"):
+        _bn(out, name, params[name], batch_stats[name])
+    pool = params.get("pool", {})
+    for name in ("W", "b", "v", "k"):
+        if name in pool:
+            out[f"pooling.{name}"] = _t(pool[name])
+    return out
+
+
+def _basic_block(out: dict, ref: str, bp: Mapping[str, Any], bs: Mapping[str, Any]) -> None:
+    """A JAX ``BasicBlock`` onto the port's ``conv1``/``bn1``/...,
+    ``downsample.{0,1}`` names."""
+    for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+        _conv(out, f"{ref}.{conv}", bp[conv])
+        _bn(out, f"{ref}.{bn}", bp[bn], bs[bn])
+    for relu in ("relu1", "relu2"):
+        _alpha(out, f"{ref}.{relu}.weight", bp, relu)
+    if "down_conv" in bp:
+        _conv(out, f"{ref}.downsample.0", bp["down_conv"])
+        _bn(out, f"{ref}.downsample.1", bp["down_bn"], bs["down_bn"])
+
+
+def audio_resnet_state_dict(params: Mapping[str, Any],
+                            batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``AudioResNet`` params + batch_stats -> the port's state dict:
+    ``stem``, ``stem_bn``, ``stage{s}_block{i}.*``, ``fc1``, ``bn1``,
+    ``fc2``, ``bn2``."""
+    if "stem" not in params:
+        raise ValueError("not an AudioResNet param tree: no stem")
+    out: dict[str, torch.Tensor] = {}
+    _conv(out, "stem", params["stem"])
+    _bn(out, "stem_bn", params["stem_bn"], batch_stats["stem_bn"])
+    for name in sorted((k for k in params if k.startswith("stage")),
+                       key=lambda k: tuple(int(v) for v in k[5:].split("_block"))):
+        _basic_block(out, name, params[name], batch_stats.get(name, {}))
     for name in ("fc1", "fc2"):
         _conv(out, name, params[name])
     for name in ("bn1", "bn2"):
@@ -92,6 +132,15 @@ def _alpha(out: dict, key: str, p: Mapping[str, Any], name: str) -> None:
         out[key] = _t(p[name]["alpha"])
 
 
+def _dwpw(out: dict, prefix: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+    """A depthwise-separable TCN unit under the port's (and the JAX
+    package's) names."""
+    for part in ("dw", "pw"):
+        _conv(out, f"{prefix}.{part}_conv", p[f"{part}_conv"])
+        _bn(out, f"{prefix}.{part}_bn", p[f"{part}_bn"], s[f"{part}_bn"])
+        _alpha(out, f"{prefix}.{part}_act.weight", p, f"{part}_act")
+
+
 def _tcn(out: dict, params: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
     """Multi-branch ``tcn.mb_ms_tcn.network.*`` or single-branch
     ``tcn.tcn_trunk.network.*``."""
@@ -107,6 +156,9 @@ def _tcn(out: dict, params: Mapping[str, Any], stats: Mapping[str, Any]) -> None
         if multibranch:
             for cname in sorted(k for k in bp if k.startswith("cbcr")):
                 cp = bp[cname]
+                if "dw_conv" in cp:
+                    _dwpw(out, f"{ref}.{cname}", cp, bs[cname])
+                    continue
                 _conv(out, f"{ref}.{cname}.conv", cp["conv"])
                 _bn(out, f"{ref}.{cname}.batchnorm", cp["bn"], bs[cname]["bn"])
                 _alpha(out, f"{ref}.{cname}.non_lin.weight", cp, "act")
@@ -116,6 +168,9 @@ def _tcn(out: dict, params: Mapping[str, Any], stats: Mapping[str, Any]) -> None
         else:
             for i in (1, 2):
                 cp = bp[f"conv{i}"]
+                if "dw_conv" in cp:
+                    _dwpw(out, f"{ref}.conv{i}", cp, bs[f"conv{i}"])
+                    continue
                 _conv(out, f"{ref}.conv{i}", cp["conv"])
                 _bn(out, f"{ref}.batchnorm{i}", cp["bn"], bs[f"conv{i}"]["bn"])
                 _alpha(out, f"{ref}.relu{i}.weight", cp, "act")
@@ -124,34 +179,49 @@ def _tcn(out: dict, params: Mapping[str, Any], stats: Mapping[str, Any]) -> None
             _alpha(out, f"{ref}.relu.weight", bp, "relu")
 
 
+# a ShuffleNetV2 unit's convolutions: (JAX name, reference sequence, index
+# of the conv; its BN follows it)
+_STRIDE2_UNIT = (("l_dw", "banch1", 0), ("l_pw", "banch1", 2), ("r_pw1", "banch2", 0),
+                 ("r_dw", "banch2", 3), ("r_pw2", "banch2", 5))
+_STRIDE1_UNIT = (("pw1", "banch2", 0), ("dw", "banch2", 3), ("pw2", "banch2", 5))
+
+
+def _shufflenet_trunk(out: dict, params: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
+    """JAX ``ShuffleNetV2Trunk`` units (``stage{s}_unit{i}``) and
+    ``conv_last`` onto the reference ``trunk.0.{u}.banch{1,2}.*`` and
+    ``trunk.1.{0,1}`` names, as ``export_shufflenet_trunk_state_dict``."""
+    units = sorted((k for k in params if k.startswith("stage")),
+                   key=lambda k: tuple(int(v) for v in k[5:].split("_unit")))
+    for u, name in enumerate(units):
+        up, us = params[name], stats.get(name, {})
+        for ours, seq, idx in _STRIDE2_UNIT if "l_dw_conv" in up else _STRIDE1_UNIT:
+            _conv(out, f"trunk.0.{u}.{seq}.{idx}", up[f"{ours}_conv"])
+            _bn(out, f"trunk.0.{u}.{seq}.{idx + 1}", up[f"{ours}_bn"], us[f"{ours}_bn"])
+    if "conv_last_conv" in params:
+        _conv(out, "trunk.1.0", params["conv_last_conv"])
+        _bn(out, "trunk.1.1", params["conv_last_bn"], stats["conv_last_bn"])
+
+
 def lipreading_state_dict(params: Mapping[str, Any],
                           batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX ``Lipreading`` params + batch_stats (ResNet trunk) -> the port's
-    state dict: ``frontend3D.{0,1,2}``, ``trunk.layer{s}.{i}.*``,
-    ``tcn.*`` and ``tcn.tcn_output``."""
+    """JAX ``Lipreading`` params + batch_stats -> the port's state dict:
+    ``frontend3D.{0,1,2}``, the trunk (``trunk.layer{s}.{i}.*`` or
+    ``trunk.{0,1}.*``), ``tcn.*`` and ``tcn.tcn_output``."""
     out: dict[str, torch.Tensor] = {}
     _conv(out, "frontend3D.0", params["frontend_conv"])
     _bn(out, "frontend3D.1", params["frontend_bn"], batch_stats["frontend_bn"])
     _alpha(out, "frontend3D.2.weight", params, "frontend_prelu")
     trunk_p = params.get("trunk", {})
     trunk_s = batch_stats.get("trunk", {})
+    if any(name.startswith(("stage", "conv_last")) for name in trunk_p):
+        _shufflenet_trunk(out, trunk_p, trunk_s)
+        trunk_p = {}
     for name, bp in trunk_p.items():
-        if name.startswith(("stage", "conv_last")):
-            raise NotImplementedError("the ShuffleNetV2 trunk is not ported yet")
         if not name.startswith("layer"):
-            raise ValueError(f"unsupported trunk entry {name!r}: expected "
-                             "the ResNet layout (layer{s}_block{i})")
+            raise ValueError(f"unsupported trunk entry {name!r}: expected the ResNet "
+                             "(layer{s}_block{i}) or ShuffleNetV2 (stage{s}_unit{i}) layout")
         stage, block = name.split("_block")
-        ref = f"trunk.{stage}.{int(block)}"
-        bs = trunk_s.get(name, {})
-        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
-            _conv(out, f"{ref}.{conv}", bp[conv])
-            _bn(out, f"{ref}.{bn}", bp[bn], bs[bn])
-        for relu in ("relu1", "relu2"):
-            _alpha(out, f"{ref}.{relu}.weight", bp, relu)
-        if "down_conv" in bp:
-            _conv(out, f"{ref}.downsample.0", bp["down_conv"])
-            _bn(out, f"{ref}.downsample.1", bp["down_bn"], bs["down_bn"])
+        _basic_block(out, f"trunk.{stage}.{int(block)}", bp, trunk_s.get(name, {}))
     if "tcn" in params:
         _tcn(out, params["tcn"], batch_stats.get("tcn", {}))
     if "tcn_output" in params:

@@ -8,8 +8,15 @@ reference's savers write them:
 - audio: ``{"epoch", "state_dict", "optimizer": {}, "criterion_state_dict"}``.
   The reference pickles its live criterion module under ``criterion``; the
   port writes the criterion's weights as a plain tensor dict instead, which
-  the reference's loader ignores as it ignores the module;
-- video: the bare Lipreading state dict;
+  the reference's loader ignores as it ignores the module. Only the TDNN
+  family exports, as in the JAX package: the reference has no layout for
+  the spectrogram ResNet. ``pooling`` names the reference layout of an
+  attentive pooling's ``pooling.{W,b,v,k}``: ``attentive_statistic``
+  stores them as they are, ``mono_head_attention`` adds the reference's
+  leading broadcast axes; the multi-head pooling has no reference layout;
+- video: the bare Lipreading state dict (ResNet or ShuffleNetV2 trunk; a
+  depthwise-separable TCN keeps the port's names, for which the reference
+  has no layout);
 - fusion: the audio container around LowFER's ``U`` and ``V``.
 
 ``data_parallel_prefix`` puts ``module.`` before every key, as a
@@ -36,13 +43,46 @@ def _container(state_dict: dict, epoch: int, criterion_state_dict) -> dict[str, 
     return tree
 
 
+POOLING_LAYOUTS = ("attentive_statistic", "mono_head_attention")
+
+
+def pooling_to_reference(state_dict: Mapping[str, torch.Tensor],
+                         pooling: str | None) -> dict[str, torch.Tensor]:
+    """``state_dict`` with its attentive pooling in the reference ``pooling``
+    layout; as it is where ``pooling`` is None or the model has none."""
+    sd = dict(state_dict)
+    if pooling is None or "pooling.W" not in sd:
+        return sd
+    if pooling not in POOLING_LAYOUTS:
+        raise ValueError(f"pooling layout {pooling!r}: the reference has {POOLING_LAYOUTS}")
+    w, b = sd["pooling.W"], sd["pooling.b"]
+    if w.ndim != 2:
+        raise ValueError(f"a pooling W of shape {tuple(w.shape)} (multi-head) has no "
+                         "reference layout")
+    hidden = w.shape[0]
+    want_b = (hidden, 1) if pooling == "mono_head_attention" else (1, hidden)
+    if tuple(b.shape) != want_b:
+        raise ValueError(f"--pooling {pooling}: the model's pooling b has shape "
+                         f"{tuple(b.shape)}, that layout's is {want_b}")
+    if pooling == "mono_head_attention":
+        shapes = {"W": (1, hidden, -1), "b": (1, hidden, 1), "v": (1, 1, hidden),
+                  "k": (1, 1, 1)}
+        sd.update({f"pooling.{n}": sd[f"pooling.{n}"].reshape(s) for n, s in shapes.items()})
+    return sd
+
+
 def save_reference_audio_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
                                     epoch: int = 0,
                                     criterion_state_dict: Mapping | None = None,
-                                    data_parallel_prefix: bool = False) -> None:
-    """Write an E-TDNN state dict as a reference audio ``net_<epoch>.pth``."""
-    torch.save(_container(_cpu(state_dict, data_parallel_prefix), epoch,
-                          criterion_state_dict), path)
+                                    data_parallel_prefix: bool = False,
+                                    pooling: str | None = None) -> None:
+    """Write an E-TDNN state dict as a reference audio ``net_<epoch>.pth``,
+    an attentive pooling in the ``pooling`` layout; another model raises."""
+    if not any(k.startswith("tdnn.") for k in state_dict):
+        raise ValueError("not a TDNN/E-TDNN state dict: the reference defines no checkpoint "
+                         "layout for the other audio archs")
+    torch.save(_container(_cpu(pooling_to_reference(state_dict, pooling),
+                               data_parallel_prefix), epoch, criterion_state_dict), path)
 
 
 def save_reference_video_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],

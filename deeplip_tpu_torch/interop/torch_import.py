@@ -10,7 +10,14 @@ handling, not a layout change:
 - floating tensors become float32, the port's parameter type;
 - every BatchNorm (a ``.running_mean`` key) gets a ``num_batches_tracked``
   counter, 0 where the file has none, because ``TorchBatchNorm`` carries
-  one and the port's loaders are strict.
+  one and the port's loaders are strict;
+- an audio file's mono-head attention pooling, which the reference stores
+  with leading broadcast axes (``W (1, H, C)``, ``b (1, H, 1)``, ``v (1, 1,
+  H)``, ``k (1, 1, 1)``), is read into the port's ``(H, C)``, ``(H, 1)``,
+  ``(1, H)``, ``(1, 1)``; the attentive-statistics layout is the port's.
+
+A ShuffleNetV2 Lipreading file needs nothing more: the port's trunk has the
+reference's ``trunk.0.*`` / ``trunk.1.*`` names.
 
 A file is read with ``weights_only=True`` first. A reference fusion
 checkpoint also pickles its live criterion module, whose class lives in the
@@ -126,10 +133,22 @@ def criterion_state_from_object(obj) -> dict[str, torch.Tensor]:
     return out
 
 
+def pooling_from_reference(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``sd`` with a mono-head pooling's broadcast axes taken off (a 3-D
+    ``pooling.b`` marks that layout); any other state dict as it is."""
+    b = sd.get("pooling.b")
+    if b is None or b.ndim != 3:
+        return dict(sd)
+    shapes = {"W": (b.shape[1], -1), "b": (-1, 1), "v": (1, -1), "k": (1, 1)}
+    return {**sd, **{f"pooling.{n}": sd[f"pooling.{n}"].reshape(shape)
+                     for n, shape in shapes.items()}}
+
+
 def load_reference_audio_checkpoint(path: str) -> dict[str, torch.Tensor]:
     """The E-TDNN state dict of a reference audio ``net_*.pth``
-    (``{"epoch", "state_dict", ...}`` or a bare state dict)."""
-    return clean_state_dict(_state_dict_of(read_checkpoint(path)))
+    (``{"epoch", "state_dict", ...}`` or a bare state dict), with an
+    attentive pooling in the port's shapes."""
+    return pooling_from_reference(clean_state_dict(_state_dict_of(read_checkpoint(path))))
 
 
 def load_reference_video_checkpoint(path: str, initial: Mapping[str, torch.Tensor]

@@ -2,9 +2,11 @@
 
 Counterpart of ``deeplip_tpu/models/lipreading.py`` with the JAX package's
 layouts at the public methods: clips are channels-last ``(B, T, H, W, 1)``
-and frame features ``(B, T, 512)``.
+and frame features ``(B, T, backend_out)``: 512 for the ResNet trunk, 1024
+for the ShuffleNetV2 one (2048 at ``width_mult: 2.0``).
 
-- frontend3D: Conv3d 64×(5,7,7), stride (1,2,2), pad (2,3,3), no bias →
+- frontend3D: Conv3d C×(5,7,7), stride (1,2,2), pad (2,3,3), no bias, with
+  C = 64 before the ResNet trunk and 24 before the ShuffleNetV2 one →
   BN → PReLU → max-pool (1,3,3)/(1,2,2)/pad (0,1,1) with ``-inf`` padding.
   The JAX package computes the same conv by a space-to-depth rewrite for
   the TPU; here it is a plain ``nn.Conv3d``. In train mode the BN + PReLU
@@ -13,25 +15,29 @@ and frame features ``(B, T, 512)``.
   channels-last activation: the ``csrc/maxpool_kernel.cu`` kernels on the
   card, forward and backward, and their plain version
   (``maxpool_frontend_reference``, ``F.max_pool3d``) on the CPU.
-- time folds into the batch for the trunk: ``(B, T, h, w, 64)`` →
-  ``(B·T, h, w, 64)``, a view;
-- trunk: ResNet-18 (the ShuffleNetV2 trunk is not ported yet);
-- head: multi- or single-branch TCN over ``(B, T, C)``, a length-masked
-  mean consensus and a Linear to the speaker classes.
+- time folds into the batch for the trunk: ``(B, T, h, w, C)`` →
+  ``(B·T, h, w, C)``, a view;
+- trunk: ResNet-18 (``backbone_type: resnet``) or the ShuffleNetV2 trunk
+  (``backbone_type: shufflenet``, stage widths by ``width_mult``);
+- head: multi- or single-branch TCN over ``(B, T, C)`` (depthwise-separable
+  with ``tcn_dwpw``), a length-masked mean consensus and a Linear to the
+  speaker classes.
 
 ``compute_dtype`` (the Flax model's ``dtype`` field) sets the frame path's
 compute type: with ``torch.bfloat16`` the frontend Conv3d, its BN and
-PReLU, the max-pool and the ResNet trunk run in bf16, each weight cast to
-bf16 per call and every BN's statistics taken in >= f32; the trunk's
-spatial mean promotes the frame features to f32, so the TCN and the
-classifier run in f32 (the JAX TCN has no ``dtype`` field). The default,
-None, computes in the input's type.
+PReLU and the max-pool run in bf16, each weight cast to bf16 per call and
+every BN's statistics taken in >= f32. The ResNet trunk runs in bf16 too,
+and its spatial mean promotes the frame features to f32. The ShuffleNetV2
+trunk has no compute type, as in the JAX package, so it promotes its input
+and runs in f32. Either way the TCN and the classifier run in f32 (the JAX
+TCN has no ``dtype`` field). The default, None, computes in the input's
+type.
 
 Module names follow the reference layout (``frontend3D.{0,1,2}``,
-``trunk.layer{s}.{i}``, ``tcn.mb_ms_tcn`` / ``tcn.tcn_trunk``,
-``tcn.tcn_output``), so ``interop.from_jax.lipreading_state_dict`` loads
-with ``strict=True``. Train or eval mode is the module's own
-(``.train()`` / ``.eval()``).
+``trunk.layer{s}.{i}`` or ``trunk.{0,1}.*``, ``tcn.mb_ms_tcn`` /
+``tcn.tcn_trunk``, ``tcn.tcn_output``), so
+``interop.from_jax.lipreading_state_dict`` loads with ``strict=True``.
+Train or eval mode is the module's own (``.train()`` / ``.eval()``).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from torch import nn
 
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.models.resnet import ResNetTrunk, bn_act, conv_nhwc, make_act
+from deeplip_tpu_torch.models.shufflenetv2 import ShuffleNetV2Trunk
 from deeplip_tpu_torch.models.tcn import MultibranchTemporalConvNet, TemporalConvNet
 from deeplip_tpu_torch.ops.cuda import maxpool as P
 from deeplip_tpu_torch.ops.masked import length_mask
@@ -52,14 +59,14 @@ class TCNHead(nn.Module):
     """The reference's TCN wrapper: the temporal stack and the classifier."""
 
     def __init__(self, n_inputs: int, num_channels, kernel_sizes, dropout: float,
-                 relu_type: str, num_classes: int):
+                 relu_type: str, num_classes: int, dwpw: bool = False):
         super().__init__()
         if len(kernel_sizes) == 1:
             self.tcn_trunk = TemporalConvNet(n_inputs, num_channels, kernel_sizes[0],
-                                             dropout, relu_type)
+                                             dropout, relu_type, dwpw)
         else:
             self.mb_ms_tcn = MultibranchTemporalConvNet(n_inputs, num_channels,
-                                                        kernel_sizes, dropout, relu_type)
+                                                        kernel_sizes, dropout, relu_type, dwpw)
         self.tcn_output = nn.Linear(num_channels[-1], num_classes)
 
     def temporal(self, x: torch.Tensor) -> torch.Tensor:
@@ -70,24 +77,27 @@ class TCNHead(nn.Module):
 class Lipreading(nn.Module):
     def __init__(self, num_classes: int = 500, hidden_dim: int = 256,
                  backbone_type: str = "resnet", relu_type: str = "prelu",
-                 tcn_kernel_sizes=(3, 5, 7),
+                 width_mult: float = 1.0, tcn_kernel_sizes=(3, 5, 7),
                  tcn_num_layers: int = 4, tcn_dropout: float = 0.2,
                  tcn_dwpw: bool = False, tcn_width_mult: int = 1,
                  trunk_layers=(2, 2, 2, 2)):
         super().__init__()
-        if backbone_type != "resnet":
-            raise NotImplementedError(f"backbone {backbone_type!r} is not ported yet")
-        if tcn_dwpw:
-            raise NotImplementedError("the depthwise-separable TCN is not ported yet")
-        self.backend_out = 512
+        if backbone_type not in ("resnet", "shufflenet"):
+            raise ValueError(f"backbone {backbone_type!r}")
+        frontend_nout = 64 if backbone_type == "resnet" else 24
         self.frontend3D = nn.Sequential(
-            nn.Conv3d(1, 64, (5, 7, 7), (1, 2, 2), (2, 3, 3), bias=False),
-            TorchBatchNorm(64),
-            make_act(relu_type, 64))
-        self.trunk = ResNetTrunk(tuple(trunk_layers), relu_type)
+            nn.Conv3d(1, frontend_nout, (5, 7, 7), (1, 2, 2), (2, 3, 3), bias=False),
+            TorchBatchNorm(frontend_nout),
+            make_act(relu_type, frontend_nout))
+        if backbone_type == "resnet":
+            self.trunk = ResNetTrunk(tuple(trunk_layers), relu_type)
+        else:
+            self.trunk = ShuffleNetV2Trunk(float(width_mult), frontend_nout)
+        self.backend_out = 512 if backbone_type == "resnet" else self.trunk.backend_out
         tcn_ch = hidden_dim * len(tcn_kernel_sizes) * tcn_width_mult
         self.tcn = TCNHead(self.backend_out, (tcn_ch,) * tcn_num_layers,
-                           tuple(tcn_kernel_sizes), tcn_dropout, relu_type, num_classes)
+                           tuple(tcn_kernel_sizes), tcn_dropout, relu_type, num_classes,
+                           tcn_dwpw)
 
     @classmethod
     def from_config(cls, cfg: Mapping[str, Any], num_classes: int,
@@ -97,6 +107,7 @@ class Lipreading(nn.Module):
             num_classes=num_classes,
             backbone_type=cfg.get("backbone_type", "resnet"),
             relu_type=cfg.get("relu_type", "prelu"),
+            width_mult=float(cfg.get("width_mult", 1.0)),
             tcn_kernel_sizes=tuple(cfg.get("tcn_kernel_size", (3, 5, 7))),
             tcn_num_layers=int(cfg.get("tcn_num_layers", 4)),
             tcn_dropout=float(cfg.get("tcn_dropout", 0.2)),
@@ -108,7 +119,7 @@ class Lipreading(nn.Module):
 
     def frame_features(self, x: torch.Tensor,
                        compute_dtype: torch.dtype | None = None) -> torch.Tensor:
-        """``(B, T, H, W, 1) -> (B, T, 512)`` per-frame embeddings."""
+        """``(B, T, H, W, 1) -> (B, T, backend_out)`` per-frame embeddings."""
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         b, t = x.shape[0], x.shape[1]

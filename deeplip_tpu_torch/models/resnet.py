@@ -66,11 +66,19 @@ def bn_act(bn: TorchBatchNorm, act: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv_nhwc(conv: nn.Conv2d | nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """Apply a bias-free ``(N, C, ...)`` convolution to a channels-last
-    ``(N, ..., C)`` activation and return ``(N, ..., C)``; the weight is
-    cast to the activation's type."""
+    """Apply a bias-free ``(N, C, ...)`` convolution (grouped or not) to a
+    channels-last ``(N, ..., C)`` activation and return ``(N, ..., C)``;
+    the weight is cast to the activation's type. On the CPU the input is
+    copied to contiguous ``(N, C, ...)``: PyTorch's CPU backward of a
+    channels-last 1x1 stride-2 convolution corrupts its heap once the input
+    shape changes between calls (torch 2.13, the audio ResNet's crop
+    lengths)."""
     fn = F.conv2d if isinstance(conv, nn.Conv2d) else F.conv3d
-    y = fn(x.movedim(-1, 1), conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+    x = x.movedim(-1, 1)
+    if x.device.type == "cpu":
+        x = x.contiguous()
+    y = fn(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding, conv.dilation,
+           conv.groups)
     return y.movedim(1, -1)
 
 

@@ -12,7 +12,10 @@ block transposes to NCW only around its ``Conv1d``.
 - The module layout is the reference torch layout (``tdnn.{i}.context_layer``,
   ``tdnn.{i}.bn``, ``fc1``, ``bn1``, ``fc2``, ``bn2``), so its state dicts,
   and those carried across by ``interop.from_jax``, load with
-  ``strict=True``.
+  ``strict=True``. An attentive pooling adds ``pooling.{W,b,v,k}`` in the
+  JAX package's shapes; the reference's mono-head file layout adds leading
+  axes, which ``interop.torch_import`` takes off and ``interop.torch_export``
+  puts back.
 
 ``extract_embedding`` returns ``(xv, x_a)``: ``xv`` is the second FC output
 (the margin-loss embedding) and ``x_a`` the first FC pre-activation (the
@@ -35,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
-from deeplip_tpu_torch.models.pooling import AveragePooling, MeanStdPooling
+from deeplip_tpu_torch.models.pooling import POOLED_WIDTH, pooling_from_name
 
 _NEGATIVE_SLOPE = 0.2
 
@@ -77,14 +80,6 @@ class TDNNBlock(nn.Module):
         return self.bn(_act(y))
 
 
-def _pooling_from_name(name: str) -> nn.Module:
-    if name == "statistic":
-        return MeanStdPooling()
-    if name == "average":
-        return AveragePooling()
-    raise NotImplementedError(f"pooling {name!r} is not ported yet")
-
-
 class SpeakerEmbNet(nn.Module):
     """Config-driven TDNN/E-TDNN x-vector network."""
 
@@ -95,6 +90,7 @@ class SpeakerEmbNet(nn.Module):
         input_dim: int = 24,
         embedding_dim: int = 512,
         pooling: str = "statistic",
+        attention_hidden_size: int = 64,
         bn_first: bool = True,
     ):
         super().__init__()
@@ -104,9 +100,8 @@ class SpeakerEmbNet(nn.Module):
         self.tdnn = nn.ModuleList(
             TDNNBlock(dims[i], dims[i + 1], ctx, bn_first)
             for i, ctx in enumerate(self.contexts))
-        self.pooling = _pooling_from_name(pooling)
-        pooled = hidden_dims[-1] * (2 if pooling == "statistic" else 1)
-        self.fc1 = nn.Linear(pooled, embedding_dim)
+        self.pooling = pooling_from_name(pooling, hidden_dims[-1], attention_hidden_size)
+        self.fc1 = nn.Linear(hidden_dims[-1] * POOLED_WIDTH[pooling], embedding_dim)
         self.bn1 = TorchBatchNorm(embedding_dim)
         self.fc2 = nn.Linear(embedding_dim, embedding_dim)
         self.bn2 = TorchBatchNorm(embedding_dim)
@@ -125,6 +120,7 @@ class SpeakerEmbNet(nn.Module):
                           else opts.get("input_dim", 24)),
             embedding_dim=int(opts["embedding_dim"]),
             pooling=opts.get("pooling", "statistic"),
+            attention_hidden_size=int(opts.get("attention_hidden_size", 64)),
             bn_first=bool(opts.get("bn_first", True)),
         )
 

@@ -1,4 +1,4 @@
-"""Batched audio feature extraction (MFCC / fbank / logfbank) on tensors.
+"""Batched audio feature extraction (MFCC / fbank / logfbank / STFT) on tensors.
 
 Counterpart of ``deeplip_tpu/ops/features.py``. The plain front-end is a
 function of a ``(B, S)`` PCM batch:
@@ -11,14 +11,17 @@ function of a ``(B, S)`` PCM batch:
 with the same f32 bases (cast from the f64 ``spectral`` arrays) and guards as
 the JAX package's ``dft='matmul'`` path; ``dft='fft'`` takes the spectrum
 from ``torch.fft.rfft`` instead, as the JAX package's does from
-``jnp.fft.rfft``. :func:`extract_features` routes the mel front-ends,
-pre-emphasis and length mask included, through the fused CUDA kernels
-(``ops/cuda/fbank.py``) on a CUDA tensor, whatever ``dft`` says (as the JAX
-package's ``pallas`` backend does); the kernels' wrapper falls to this plain
-version only for a tensor on the CPU.
+``jnp.fft.rfft``. The JAX package's ``matmul_fused`` and ``matmul_packed``
+compute the same per-bin dot products against bases laid out for the TPU's
+matrix unit; here they name the ``matmul`` bases. :func:`extract_features`
+routes the mel front-ends, pre-emphasis and length mask included, through
+the fused CUDA kernels (``ops/cuda/fbank.py``) on a CUDA tensor, whatever
+``dft`` says (as the JAX package's ``pallas`` backend does); the kernels'
+wrapper falls to this plain version only for a tensor on the CPU.
 
-Not ported yet: the ``stft`` front-end and the ``dft`` variants
-``matmul_fused`` and ``matmul_packed``; they raise ``NotImplementedError``.
+The ``stft`` front-end (:func:`stft_features`, librosa's centred log1p
+magnitude) is plain PyTorch on every device, as the JAX package has no
+kernel for it.
 """
 
 from __future__ import annotations
@@ -60,8 +63,8 @@ class FeatureConfig:
     ceplifter: int = 22
     low_freq: float = 0.0
     high_freq: float | None = None
-    # rDFT implementation of the plain front-end: 'matmul' (dense cos/sin
-    # bases) or 'fft' (torch.fft.rfft); the others are not ported
+    # rDFT implementation of the plain front-end: 'fft' (torch.fft.rfft)
+    # or one of the matmul names (dense cos/sin bases)
     dft: str = "matmul"
 
     @classmethod
@@ -118,28 +121,30 @@ def _const(like: torch.Tensor, fn, *args):
     return _cached_const(fn, args, like.dtype, like.device)
 
 
-PORTED_DFTS = ("matmul", "fft")
+DFTS = ("matmul", "matmul_fused", "matmul_packed", "fft")
 
 
 def _check_dft(cfg: FeatureConfig) -> None:
-    if cfg.dft not in PORTED_DFTS:
-        raise NotImplementedError(
-            f"dft={cfg.dft!r} is not ported; only {PORTED_DFTS} are")
+    if cfg.dft not in DFTS:
+        raise NotImplementedError(f"unknown dft impl {cfg.dft!r}; one of {DFTS}")
+
+
+def _rdft(frames: torch.Tensor, cfg: FeatureConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(re, im)`` of the real DFT of ``(..., T, L)`` frames zero-padded to
+    ``n_fft``, ``(..., T, n_fft//2+1)`` each."""
+    _check_dft(cfg)
+    if cfg.dft == "fft":
+        spec = torch.fft.rfft(frames, n=cfg.n_fft)
+        return spec.real, spec.imag
+    cos_m, sin_m = _const(frames, spectral.rdft_matrices, frames.shape[-1], cfg.n_fft)
+    return frames @ cos_m, frames @ sin_m
 
 
 def _power_spectrum(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     """Pre-emphasis → frames → |rDFT|²/n_fft, ``(..., T, n_fft//2+1)``.
     No analysis window (python_speech_features' ``winfunc`` is all-ones)."""
-    _check_dft(cfg)
     emph = framing.preemphasis(signal, cfg.preemph)
-    frames = framing.frame_signal(emph, cfg.frame_len, cfg.frame_step)
-    if cfg.dft == "fft":
-        spec = torch.fft.rfft(frames, n=cfg.n_fft)
-        re, im = spec.real, spec.imag
-    else:
-        cos_m, sin_m = _const(frames, spectral.rdft_matrices, cfg.frame_len, cfg.n_fft)
-        re = frames @ cos_m
-        im = frames @ sin_m
+    re, im = _rdft(framing.frame_signal(emph, cfg.frame_len, cfg.frame_step), cfg)
     return (re * re + im * im) / cfg.n_fft
 
 
@@ -174,6 +179,54 @@ def mfcc(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     if cfg.energy:
         cep = torch.cat([torch.log(energy)[..., None], cep[..., 1:]], dim=-1)
     return cep
+
+
+def stft_hop(cfg: FeatureConfig) -> int:
+    """The ``stft`` front-end's hop in samples (truncated, as librosa's
+    caller computes it)."""
+    return int(cfg.rate * cfg.win_shift)
+
+
+def _centred_window(win_length: int, n_fft: int) -> np.ndarray:
+    """A periodic Hann of ``win_length`` centred in ``n_fft`` zeros
+    (librosa ``util.pad_center``)."""
+    full = np.zeros((n_fft,), np.float64)
+    off = (n_fft - win_length) // 2
+    full[off:off + win_length] = spectral.hann_window(win_length, periodic=True)
+    return full
+
+
+def stft_features(signal: torch.Tensor, cfg: FeatureConfig,
+                  sample_lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """librosa-style log1p STFT magnitude ``(..., T, n_fft//2+1)`` with
+    ``T = 1 + S // hop``: frames centred by reflect padding of ``n_fft/2``,
+    a periodic Hann of ``win_len`` samples padded to ``n_fft``, no
+    pre-emphasis.
+
+    The reflect-padded buffer is one gather: padded position ``p`` reads the
+    sample at ``fold(p - n_fft/2, L)``, numpy's reflect fold with period
+    ``2L - 2`` (exact over several folds). ``L`` is the row's true length
+    where ``sample_lengths`` gives one, so a zero-padded row reflects
+    around its own end and its first ``1 + L // hop`` frames equal the
+    utterance's alone; else ``L`` is the batch width, which is
+    ``np.pad(mode="reflect")``."""
+    hop, pad = stft_hop(cfg), cfg.n_fft // 2
+    width = signal.shape[-1]
+    n_cols = 1 + width // hop
+    need = (n_cols - 1 + -(-cfg.n_fft // hop)) * hop
+    if sample_lengths is None:
+        lengths = torch.full(signal.shape[:-1] + (1,), width, device=signal.device)
+    else:
+        lengths = torch.as_tensor(sample_lengths).to(signal.device).to(torch.int64)[..., None]
+    pos = torch.arange(need, device=signal.device) - pad
+    period = torch.clamp(2 * (lengths - 1), min=1)
+    m = torch.remainder(pos, period)
+    idx = torch.where(m >= lengths, period - m, m).clamp(0, width - 1)
+    padded = torch.gather(signal, -1, idx.expand(*signal.shape[:-1], need))
+    frames = framing.sliding_frames(padded, cfg.n_fft, hop, n_cols)
+    frames = frames * _const(frames, _centred_window, int(cfg.rate * cfg.win_len), cfg.n_fft)
+    re, im = _rdft(frames, cfg)
+    return torch.log1p(torch.sqrt(re * re + im * im))
 
 
 def cmvn(feat: torch.Tensor, eps: float = 2e-12) -> torch.Tensor:
@@ -220,13 +273,16 @@ def extract_features(
 
     Mel front-ends go through the fused kernels' wrapper
     (``ops.cuda.fbank.audio_features``), which launches a CUDA kernel on a
-    CUDA tensor and runs the plain version on a CPU tensor.
+    CUDA tensor and runs the plain version on a CPU tensor; ``stft`` runs
+    :func:`stft_features`.
 
     ``sample_lengths`` marks the true PCM length of each row of a
     zero-padded batch. The reference pre-emphasises the exact-length signal
     and pads after; so with lengths given (and ``cfg.preemph`` nonzero, as
     in the JAX package), the wrapper pre-emphasises and zeroes each row
-    from its length on. CMVN and deltas over a padded batch would average
+    from its length on. The ``stft`` front-end never pre-emphasises; its
+    lengths set where each row's reflect padding folds. CMVN and deltas
+    over a padded batch would average
     pad-derived frames, so they are refused with lengths: apply a masked
     CMVN downstream (``train.audio.masked_cmvn``).
     """
@@ -236,19 +292,21 @@ def extract_features(
             "CMVN/delta statistics over padding-derived frames; use "
             "normalize=False, delta=False and a masked CMVN over the valid "
             "frames instead (see train.audio.masked_cmvn)")
-    if cfg.feat_type not in MEL_FEATURES:
-        raise NotImplementedError(
-            f"feat_type {cfg.feat_type!r} is not ported; mel front-ends are")
     _check_dft(cfg)
-    from deeplip_tpu_torch.ops.cuda.fbank import audio_features
+    if cfg.feat_type == "stft":
+        feat = stft_features(signal, cfg, sample_lengths=sample_lengths)
+    elif cfg.feat_type in MEL_FEATURES:
+        from deeplip_tpu_torch.ops.cuda.fbank import audio_features
 
-    lengths = None
-    if sample_lengths is not None and cfg.preemph:
-        lengths = torch.as_tensor(sample_lengths).to(signal.device)
-        lengths = lengths.expand(signal.shape[:-1]).reshape(-1)
-    flat = signal.reshape(-1, signal.shape[-1]).contiguous()
-    feat = audio_features(flat, cfg, lengths)
-    feat = feat.reshape(*signal.shape[:-1], *feat.shape[-2:])
+        lengths = None
+        if sample_lengths is not None and cfg.preemph:
+            lengths = torch.as_tensor(sample_lengths).to(signal.device)
+            lengths = lengths.expand(signal.shape[:-1]).reshape(-1)
+        flat = signal.reshape(-1, signal.shape[-1]).contiguous()
+        feat = audio_features(flat, cfg, lengths)
+        feat = feat.reshape(*signal.shape[:-1], *feat.shape[-2:])
+    else:
+        raise NotImplementedError(f"unknown feat_type {cfg.feat_type!r}")
     if cfg.normalize:
         feat = cmvn(feat)
     if cfg.delta:

@@ -1,7 +1,9 @@
 """Audio x-vector training, extraction and scoring: the port of the JAX
 package's ``AudioTrainer`` (``deeplip_tpu/train/audio.py``).
 
-:class:`AudioTrainer` trains the E-TDNN on speaker-balanced random crops
+:class:`AudioTrainer` trains the config's ``model.arch`` (the TDNN/E-TDNN
+with any of the five poolings, or the spectrogram ResNet, ``arch:
+resnet``) on speaker-balanced random crops
 (``data.audio_pipeline.AudioTrainPipeline``). One train step ships the PCM
 batch once (int16 where that is value-exact) and does everything else on
 the device: the int16 → f32 rescale, the front-end (the fused FFT kernel on
@@ -24,8 +26,10 @@ The Kaldi feature path is not ported; it raises. A reference DeepLip
 
 :class:`AudioExtractor` embeds bucketed PCM batches as ``_embed_fn`` does:
 int16 → f32 rescale on the device, the front-end with pre-emphasis masked at
-each row's true length, masked CMVN, the E-TDNN, and L2 normalisation (or
-the fc1 pre-activation for CrossEntropy systems). It stages the next
+each row's true length, masked CMVN, the model, and L2 normalisation (or
+the fc1 pre-activation for CrossEntropy systems). The ``stft`` front-end
+counts each row's valid frames as librosa frames them (``1 + len // hop``),
+not as the buckets' mel framing does. It stages the next
 batch's host→device copy on a side stream while the current batch computes.
 
 Embedding math is pinned to FP32: cuDNN runs float32 convolutions in TF32
@@ -53,6 +57,7 @@ from deeplip_tpu_torch.eval.scoring import EmbeddingStore, TrialList, cosine_eer
 from deeplip_tpu_torch.interop.torch_import import load_reference_audio_checkpoint
 from deeplip_tpu_torch.losses.softmax import AAMSoftmax, LMCL, build_criterion
 from deeplip_tpu_torch.losses.triplet import OnlineTripletLoss
+from deeplip_tpu_torch.models.audio_resnet import AudioResNet
 from deeplip_tpu_torch.models.tdnn import SpeakerEmbNet
 from deeplip_tpu_torch.ops import features as F
 from deeplip_tpu_torch.ops.masked import length_mask
@@ -136,8 +141,30 @@ def claim_staged(tensors, done, device: torch.device):
     return tensors
 
 
+def build_audio_model(model_opts, feature_dim: int) -> torch.nn.Module:
+    """The config's ``model.arch``: the TDNN/E-TDNN over ``feature_dim``
+    features, or the spectrogram ResNet (one input channel)."""
+    arch = model_opts.get("arch", "etdnn")
+    if arch in ("tdnn", "etdnn"):
+        return SpeakerEmbNet.from_config(model_opts, input_dim=feature_dim)
+    if arch == "resnet":
+        return AudioResNet.from_config(model_opts)
+    raise NotImplementedError(f"audio arch {arch!r}")
+
+
+def valid_feature_lengths(feats: torch.Tensor, feat_lengths: torch.Tensor,
+                          sample_lengths: torch.Tensor, cfg: F.FeatureConfig) -> torch.Tensor:
+    """Each row's valid frames: ``feat_lengths`` (the mel framing's count,
+    the buckets' currency), or for ``stft`` librosa's ``1 + len // hop``
+    columns, which the mel count falls short of."""
+    if cfg.feat_type != "stft":
+        return feat_lengths
+    return torch.clamp(1 + sample_lengths.to(feat_lengths.dtype) // F.stft_hop(cfg),
+                       max=feats.shape[-2])
+
+
 class AudioExtractor:
-    """Config-driven embedding extraction for the E-TDNN audio system.
+    """Config-driven embedding extraction for the audio system.
 
     ``device=None`` runs on the card and raises where there is none. The
     config's ``python_data_config.backend`` (``xla|pallas``) is accepted,
@@ -155,12 +182,7 @@ class AudioExtractor:
         self.feat_cfg = F.FeatureConfig.from_config(feat_opts)
         self.eval_feat_cfg = dataclasses.replace(
             self.feat_cfg, normalize=False, delta=False)
-        model_opts = self.cfg.model
-        arch = model_opts.get("arch", "etdnn")
-        if arch not in ("tdnn", "etdnn"):
-            raise NotImplementedError(f"audio arch {arch!r} is not ported yet")
-        self.model = SpeakerEmbNet.from_config(
-            model_opts, input_dim=F.feature_dim(self.feat_cfg))
+        self.model = build_audio_model(self.cfg.model, F.feature_dim(self.feat_cfg))
         self.model.to(self.device).eval()
         self.loss_name = (self.cfg.get("train") or Config()).get("loss", "LMCL")
         self.test_opts = self.cfg.get("test") or Config()
@@ -195,6 +217,8 @@ class AudioExtractor:
                 pcm = pcm.to(torch.float32) / 32768.0
             feats = F.extract_features(pcm, self.eval_feat_cfg,
                                        sample_lengths=sample_lengths)
+            feat_lengths = valid_feature_lengths(feats, feat_lengths, sample_lengths,
+                                                 self.feat_cfg)
             if self.feat_cfg.normalize:
                 feats = masked_cmvn(feats, feat_lengths)
             if self.feat_cfg.delta:
@@ -248,7 +272,7 @@ def compute_dtype_of(name: str, what: str = "compute_dtype") -> torch.dtype | No
 
 
 class AudioTrainer:
-    """Config-driven E-TDNN x-vector trainer (``{data, model, train, test}``).
+    """Config-driven x-vector trainer (``{data, model, train, test}``).
 
     ``device=None`` runs on the card and raises where there is none.
     ``n_spk`` overrides the manifest's speaker count (the criterion's
@@ -545,7 +569,7 @@ class AudioTrainer:
         self.log_time = os.path.basename(self.exp_dir)
 
     def load_torch_checkpoint(self, path: str) -> None:
-        """Load the E-TDNN of a reference DeepLip ``net_*.pth``; the
+        """Load the TDNN/E-TDNN of a reference DeepLip ``net_*.pth``; the
         criterion, the optimizer, the epoch and the step keep theirs."""
         self.model.load_state_dict(load_reference_audio_checkpoint(path), strict=True)
 

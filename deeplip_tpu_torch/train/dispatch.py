@@ -178,10 +178,24 @@ class GroupedSteps:
 
     def _graph_capture(self, fn):
         """``(graph, outputs)``: ``fn`` captured into a CUDA graph on this
-        runner's pool."""
+        runner's pool. A capture that fails raises, and leaves the card's
+        random-number generator as it found it."""
         graph = torch.cuda.CUDAGraph()
-        # thread_local: the loader threads may touch the CUDA runtime while
-        # this thread captures; only this thread's calls must be capture-safe
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            outputs = fn()
+        try:
+            # thread_local: the loader threads may touch the CUDA runtime
+            # while this thread captures; only this thread's calls must be
+            # capture-safe
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                outputs = fn()
+        except Exception:
+            self._end_generator_capture()
+            raise
         return graph, outputs
+
+    def _end_generator_capture(self) -> None:
+        """torch marks the card's generator as capturing when a capture
+        begins and clears the mark only when a capture ends cleanly; after a
+        failed one, the next eager dropout raises. One capture of a single
+        op that ends cleanly clears it."""
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            torch.zeros(1, device=self.device)

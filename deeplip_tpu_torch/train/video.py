@@ -4,17 +4,20 @@ Counterpart of ``deeplip_tpu/train/video.py: VideoTrainer`` on one device.
 The recipe is the reference's (``train_video.py``): Adam(3e-4, coupled
 weight decay 1e-4) with a CosineAnnealing(T_max=5) schedule stepped per
 *iteration*, cross-entropy over speaker classes, per-epoch checkpoints, and
-an extraction mode that writes ``(1, T, 512)`` per-clip feature arrays
+an extraction mode that writes ``(1, T, D)`` per-clip feature arrays
+(``D`` the trunk's width: 512 for ResNet, 1024 or 2048 for ShuffleNetV2)
 under key ``'data'`` in the reference's ``<out_root>/<spk>/<clip>.npz``
 layout.
 
 A train step ships the uint8 clip batch once and does everything else on
 the device: random crop and flip, the affine, zeroed pad frames, the
-Lipreading forward in train mode (its nine BN+PReLU sites through the fused
-K3/K4 kernels on the card), the masked loss, the backward and the Adam
+Lipreading forward in train mode (its BN+PReLU sites through the fused
+K3/K4 kernels on the card: nine with the ResNet trunk, the frontend's
+alone with the ShuffleNetV2 one), the masked loss, the backward and the Adam
 update. Every path runs in FP32 (no TF32), the precision the reference
 holds its bars in, except the train step under ``compute_dtype='bf16'``:
-its frame path (frontend, max-pool, trunk) runs in bf16 with f32
+its frame path (frontend, max-pool, and the ResNet trunk; the ShuffleNetV2
+trunk stays f32, as the JAX model promotes it) runs in bf16 with f32
 parameters, BN statistics in f32, and the TCN, classifier and loss in
 FP32; extraction stays FP32, as in the JAX package.
 
@@ -241,7 +244,7 @@ class VideoTrainer:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def frame_features(self, clips_u8: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """Eval-mode ``(B, T, 512)`` frame features of a uint8 batch."""
+        """Eval-mode ``(B, T, D)`` frame features of a uint8 batch."""
         self.model.eval()
         with fp32_math():
             x = V.eval_transform(clips_u8, self.crop_size)[..., None]
@@ -256,8 +259,8 @@ class VideoTrainer:
 
     def extract_clip_features(self, batches: VideoClipBatches,
                               out_root: str | None = None) -> dict[str, np.ndarray]:
-        """Per-clip ``(T_valid, 512)`` frame features; with ``out_root``,
-        also saved as ``(1, T, 512)`` arrays in ``<out_root>/<name>.npz``."""
+        """Per-clip ``(T_valid, D)`` frame features; with ``out_root``,
+        also saved as ``(1, T, D)`` arrays in ``<out_root>/<name>.npz``."""
         out = {}
         for batch, (clips, lengths) in self._batches_on_device(batches):
             feats = self.frame_features(clips, lengths).cpu().numpy()
@@ -270,7 +273,7 @@ class VideoTrainer:
         return out
 
     def extract_clip_embeddings(self, batches: VideoClipBatches) -> dict[str, torch.Tensor]:
-        """Per-clip time-mean embeddings ``{name: (512,)}``, reduced on the
+        """Per-clip time-mean embeddings ``{name: (D,)}``, reduced on the
         device over each clip's valid frames; the tensors stay there."""
         out = {}
         for batch, (clips, lengths) in self._batches_on_device(batches):

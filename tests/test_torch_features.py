@@ -174,9 +174,17 @@ def test_cmvn_and_deltas_match():
 @pytest.mark.parametrize("kw", [{"feat_type": "stft"}, {"dft": "matmul_fused"},
                                 {"dft": "matmul_packed"}])
 def test_unported_front_ends_raise(kw):
+    """The front-ends that once raised here now run and match the JAX
+    package's (``tests/test_torch_stft.py`` holds them closely); a name
+    neither package knows still raises."""
     cfg = TF.FeatureConfig(normalize=False, **kw)
+    x = np.random.default_rng(0).standard_normal((1, 4000)).astype(np.float32)
+    got = TF.extract_features(torch.from_numpy(x), cfg).numpy()
+    want = np.asarray(JF.extract_features(jnp.asarray(x), JF.FeatureConfig(normalize=False,
+                                                                           **kw)))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
     with pytest.raises(NotImplementedError):
-        TF.extract_features(torch.zeros(1, 4000), cfg)
+        TF.extract_features(torch.zeros(1, 4000), dataclasses.replace(cfg, dft="bogus"))
 
 
 def test_feature_config_from_config_matches():

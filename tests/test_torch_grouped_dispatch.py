@@ -18,6 +18,7 @@ audio and video trainers, against the JAX package's.
 - The optimizers' device-tensor rate against the float rate.
 """
 
+import contextlib
 import os
 import types
 
@@ -308,6 +309,35 @@ def test_replay_counts_and_state_with_a_stub_graph():
     runner.run({"x": x}, {"rate": rate})
     assert runner.warmup_steps == 3 and len(runner.graphs) == 2
     assert (counters.k1, counters.k3) == (5 + 1 + 3 + 1 + 2, 27 * 12)
+
+
+def test_a_failed_capture_ends_the_generators_capture(monkeypatch):
+    """torch clears the card's generator's capture mark only when a capture
+    ends cleanly; after a capture that raises, the runner ends one more
+    capture, of a single op, so eager dropout works again, and re-raises.
+    The CUDA capture is a recording stand-in here."""
+    events = []
+
+    @contextlib.contextmanager
+    def graph(g, **kwargs):
+        events.append("begin")
+        yield
+        events.append("end")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    runner = dispatch.GroupedSteps(lambda i, inputs, scalars: {}, lambda: [],
+                                   torch.device("cpu"))
+
+    def host_read():
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    with pytest.raises(RuntimeError, match="capturing"):
+        runner._graph_capture(host_read)
+    assert events == ["begin", "begin", "end"]
+    events.clear()
+    assert runner._graph_capture(lambda: {"loss": torch.ones(())})[1]["loss"] == 1
+    assert events == ["begin", "end"]
 
 
 def test_the_trainers_hand_the_runner_their_whole_state():

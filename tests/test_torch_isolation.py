@@ -50,6 +50,10 @@ _PROBE = textwrap.dedent("""
         "deeplip_tpu_torch.interop.torch_export", "deeplip_tpu_torch.cli.export_torch"]
     assert set(dispatch_and_interop) <= set(names), sorted(
         set(dispatch_and_interop) - set(names))
+    variants = [
+        "deeplip_tpu_torch.models.shufflenetv2", "deeplip_tpu_torch.models.audio_resnet",
+        "deeplip_tpu_torch.models.pooling", "deeplip_tpu_torch.models.tcn"]
+    assert set(variants) <= set(names), sorted(set(variants) - set(names))
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0].startswith("jax")
                  or m == "deeplip_tpu" or m.startswith("deeplip_tpu."))
@@ -179,3 +183,25 @@ def test_fusion_and_video_training_entry_points_raise_without_a_card(monkeypatch
     trainer = FusionTrainer(ETDNN_MODEL_OPTS, video_tcn, 2, audio_data_opts=AUDIO_DATA_OPTS,
                             device="cpu")
     assert trainer.device == torch.device("cpu")
+
+
+def test_variant_entry_points_raise_without_a_card(monkeypatch):
+    """The audio ResNet, an attentive pooling, the ``stft`` front-end and the
+    ShuffleNetV2 Lipreading with the depthwise-separable TCN go through the
+    same entry points, on the card unless asked for the CPU."""
+    _no_card(monkeypatch)
+    resnet = Config({"model": {"arch": "resnet", "resnet": {
+        "hidden_dim": [4, 8, 8], "residual_block_layers": [1, 1, 1], "embedding_dim": 8}},
+        "data": {"python_data_config": AUDIO_DATA_OPTS}})
+    attentive = Config({"model": {**ETDNN_MODEL_OPTS, "etdnn": {
+        **ETDNN_MODEL_OPTS["etdnn"], "pooling": "mono_head_attention"}},
+        "data": {"python_data_config": {"rate": 16000, "feat_type": "stft"}}})
+    shufflenet = {"backbone_type": "shufflenet", "width_mult": 0.5, "relu_type": "prelu",
+                  "tcn_kernel_size": [3], "tcn_num_layers": 1, "tcn_dwpw": True}
+    for build in (lambda **kw: AudioExtractor(resnet, **kw),
+                  lambda **kw: AudioTrainer(resnet, n_spk=4, **kw),
+                  lambda **kw: SpeakerVerifier(attentive, **kw),
+                  lambda **kw: VideoTrainer(shufflenet, 4, hidden_dim=8, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        assert build(device="cpu") is not None

@@ -233,10 +233,14 @@ def test_state_dict_equals_export_and_loads_strict(kernel_sizes):
 
 
 def test_shufflenet_trunk_is_refused():
+    """A ShuffleNetV2 trunk entry now carries across
+    (``tests/test_torch_shufflenet.py``); one without its convolutions, or
+    an entry of neither trunk's layout, is refused."""
     _, params, stats = _jax_lipreading((3,), "float32")
-    params = dict(params, trunk={"stage2_unit0": {}})
-    with pytest.raises(NotImplementedError, match="ShuffleNetV2"):
-        lipreading_state_dict(params, stats)
+    with pytest.raises(KeyError):
+        lipreading_state_dict(dict(params, trunk={"stage2_unit0": {}}), stats)
+    with pytest.raises(ValueError, match="ShuffleNetV2"):
+        lipreading_state_dict(dict(params, trunk={"block0": {}}), stats)
 
 
 @pytest.mark.parametrize("kernel_sizes, dtype", [
