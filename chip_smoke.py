@@ -73,10 +73,15 @@ without the package, it exits non-zero and prints no result. Phases:
 9. The frontend max-pool kernels (``csrc/maxpool_kernel.cu``) against their
    plain version (``F.max_pool3d``) at the training step's shape
    (128, 29, 44, 44, 64), one serving chunk's (32, 32, 44, 44, 64), an
-   odd-sized shape and a batch with tied pad frames, f32 and bf16: y
-   bit-equal; dx within 1e-6 of the plain largest (f32), one bf16 step
-   against the f32-computed plain gradient (bf16); NaN propagated. Kernel,
-   plain and library times by CUDA events beside the byte bounds.
+   odd-sized shape, a batch with tied pad frames and the backward's edges
+   (C = 4 and 12, frames of 1 to 3 pixels a side, 70,400 frames, a
+   600-pixel width, 4,096 channels), f32 and bf16: y bit-equal; the
+   positions and dx bit-equal to ``maxpool_positions_reference`` and
+   ``maxpool_backward_reference``; dx within 1e-6 of the plain largest
+   (f32), one bf16 step against the f32-computed plain gradient (bf16);
+   NaN propagated and its window's gradient routed as the plain versions
+   do. Kernel, plain and library times by CUDA events beside the byte
+   bounds, and the backward's share of its bound.
 10. The audio-visual serving path through the user's entry points at the
    full width of ``conf/fusion_config.yaml`` (flagship E-TDNN and
    Lipreading, 2 clips x 32 frames, 88x88 crop; seeded weights with
@@ -1504,10 +1509,19 @@ def bn_prelu_phase(peaks, shapes=BN_SHAPES) -> dict:
 
 # ---------------------------------------------------------------- max-pool
 # (shape, what): the training step's frontend activation, one serving chunk
-# (16 items x 2 clips x 32 frames), an odd-sized frame, and a batch whose
-# pad frames are one constant per channel (every window of them ties)
+# (16 items x 2 clips x 32 frames), an odd-sized frame, a batch with tied pad
+# frames; then the backward's edges: C = 4 and 12 (bf16 takes 4 channels a
+# thread when C % 8 == 4; rows that are not whole 16-byte lines, staged by
+# the threads), frames of 1 to 3 pixels a side, more frames than a grid
+# axis holds (the backward loops over frames past 65,535), and rows too
+# wide (600 pixels) and windows too deep (4,096 channels) for the stage to
+# hold two whole window rows, which it tiles by columns and by channels
 POOL_SHAPES = [((128, 29, 44, 44, 64), "train step"), ((32, 32, 44, 44, 64), "serving chunk"),
-               ((3, 5, 43, 45, 8), "odd sizes"), ((8, 29, 44, 44, 64), "tied pad frames")]
+               ((3, 5, 43, 45, 8), "odd sizes"), ((8, 29, 44, 44, 64), "tied pad frames"),
+               ((4, 6, 44, 44, 4), "4 channels"), ((4, 6, 43, 45, 12), "12 channels")]
+POOL_SHAPES += [((16, 8, h, w, 12), f"{h}x{w} frames") for h in (1, 2, 3) for w in (1, 2, 3)]
+POOL_SHAPES += [((1100, 64, 3, 2, 4), "70,400 frames"), ((2, 3, 9, 600, 64), "wide frames"),
+                ((2, 2, 5, 6, 4096), "4096 channels")]
 POOL_DX_RTOL = 1e-6                      # f32 dx, of the plain version's largest
 POOL_DX_BF16 = (1e-6, 2.0 ** -7)         # bf16 dx: atol, rtol (one bf16 step)
 
@@ -1543,17 +1557,32 @@ def pool_plain_backward(x: torch.Tensor, dy: torch.Tensor):
     return y.detach().to(x.dtype), dx.to(x.dtype)
 
 
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (-0.0 is not 0.0, and a NaN equals its own bits)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints.get(a.dtype, a.dtype)), b.view(ints.get(b.dtype, b.dtype))))
+
+
 def pool_check(x: torch.Tensor, dy: torch.Tensor, what: str) -> float:
-    """Forward bit-equal (with and without the saved positions), backward
-    within its bar, the autograd op equal to the two wrappers. Returns the
-    backward's largest error."""
+    """Forward bit-equal (with and without the saved positions), positions
+    and dx bit-equal to their plain versions, dx within its bar of
+    ``F.max_pool3d``'s autograd, the autograd op equal to the two wrappers.
+    Returns the backward's largest error against the autograd."""
     y, pos = maxpool.maxpool_forward(x, with_pos=True)
     y_only, none = maxpool.maxpool_forward(x)
     y_p, dx_p = pool_plain_backward(x, dy)
     check(none is None and torch.equal(y, y_only), f"{what}: y differs with the positions saved")
     check(y.shape == y_p.shape and torch.equal(y, y_p), f"{what}: y is not bit-equal to "
           f"F.max_pool3d ({int((y != y_p).sum())} elements differ)")
+    pos_p = maxpool.maxpool_positions_reference(x)
+    check(torch.equal(pos, pos_p), f"{what}: pos is not bit-equal to its plain version "
+          f"({int((pos != pos_p).sum())} elements differ)")
     dx = maxpool.maxpool_backward(dy, pos, x.shape)
+    dx_r = maxpool.maxpool_backward_reference(dy, pos, x.shape)
+    check(bit_equal(dx, dx_r), f"{what}: dx is not bit-equal to maxpool_backward_reference "
+          f"(largest difference {float((dx.float() - dx_r.float()).abs().max()):.3e})")
+    del pos_p, dx_r
     if x.dtype == torch.float32:
         big = float(dx_p.abs().max())
         err = float((dx - dx_p).abs().max())
@@ -1570,16 +1599,25 @@ def pool_check(x: torch.Tensor, dy: torch.Tensor, what: str) -> float:
 
 
 def pool_nan_check() -> None:
-    """A NaN tap is the window's maximum, as in ``F.max_pool3d``."""
+    """A NaN tap is the window's maximum, as in ``F.max_pool3d``, and its
+    window's gradient goes to the last NaN, as in the plain versions."""
     x, dy = pool_inputs((2, 3, 12, 12, 8), "nan", torch.float32, 7)
     x[0, 1, 5, 5, 3] = float("nan")
+    x[0, 1, 5, 6, 3] = float("nan")
     x[1, 2, 0, 11, 0] = float("nan")
-    y, _ = maxpool.maxpool_forward(x)
-    y_p = maxpool.maxpool_frontend_reference(x)
-    check(int(torch.isnan(y_p).sum()) >= 3, "the plain pool dropped the planted NaN")
-    check(torch.equal(torch.isnan(y), torch.isnan(y_p))
-          and torch.equal(torch.nan_to_num(y), torch.nan_to_num(y_p)),
-          "the max-pool kernel does not propagate NaN as F.max_pool3d does")
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, dyd = x.to(dtype), dy.to(dtype)
+        y, pos = maxpool.maxpool_forward(xd, with_pos=True)
+        y_p = maxpool.maxpool_frontend_reference(xd)
+        check(int(torch.isnan(y_p).sum()) >= 3, "the plain pool dropped the planted NaN")
+        check(torch.equal(torch.isnan(y), torch.isnan(y_p))
+              and torch.equal(torch.nan_to_num(y), torch.nan_to_num(y_p)),
+              "the max-pool kernel does not propagate NaN as F.max_pool3d does")
+        check(torch.equal(pos, maxpool.maxpool_positions_reference(xd))
+              and bit_equal(maxpool.maxpool_backward(dyd, pos, xd.shape),
+                            maxpool.maxpool_backward_reference(dyd, pos, xd.shape)),
+              f"the max-pool kernels route NaN windows apart from their plain versions "
+              f"({str(dtype)[6:]})")
 
 
 def pool_bounds_ms(shape, itemsize: int, peaks) -> dict:
@@ -1627,12 +1665,15 @@ def maxpool_phase(peaks, shapes=POOL_SHAPES) -> dict:
                 }
                 del pos, xr, y_p, x_ncdhw
                 times.update(pool_bounds_ms(shape, dtype.itemsize, peaks))
+                times["bwd_bound_share"] = times["bwd_bound"] / times["bwd"]
             del x, dy
             torch.cuda.empty_cache()
             rows.append({"shape": list(shape), "dtype": str(dtype)[6:], "what": what,
                          "err_dx": err, **times})
-            log(f"{label}: y bit-equal, dx err {err:.2e}"
-                + ("; ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()) if times else ""))
+            log(f"{label}: y, pos and dx bit-equal to the plain versions, dx err {err:.2e}"
+                + ("; ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()
+                                       if k != "bwd_bound_share")
+                   + f"; bwd at {times['bwd_bound_share']:.1%} of its bound" if times else ""))
     return {"rows": rows}
 
 
@@ -4068,6 +4109,10 @@ def pool_entry(pool: dict, av: dict, video: dict) -> dict:
     backward and every other timed shape beside it."""
     rows = [r for r in pool["rows"] if "fwd" in r]
     serve = next(r for r in rows if r["what"] == "serving chunk" and r["dtype"] == "float32")
+    backward = {r["dtype"]: {
+        "shape": r["shape"], "ms": r["bwd"], "plain_ms": r["bwd_plain"], "bound_ms": r["bwd_bound"],
+        "bound_by": "bytes", "bound_share": r["bwd_bound_share"]}
+        for r in rows if r["what"] == "train step"}
     return {
         "name": "maxpool_frontend",
         "route": "cuda",
@@ -4088,6 +4133,9 @@ def pool_entry(pool: dict, av: dict, video: dict) -> dict:
                         "version; fwd_library_contiguous is the same call on a contiguous "
                         "NCDHW copy; bwd_plain is its autograd backward",
         "per": "one AV serving chunk: 16 items x 2 clips x 32 frames, f32, forward only",
+        "backward_train_step": backward,
+        "backward_note": "the backward at the training step's shape; plain_ms is "
+                         "F.max_pool3d's autograd backward, the one library call for it",
         "shapes": rows,
     }
 

@@ -16,6 +16,12 @@ lipreading.py:158-161``): the kernel that the JAX package's
 - :func:`maxpool_frontend` is the op the model calls. On a CUDA tensor it is
   an autograd function over the two kernels, in extraction, serving and
   training alike; it saves only ``pos`` for the backward.
+- :func:`maxpool_positions_reference` and :func:`maxpool_backward_reference`
+  are the plain versions of what the two kernels compute, ``pos`` and
+  ``dx`` from ``(dy, pos)`` in the kernel's order of additions; the card's
+  checks hold the kernels to them bit for bit. ``BWD_THREADS``,
+  ``BWD_ROWS``, ``BWD_STAGE_BYTES`` and :func:`backward_lanes` are the
+  backward kernel's tiling constants and its channels a thread.
 
 On a CUDA tensor each wrapper launches its kernel on the current stream, or
 raises: f32 or bf16, contiguous in ``(N, T, H, W, C)`` order, ``C`` a
@@ -35,6 +41,12 @@ import torch.nn.functional as F
 from deeplip_tpu_torch.ops.cuda import build
 
 _KERNEL_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernel's tiling (csrc/maxpool_kernel.cu): kBwdThreads, the
+# most threads of a block; kBwdRows, the most window rows of a tile;
+# kBwdStageBytes, the shared memory that stages a tile's windows
+BWD_THREADS = 256
+BWD_ROWS = 2
+BWD_STAGE_BYTES = 48 * 1024 - 32
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P]
 
@@ -52,10 +64,70 @@ def pooled_size(n: int) -> int:
     return (n - 1) // 2 + 1
 
 
+def backward_lanes(dtype: torch.dtype, c: int) -> int:
+    """Channels one backward thread owns: 16 bytes, so 4 f32 or 8 bf16;
+    bf16 takes 4 when ``c % 8 == 4``, where every other staged window
+    starts 8 bytes off a 16-byte line."""
+    return 8 if dtype == torch.bfloat16 and c % 8 == 0 else 4
+
+
 def maxpool_frontend_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``F.max_pool3d`` on the ``(N, C, T, H, W)``
     view of a channels-last ``(N, T, H, W, C)`` activation."""
     return F.max_pool3d(x.movedim(-1, 1), (1, 3, 3), (1, 2, 2), (0, 1, 1)).movedim(1, -1)
+
+
+def maxpool_positions_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the forward kernel's ``pos``: for each output
+    element the row-major window position (0..8) of its first maximum among
+    the taps inside the frame, where a NaN tap takes over from whatever came
+    before it (``F.max_pool3d``'s rule: greater than the maximum so far, or
+    NaN)."""
+    n, t, h, w, c = x.shape
+    ho, wo = pooled_size(h), pooled_size(w)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))   # tap (di, dj) of window (i, j) is xp[2i+di, 2j+dj]
+    rows = torch.arange(ho, device=x.device) * 2 - 1   # each window's first pixel row
+    cols = torch.arange(wo, device=x.device) * 2 - 1
+    best = seen = at = None
+    for k in range(9):
+        di, dj = divmod(k, 3)
+        r, cc = rows + di, cols + dj
+        inside = (((r >= 0) & (r < h))[:, None] & ((cc >= 0) & (cc < w))[None, :])[:, :, None]
+        v = xp[:, :, di:di + 2 * ho:2, dj:dj + 2 * wo:2]
+        if best is None:
+            best = v
+            at = torch.zeros(v.shape, dtype=torch.uint8, device=x.device)
+            seen = torch.zeros_like(inside)
+        take = inside & (~seen | (v > best) | torch.isnan(v))
+        best = torch.where(take, v, best)
+        at = at.masked_fill(take, k)
+        seen = seen | inside
+    return at
+
+
+def maxpool_backward_reference(dy: torch.Tensor, pos: torch.Tensor, in_shape) -> torch.Tensor:
+    """Plain version of the backward kernel: ``dx`` of ``in_shape`` from
+    ``dy`` and the forward's ``pos``. Pixel ``(2i+r, 2j+s)`` is ``0.f``
+    plus the ``dy`` of windows ``(i, j)``, ``(i, j+1)``, ``(i+1, j)``,
+    ``(i+1, j+1)`` (those that hold it) whose position is the pixel, added
+    in that order in f32 and rounded once to ``dy``'s type."""
+    n, t, h, w, c = in_shape
+    ho, wo = pooled_size(h), pooled_size(w)
+    g = F.pad(dy.float(), (0, 0, 0, 1, 0, 1))           # one window past each edge,
+    p = F.pad(pos, (0, 0, 0, 1, 0, 1), value=255)       # whose position matches no tap
+    dx = torch.empty((n, t, 2 * ho, 2 * wo, c), dtype=torch.float32, device=dy.device)
+    for r in (0, 1):
+        for s in (0, 1):
+            acc = torch.zeros((n, t, ho, wo, c), dtype=torch.float32, device=dy.device)
+            for oi in range(r + 1):
+                for oj in range(s + 1):
+                    tap = (r - 2 * oi + 1) * 3 + (s - 2 * oj + 1)
+                    hit = p[:, :, oi:oi + ho, oj:oj + wo] == tap
+                    # adding 0.0 for a miss is skipping it: a sum from 0.f
+                    # is never -0.0
+                    acc = acc + torch.where(hit, g[:, :, oi:oi + ho, oj:oj + wo], 0.0)
+            dx[:, :, r::2, s::2] = acc
+    return dx[:, :, :h, :w].to(dy.dtype)
 
 
 def _check_cuda(x: torch.Tensor, what: str) -> None:
