@@ -212,7 +212,35 @@ without the package, it exits non-zero and prints no result. Phases:
    ragged 256 x 1-3 s batch against float64 (1e-4), its time beside K1's
    MFCC time, and one E-TDNN extraction batch at 257 features.
 
-The phases run in the order 1-5, 11, 6, 9, 7, 8, 10, 12, 13, 14, 15. The last line is
+16. Kaldi features and host I/O. (a) The native IO library
+   (``deeplip_tpu_torch/native/wavio.cpp``, built by g++ beside nvcc in
+   phase 2, its wall time logged) reads every wav of phase 11's corpus
+   (``read_wav``, ``read_wav_batch_i16``) bit-equal to the stdlib readers
+   and every clip of phase 7's (``read_npy_batch``, ``probe_npy_shapes``)
+   bit-equal to ``np.load``. (b) One epoch of ``conf/audio_config.yaml``
+   with its default ``loader: native``, every batch bit-equal to ``loader:
+   python``'s, K1 once a step. (c) MFCC-24 with CMVN over each utterance,
+   computed by K1 on the card for the 1,024 training utterances, written
+   as a Kaldi ark/scp (``interop/kaldi.py``) and read back bit-equal; the
+   config with ``data_format: kaldi`` trained for 2 epochs (128 speakers,
+   ``net_1``/``net_2``, finite losses, no front-end launch). From one
+   state, f32: a step on a batch of crops' features read back from an ark
+   against the PCM step on those crops (loss 1e-5 relative, gradients 3x a
+   1e-6 nudge of the PCM); the Kaldi and the PCM bf16 steps timed at bs 256
+   x 200/300/400. (d) Each host pipeline alone, in batches/s on the card
+   machine's host (median of 3 passes of 8 batches, with the spread), beside
+   the rate of the step it feeds: ``AudioTrainPipeline`` with the stdlib and
+   the native reader, ``KaldiTrainPipeline``, ``VideoClipBatches`` with the
+   native reader and with ``np.load``. (e) FLOPs of the bf16 Kaldi and PCM
+   steps at bs 256 x 300 by ``FlopCounterMode``, within 10 % of the hand
+   count (``tdnn_train_flops``), their TFLOP/s and MFU against the H100's
+   dense bf16 peak (``train/flops.py``). (f) Phase 4's embeddings through
+   ``EmbeddingStore.save_kaldi``, ``cli/kaldi_xv.py`` ``from-kaldi`` and
+   ``to-kaldi`` and ``load_kaldi``, bit-equal; the Kaldi run's TensorBoard
+   file parsed with every record's CRC checked, its losses the JSON
+   records'.
+
+The phases run in the order 1-5, 11, 6, 9, 7, 8, 10, 12, 13, 14, 15, 16. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the ``kernels``
 JSON record.
 """
@@ -224,10 +252,12 @@ import copy
 import dataclasses
 import gc
 import glob
+import itertools
 import json
 import math
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -240,7 +270,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from deeplip_tpu_torch import native  # noqa: E402
 from deeplip_tpu_torch.cli import export_torch as export_torch_cli  # noqa: E402
+from deeplip_tpu_torch.cli import kaldi_xv as kaldi_xv_cli  # noqa: E402
 from deeplip_tpu_torch.cli import train_audio as train_audio_cli  # noqa: E402
 from deeplip_tpu_torch.cli.common import utterances_from_trials  # noqa: E402
 from deeplip_tpu_torch.cli import train_fusion as train_fusion_cli  # noqa: E402
@@ -249,13 +281,15 @@ from deeplip_tpu_torch.cli import verify as verify_cli  # noqa: E402
 from deeplip_tpu_torch.cli.train_fusion import build_video_map, make_trainer  # noqa: E402
 from deeplip_tpu_torch.core.config import (AUDIO_DATA_OPTS, ETDNN_MODEL_OPTS, Config,  # noqa: E402
                                            load_audio_config, load_fusion_config)
-from deeplip_tpu_torch.data.audio_io import read_wav, write_wav  # noqa: E402
+from deeplip_tpu_torch.data.audio_io import read_wav, read_wav_int16, write_wav  # noqa: E402
 from deeplip_tpu_torch.data.fusion_pipeline import AVTrainPipeline  # noqa: E402
 from deeplip_tpu_torch.data.audio_pipeline import (EvalUtterance,  # noqa: E402
                                                    EvalUtteranceSet,
                                                    eval_set_kwargs)
-from deeplip_tpu_torch.data.manifest import Utterance, write_manifest  # noqa: E402
-from deeplip_tpu_torch.eval.scoring import cosine_scores  # noqa: E402
+from deeplip_tpu_torch.data.kaldi_dataset import KaldiTrainPipeline  # noqa: E402
+from deeplip_tpu_torch.data.manifest import SpeakerManifest, Utterance, write_manifest  # noqa: E402
+from deeplip_tpu_torch.eval.scoring import EmbeddingStore, cosine_scores  # noqa: E402
+from deeplip_tpu_torch.interop.kaldi import read_scp, write_ark_scp  # noqa: E402
 from deeplip_tpu_torch.losses import softmax as softmax_losses  # noqa: E402
 from deeplip_tpu_torch.ops import features as F  # noqa: E402
 from deeplip_tpu_torch.ops import spectral  # noqa: E402
@@ -270,7 +304,7 @@ from deeplip_tpu_torch.models.norm import TorchBatchNorm  # noqa: E402
 from deeplip_tpu_torch.models.resnet import conv_nhwc  # noqa: E402
 from deeplip_tpu_torch.serve import AVSpeakerVerifier, MicroBatcher, SpeakerVerifier  # noqa: E402
 from deeplip_tpu_torch.train import checkpoint as ckpt  # noqa: E402
-from deeplip_tpu_torch.train import dispatch  # noqa: E402
+from deeplip_tpu_torch.train import dispatch, flops, tb_events  # noqa: E402
 from deeplip_tpu_torch.train.audio import (AudioExtractor, AudioTrainer, fp32_math,  # noqa: E402
                                            masked_cmvn)
 from deeplip_tpu_torch.train import fusion as fusion_mod  # noqa: E402
@@ -285,14 +319,10 @@ ATOL, RTOL = 2e-4, 1e-3          # kernel vs plain (tests/test_pallas_features.p
 EMB_TOL = 1e-4                   # kernel-path vs plain-path embeddings
 LOMGRID_UTTS, LOMGRID_TRIALS, BATCH, SECONDS, RATE = 3541, 20000, 256, 3.0, 16000
 
-# Published dense peaks from NVIDIA's H100 data sheets (SXM, PCIe and NVL
-# parts): FP32 on CUDA cores, TF32 on tensor cores, HBM bytes/s. They assume
-# the part's full power limit.
-PEAKS = {
-    "sxm": (67e12, 495e12, 3.35e12),
-    "pcie": (51e12, 378e12, 2.0e12),
-    "nvl": (60e12, 418e12, 3.9e12),
-}
+# The published dense peaks of the H100's parts (``train/flops.py``, from
+# NVIDIA's data sheets): FP32 on CUDA cores, TF32 on tensor cores, HBM
+# bytes/s, at the part's full power limit.
+PEAKS = {part: (p["fp32"], p["tf32"], p["hbm"]) for part, p in flops.H100_PEAKS.items()}
 
 
 class SmokeFailure(RuntimeError):
@@ -309,7 +339,7 @@ def log(msg: str) -> None:
 
 
 def card_peaks(name: str) -> tuple[str, tuple[float, float, float]]:
-    part = "pcie" if "PCIe" in name else "nvl" if "NVL" in name else "sxm"
+    part = flops.h100_part(name) or "sxm"
     return part, PEAKS[part]
 
 
@@ -443,14 +473,27 @@ def device_phase() -> dict:
 
 
 # ---------------------------------------------------------------- phase 2
-def build_phase() -> None:
+def build_phase() -> float:
+    """Build the kernels and, beside them, the native IO library
+    (``deeplip_tpu_torch/native/wavio.cpp``, g++); returns the native
+    build's wall seconds."""
+    def build_native():
+        t0 = time.perf_counter()
+        native.build()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    reports = build.build()
-    log(f"build: {sorted(reports) or 'cached'} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(build_native)
+        reports = build.build()
+        native_s = native_build.result()
+    log(f"build: {sorted(reports) or 'cached'} in {time.perf_counter() - t0:.1f} s; the "
+        f"native IO library ({native.library_path().name}) in {native_s:.2f} s")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    return native_s
 
 
 # ---------------------------------------------------------------- phase 3
@@ -849,7 +892,7 @@ def main_path_phase() -> dict:
     log(f"plain front-end re-embed: max abs err {emb_err:.3e} (bar {EMB_TOL}); "
         f"features {feat_err:.3e}")
     return {"launches": launches, "emb_err": emb_err, "feat_err": feat_err,
-            "eer": eer, "extractor": extractor}
+            "eer": eer, "extractor": extractor, "store": store}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -4064,6 +4107,462 @@ def variants_phase(smi: str, peaks, device=None) -> dict:
             "wall_s": wall}
 
 
+# ---------------------------------------------------------------- phase 16
+KALDI_EPOCHS = 2
+KALDI_LOG_EVERY = 2               # the Kaldi run logs every 2nd step: its TensorBoard file holds losses
+KALDI_STEP_LOSS_RTOL = 1e-5       # a Kaldi-feature step vs the PCM step on the same crops, f32
+MFU_FLOPS_RTOL = 0.10             # FlopCounterMode's count vs the hand count
+HOST_PASSES = 3                   # passes of each host pipeline, timed alone
+HOST_BATCHES = 8                  # batches a pass
+
+
+def tdnn_train_flops(model, batch: int, frames: int) -> float:
+    """Hand count of one E-TDNN train step's matrix work: the forward
+    (:func:`tdnn_flops`), the weight gradients and the input gradients (each
+    as large as the forward), less the first layer's input gradient, which
+    no step needs (its input, the features, takes no gradient)."""
+    conv = model.tdnn[0].context_layer
+    t = frames - (conv.kernel_size[0] - 1) * conv.dilation[0]
+    first = 2.0 * batch * t * conv.in_channels * conv.out_channels * conv.kernel_size[0]
+    return 3.0 * tdnn_flops(model, batch, frames) - first
+
+
+def _read_varint(buf: bytes, i: int) -> tuple[int, int]:
+    shift = value = 0
+    while True:
+        b = buf[i]
+        i += 1
+        value |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return value, i
+
+
+def _proto_fields(buf: bytes):
+    """``(field, wire type, value)`` of a serialised protobuf message."""
+    i = 0
+    while i < len(buf):
+        key, i = _read_varint(buf, i)
+        wire = key & 7
+        if wire == 0:
+            value, i = _read_varint(buf, i)
+        elif wire == 1:
+            value, i = buf[i:i + 8], i + 8
+        elif wire == 2:
+            n, i = _read_varint(buf, i)
+            value, i = buf[i:i + n], i + n
+        elif wire == 5:
+            value, i = buf[i:i + 4], i + 4
+        else:
+            raise SmokeFailure(f"protobuf wire type {wire} in an event record")
+        yield key >> 3, wire, value
+
+
+def read_tb_scalars(path: str) -> list:
+    """Every record of a TensorBoard event file, each length's and payload's
+    masked CRC32C checked: ``(step, {tag: value})`` per event."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    out, i = [], 0
+    while i < len(data):
+        check(len(data) - i >= 16, f"{path}: a record cut short at byte {i}")
+        header = data[i:i + 8]
+        (n,) = struct.unpack("<Q", header)
+        check(struct.unpack("<I", data[i + 8:i + 12])[0] == tb_events._masked_crc(header),
+              f"{path}: the length CRC of the record at byte {i}")
+        payload = data[i + 12:i + 12 + n]
+        check(len(payload) == n and data[i + 12 + n:i + 16 + n]
+              == struct.pack("<I", tb_events._masked_crc(payload)),
+              f"{path}: the payload CRC of the record at byte {i}")
+        i += 16 + n
+        step, scalars = 0, {}
+        for num, wire, value in _proto_fields(payload):
+            if num == 2 and wire == 0:
+                step = value
+            elif num == 5 and wire == 2:
+                for _, _, entry in _proto_fields(value):
+                    fields = {f: v for f, _, v in _proto_fields(entry)}
+                    scalars[fields[1].decode()] = struct.unpack("<f", fields[2])[0]
+        out.append((step, scalars))
+    return out
+
+
+def native_parity(root: str, clip_root: str) -> dict:
+    """The native readers against the stdlib and ``np.load``, bit for bit,
+    on every wav of phase 11's corpus and every clip of phase 7's."""
+    check(native.available() and native.npy_available(),
+          "the native IO library did not build (deeplip_tpu_torch/native/wavio.cpp)")
+    paths = sorted(glob.glob(os.path.join(root, "s*", "*.wav")))
+    for p in paths:
+        got, rate = native.read_wav(p)
+        want, want_rate = read_wav(p)
+        check(rate == want_rate and got.dtype == want.dtype and np.array_equal(got, want),
+              f"native.read_wav({p}) differs from the stdlib reader")
+    lengths = [native.wav_info(p)[2] for p in paths]
+    flat, offsets, wrote, _ = native.read_wav_batch_i16(paths, [0] * len(paths), lengths,
+                                                        lengths, n_threads=8)
+    for p, off, n in zip(paths, offsets, wrote):
+        want, _ = read_wav_int16(p)
+        check(n == len(want) and np.array_equal(flat[off:off + n], want),
+              f"read_wav_batch_i16 differs from read_wav_int16 on {p}")
+    clips = sorted(glob.glob(os.path.join(clip_root, "*", "*.npz")))
+    arrays = native.read_npy_batch(clips, n_threads=8)
+    shapes = native.probe_npy_shapes(clips, n_threads=8)
+    for p, got, (shape, dtype) in zip(clips, arrays, shapes, strict=True):
+        want = np.load(p)["data"]
+        check(got.dtype == want.dtype == dtype and got.shape == want.shape == shape
+              and np.array_equal(got, want), f"read_npy_batch differs from np.load on {p}")
+    return {"wavs": len(paths), "wav_samples": int(sum(lengths)), "clips": len(clips)}
+
+
+def native_loader_epoch(root: str, manifest: str, trials: str, device=None) -> dict:
+    """One epoch of ``conf/audio_config.yaml`` with the default ``loader:
+    native``, its batches bit-equal to ``loader: python``'s; K1 once a step."""
+    cfg = load_audio_config(AUDIO_CONFIG_PATH).to_dict()
+    cfg["data"].update(train_manifest=manifest, test_root=root, trial_grid=trials)
+    check("loader" not in cfg["train"], "the shipped config names a loader")
+    trainer = AudioTrainer(Config(cfg), device=device, exp_root=os.path.join(root, "exp"),
+                           log_time="native")
+    cfg["train"]["loader"] = "python"
+    stdlib = AudioTrainer(Config(cfg), device=device, exp_root=os.path.join(root, "exp"),
+                          log_time="python")
+    check(trainer.pipeline.reader is native.read_wav and stdlib.pipeline.reader is read_wav,
+          "loader: native did not pick the native reader")
+    check(trainer.compute_dtype == torch.bfloat16 and trainer.batch_size == BATCH
+          and len(trainer.pipeline.sampler.buckets) == 11
+          and trainer.pipeline._resolve_transport() == "int16",
+          "the trainer did not take conf/audio_config.yaml's recipe")
+    batches = 0
+    for a, b in zip(trainer.pipeline.epoch(1), stdlib.pipeline.epoch(1), strict=True):
+        check(a["n_frames"] == b["n_frames"] and a["pcm"].dtype == b["pcm"].dtype
+              and np.array_equal(a["pcm"], b["pcm"]) and np.array_equal(a["labels"], b["labels"]),
+              f"batch {batches}: loader native and loader python differ")
+        batches += 1
+    zero_fbank_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train(epochs=1)
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = fbank_counts()
+    check(trainer.step == batches and counts == {"fft": batches, "dft": 0},
+          f"front-end launches {counts} for {trainer.step} native-loader steps")
+    check(all(math.isfinite(v) for v in losses), f"native-loader losses {losses}")
+    return {"steps": trainer.step, "batches_equal": batches, "launches": counts,
+            "losses": losses, "wall_s": wall, "trainer": trainer, "stdlib": stdlib}
+
+
+def write_kaldi_features(root: str, manifest: str, feat_cfg, device) -> tuple[str, str, int]:
+    """MFCC-24 of every training utterance by the port's front-end (K1 on
+    the card) with CMVN over each utterance, written by ``interop.kaldi``
+    as one ark/scp with a spk2utt, and read back bit-equal. Returns the
+    spk2utt's and the scp's paths and the front-end launches."""
+    speakers = SpeakerManifest.load(manifest).speakers
+    items = [(f"s{s:03d}-u{u}", utt.path) for s, spk in enumerate(speakers)
+             for u, utt in enumerate(spk)]
+    cfg = dataclasses.replace(feat_cfg, normalize=False, delta=False)
+    zero_fbank_counts()
+    table = {}
+    for i in range(0, len(items), 64):
+        chunk = items[i:i + 64]
+        pcms = [read_wav_int16(path)[0] for _, path in chunk]
+        pcm = np.zeros((len(pcms), max(map(len, pcms))), np.int16)
+        for row, y in enumerate(pcms):
+            pcm[row, :len(y)] = y
+        slen = torch.tensor([len(y) for y in pcms], dtype=torch.int32, device=device)
+        flen = torch.tensor([num_frames(len(y), cfg.frame_len, cfg.frame_step) for y in pcms],
+                            dtype=torch.int32, device=device)
+        with torch.no_grad(), fp32_math():
+            x = torch.from_numpy(pcm).to(device).float() / 32768.0
+            feats = masked_cmvn(F.extract_features(x, cfg, sample_lengths=slen), flen)
+        feats = feats.cpu().numpy()
+        for row, (name, _) in enumerate(chunk):
+            table[name] = feats[row, :int(flen[row])]
+    launches = fbank_counts()
+    ark, scp = os.path.join(root, "feats.ark"), os.path.join(root, "feats.scp")
+    write_ark_scp(table, ark, scp)
+    spk2utt = os.path.join(root, "spk2utt")
+    with open(spk2utt, "w") as fh:
+        for s, spk in enumerate(speakers):
+            fh.write(f"spk{s:03d} " + " ".join(f"s{s:03d}-u{u}" for u in range(len(spk))) + "\n")
+    back = list(read_scp(scp))
+    check([u for u, _ in back] == list(table)
+          and all(np.array_equal(a, table[u]) for u, a in back),
+          "the ark's features do not read back bit-equal")
+    check(launches == {"fft": -(-len(items) // 64), "dft": 0},
+          f"front-end launches {launches} for the ark's {len(items)} utterances")
+    return spk2utt, scp, launches["fft"]
+
+
+def kaldi_train(root: str, spk2utt: str, scp: str, device=None) -> dict:
+    """``conf/audio_config.yaml`` with ``data_format: kaldi`` for
+    ``KALDI_EPOCHS`` epochs: no front-end launch."""
+    cfg = load_audio_config(AUDIO_CONFIG_PATH).to_dict()
+    cfg["data"].update(data_format="kaldi", kaldi_data_config={
+        "trainset": {"nn_spk2utt": spk2utt, "nn_feat_scp": scp}})
+    cfg["train"].update(epoch=KALDI_EPOCHS, log_every=KALDI_LOG_EVERY)
+    trainer = AudioTrainer(Config(cfg), device=device, exp_root=os.path.join(root, "exp"),
+                           log_time="kaldi")
+    check(trainer.n_spk == TRAIN_SPEAKERS and trainer.manifest is None
+          and isinstance(trainer.pipeline, KaldiTrainPipeline)
+          and trainer.compute_dtype == torch.bfloat16 and trainer.batch_size == BATCH,
+          f"the Kaldi trainer: {trainer.n_spk} speakers, pipeline {type(trainer.pipeline)}")
+    zero_fbank_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train()
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = fbank_counts()
+    bpe = trainer.pipeline.batches_per_epoch()
+    check(counts == {"fft": 0, "dft": 0}, f"the Kaldi steps launched the front-end: {counts}")
+    check(trainer.step == len(losses) == KALDI_EPOCHS * bpe
+          and all(math.isfinite(v) for v in losses), f"Kaldi losses {losses}")
+    for tag in (f"net_{e}" for e in range(1, KALDI_EPOCHS + 1)):
+        check(os.path.exists(os.path.join(trainer.exp_dir, tag)), f"no {tag} written")
+    return {"trainer": trainer, "steps": trainer.step, "batches_per_epoch": bpe,
+            "launches": counts, "losses": losses, "wall_s": wall}
+
+
+def kaldi_step_check(trainer, pcm_pipeline, root: str, smi: str) -> dict:
+    """From one state, f32: a step on a batch of crops' features read back
+    from an ark against the PCM step on the same crops (loss
+    ``KALDI_STEP_LOSS_RTOL``, gradients within ``NUDGE_FACTOR`` x what a
+    ``NUDGE`` of the PCM moves the PCM step); then the bf16 steps of both
+    kinds timed at ``STEP_FRAMES``, and their FLOPs counted at 300 frames."""
+    dev, margin, cfg = trainer.device, trainer.init_margin, trainer.feat_cfg
+    sids = next(pcm_pipeline.sampler.epoch(1))[0]
+    batches = {n: pcm_pipeline._assemble(sids, n, (7, n)) for n in STEP_FRAMES}
+    labels = torch.from_numpy(batches[300]["labels"]).to(dev)
+    params = [(f"model.{n}", p) for n, p in trainer.model.named_parameters()] + [
+        (f"criterion.{n}", p) for n, p in trainer.criterion.named_parameters()]
+    state = (copy.deepcopy(trainer.model.state_dict()),
+             copy.deepcopy(trainer.criterion.state_dict()),
+             copy.deepcopy(trainer.optimizer.state_dict()), trainer.step)
+    configured = trainer.compute_dtype
+
+    def restore():
+        trainer.model.load_state_dict(state[0])
+        trainer.criterion.load_state_dict(state[1])
+        trainer.optimizer.load_state_dict(state[2])
+        trainer.step = state[3]
+        trainer.compute_dtype = configured
+
+    def step(fn):
+        """One f32 step from ``state``: its loss and gradients."""
+        trainer.compute_dtype = None
+        loss = float(fn()["loss"])
+        grads = {n: p.grad.detach().clone() for n, p in params}
+        restore()
+        return loss, grads
+
+    def crop_features(pcm16):
+        # the PCM step's own features: K1, then CMVN over each crop
+        with torch.no_grad(), fp32_math():
+            return F.extract_features(pcm16.float() / 32768.0, cfg)
+
+    pcm16 = {n: torch.from_numpy(b["pcm"]).to(dev) for n, b in batches.items()}
+    feats = crop_features(pcm16[300])
+    ark, scp = os.path.join(root, "crops.ark"), os.path.join(root, "crops.scp")
+    host = feats.cpu().numpy()
+    write_ark_scp({f"crop{i}": host[i] for i in range(len(host))}, ark, scp)
+    back = np.stack([a for _, a in read_scp(scp)])
+    check(np.array_equal(back, host), "the crops' features do not read back bit-equal")
+    feats_back = torch.from_numpy(back).to(dev)
+    pcm = pcm16[300].float() / 32768.0
+    gen = torch.Generator(device=dev).manual_seed(3)
+    nudged = pcm * (1.0 + NUDGE * torch.randn(pcm.shape, generator=gen, device=dev))
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        loss_p, grads_p = step(lambda: trainer.train_step(pcm, labels, margin))
+        loss_f, grads_f = step(lambda: trainer.train_step_feats(feats_back, labels, margin))
+        loss_n, grads_n = step(lambda: trainer.train_step(nudged, labels, margin))
+    rel = abs(loss_f - loss_p) / abs(loss_p)
+    d_fp, d_np = grad_distance(grads_f, grads_p), grad_distance(grads_n, grads_p)
+    del grads_p, grads_f, grads_n
+    log(f"Kaldi step vs PCM step at bs {BATCH} x 300 (f32, TF32 off, cuDNN deterministic; "
+        f"the crops' features through an ark and back): loss {loss_f:.8f} vs {loss_p:.8f} "
+        f"({rel:.2e} relative, bar {KALDI_STEP_LOSS_RTOL}); gradient distance {d_fp:.3e}, "
+        f"the PCM nudged by {NUDGE} {d_np:.3e} (bar {NUDGE_FACTOR} x that)")
+    check(rel <= KALDI_STEP_LOSS_RTOL, f"Kaldi-step loss {loss_f} vs PCM step {loss_p}: "
+          f"{rel:.3e} relative, bar {KALDI_STEP_LOSS_RTOL}")
+    check(d_fp <= NUDGE_FACTOR * d_np, f"Kaldi-step gradients {d_fp:.3e} from the PCM step; "
+          f"a {NUDGE} nudge moves them {d_np:.3e}; bar {NUDGE_FACTOR} x that")
+
+    rows = []
+    for n in STEP_FRAMES:
+        x = crop_features(pcm16[n])
+        for kind, fn in (("kaldi", lambda: trainer.train_step_feats(x, labels, margin)),
+                         ("pcm", lambda: trainer.train_step(pcm16[n], labels, margin))):
+            trainer.compute_dtype = torch.bfloat16
+            ms = time_ms(fn, iters=5, warmup=2)
+            rows.append({"n_frames": n, "kind": kind, "dtype": "bf16", "step_ms": ms,
+                         "crops_per_sec": BATCH / ms * 1e3})
+        restore()
+    for n in STEP_FRAMES:
+        k, p = (next(r for r in rows if r["n_frames"] == n and r["kind"] == kind)
+                for kind in ("kaldi", "pcm"))
+        log(f"bf16 train step at bs {BATCH} x {n}: Kaldi features {k['step_ms']:.2f} ms "
+            f"({k['crops_per_sec']:.1f} crops/s), PCM with K1 {p['step_ms']:.2f} ms "
+            f"({p['crops_per_sec']:.1f} crops/s) [{smi}]")
+
+    hand = tdnn_train_flops(trainer.model, BATCH, 300)
+    mfu = {}
+    x = crop_features(pcm16[300])
+    for kind, fn in (("kaldi", lambda: trainer.train_step_feats(x, labels, margin)),
+                     ("pcm", lambda: trainer.train_step(pcm16[300], labels, margin))):
+        trainer.compute_dtype = torch.bfloat16
+        counted = flops.counted_flops(fn)
+        restore()
+        ms = next(r["step_ms"] for r in rows if r["n_frames"] == 300 and r["kind"] == kind)
+        gap = abs(counted - hand) / hand
+        mfu[kind] = {"flops": counted, "hand_flops": hand, "flops_gap": gap, "step_ms": ms,
+                     **flops.mfu_fields(counted, 1e3 / ms, device=dev)}
+        check(gap <= MFU_FLOPS_RTOL, f"{kind} step: FlopCounterMode counts {counted:.4e}, the "
+              f"hand count {hand:.4e} ({gap:.2%} apart, bar {MFU_FLOPS_RTOL:.0%})")
+    log(f"MFU at bs {BATCH} x 300, bf16, against the dense bf16 peak of "
+        f"{flops.peak_flops_per_sec(dev)} FLOP/s: " + ", ".join(
+            f"{k} {v['flops'] / 1e9:.1f} GFLOP a step (hand count {v['hand_flops'] / 1e9:.1f}, "
+            f"{v['flops_gap']:.2%} apart) in {v['step_ms']:.2f} ms = "
+            f"{v.get('tflops_per_sec')} TFLOP/s, MFU {v.get('mfu')}" for k, v in mfu.items())
+        + f" [{smi}]")
+    return {"loss_rel": rel, "grad_distance": d_fp, "nudge_distance": d_np,
+            "losses": {"pcm": loss_p, "kaldi": loss_f, "nudged": loss_n},
+            "timings": rows, "mfu": mfu}
+
+
+@contextlib.contextmanager
+def numpy_clip_reader():
+    """Clips read by ``np.load``, as on a host without the native library."""
+    available = native.npy_available
+    native.npy_available = lambda: False
+    try:
+        yield
+    finally:
+        native.npy_available = available
+
+
+def host_rate(batches) -> dict:
+    """Batches/s of a host pipeline alone: ``HOST_PASSES`` passes of
+    ``HOST_BATCHES`` batches from ``batches()`` (an iterator over epochs),
+    each timed on the host's clock; the median and the spread."""
+    rates = []
+    for _ in range(HOST_PASSES):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in itertools.islice(batches(), HOST_BATCHES))
+        rates.append(n / (time.perf_counter() - t0))
+    return {"batches_per_sec": median(rates), "min": min(rates), "max": max(rates),
+            "passes": rates, "batches": n}
+
+
+def epochs_of(pipeline, first: int = 1):
+    return lambda: itertools.chain.from_iterable(pipeline.epoch(e) for e in itertools.count(first))
+
+
+def host_rates(loader: dict, kaldi, clip_root: str, step_ms: dict, smi: str) -> dict:
+    """Each host pipeline alone, in batches/s on the card machine's host,
+    beside the rate of the step it feeds (1 / step time); a pipeline slower
+    than its step bounds the trainer."""
+    clips = scan_clip_dir(clip_root)
+    video = VideoClipBatches(clips, batch_size=VIDEO_BATCH, bucket_t=8, shuffle=True)
+    rows = {}
+    for name, batches, feeds in (
+            ("audio_stdlib", epochs_of(loader["stdlib"].pipeline), "audio_bf16_300"),
+            ("audio_native", epochs_of(loader["trainer"].pipeline), "audio_bf16_300"),
+            ("kaldi", epochs_of(kaldi.pipeline), "kaldi_bf16_300"),
+            ("video_native", epochs_of(video, 0), "video_bf16")):
+        rows[name] = {**host_rate(batches), "feeds": feeds}
+    with numpy_clip_reader():
+        rows["video_np_load"] = {**host_rate(epochs_of(video, 0)), "feeds": "video_bf16"}
+    for name, row in rows.items():
+        row["step_ms"] = step_ms[row["feeds"]]
+        row["step_batches_per_sec"] = 1e3 / row["step_ms"]
+        row["bounds_the_trainer"] = row["batches_per_sec"] < row["step_batches_per_sec"]
+        log(f"host pipeline {name}: {row['batches_per_sec']:.2f} batches/s median of "
+            f"{HOST_PASSES} x {row['batches']} batches (spread {row['min']:.2f}-{row['max']:.2f})"
+            f", the {row['feeds']} step it feeds takes {row['step_ms']:.2f} ms = "
+            f"{row['step_batches_per_sec']:.2f} batches/s"
+            + ("; the pipeline bounds the trainer" if row["bounds_the_trainer"] else "")
+            + f" [host of {smi}]")
+    return rows
+
+
+def kaldi_xv_round_trip(store: EmbeddingStore, root: str) -> dict:
+    """Phase 4's embeddings through ``EmbeddingStore.save_kaldi``, the
+    ``kaldi_xv`` CLI's ``from-kaldi`` and ``to-kaldi``, and ``load_kaldi``:
+    every vector and the ark's bytes unchanged."""
+    ark, scp = os.path.join(root, "xvector.ark"), os.path.join(root, "xvector.scp")
+    store.save_kaldi(ark, scp)
+    tree, prefix = os.path.join(root, "xv_tree"), os.path.join(root, "back")
+    kaldi_xv_cli.main(["from-kaldi", "--scp", scp, "--out-dir", tree])
+    kaldi_xv_cli.main(["to-kaldi", "--scp", scp, "--xv-root", tree, "--out-prefix", prefix])
+    back = EmbeddingStore.load_kaldi(prefix + "_xvector.scp")
+    check(list(back.table) == list(store.table)
+          and all(torch.equal(back[u], store[u].cpu()) for u in store.table),
+          "x-vectors changed on the Kaldi round trip")
+    with open(ark, "rb") as a, open(prefix + "_xvector.ark", "rb") as b:
+        check(a.read() == b.read(), "the round trip's ark differs from the first ark")
+    return {"vectors": len(back)}
+
+
+def tb_check(exp_dir: str) -> dict:
+    """The run's TensorBoard file parses, every record's CRC checked, and
+    holds the losses the JSON records hold."""
+    files = glob.glob(os.path.join(exp_dir, "tb", "events.out.tfevents.*"))
+    check(len(files) == 1, f"{len(files)} event files in {exp_dir}/tb")
+    records = read_tb_scalars(files[0])
+    tb_losses = {step: s["train/loss"] for step, s in records if "train/loss" in s}
+    with open(os.path.join(exp_dir, "train_metrics.jsonl")) as fh:
+        want = {r["step"]: float(np.float32(r["loss"])) for r in map(json.loads, fh)}
+    check(len(want) >= 1 and tb_losses == want,
+          f"TensorBoard losses {tb_losses} vs the JSON records' {want}")
+    return {"records": len(records), "losses": len(tb_losses)}
+
+
+def kaldi_host_io_phase(smi: str, store: EmbeddingStore, video_step_ms: dict,
+                        native_build_s: float, device=None) -> dict:
+    """Phase 16; ``device`` is for rehearsing it on the CPU at a small size."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        audio, clip_root = os.path.join(root, "audio"), os.path.join(root, "clips")
+        manifest, trials = write_train_corpus(audio)
+        write_clip_corpus(clip_root)
+        parity = native_parity(audio, clip_root)
+        log(f"native IO library: built in {native_build_s:.2f} s (phase 2); "
+            f"{parity['wavs']} wavs ({parity['wav_samples']} samples) by read_wav and "
+            f"read_wav_batch_i16 bit-equal to the stdlib, {parity['clips']} clips by "
+            f"read_npy_batch and probe_npy_shapes bit-equal to np.load")
+        loader = native_loader_epoch(audio, manifest, trials, device)
+        log(f"loader: native epoch of conf/audio_config.yaml: {loader['batches_equal']} batches "
+            f"bit-equal to loader: python; {loader['steps']} steps, front-end launches "
+            f"{loader['launches']}, losses {', '.join(f'{v:.4f}' for v in loader['losses'])}, "
+            f"{loader['wall_s']:.2f} s wall [{smi}]")
+        spk2utt, scp, feature_launches = write_kaldi_features(
+            audio, manifest, loader["trainer"].feat_cfg, loader["trainer"].device)
+        kaldi = kaldi_train(audio, spk2utt, scp, device)
+        log(f"Kaldi training (conf/audio_config.yaml, data_format: kaldi, MFCC-24 + CMVN over "
+            f"each utterance by K1 in {feature_launches} launches, through an ark): "
+            f"{TRAIN_SPEAKERS} speakers, {KALDI_EPOCHS} epochs x {kaldi['batches_per_epoch']} "
+            f"steps, losses {', '.join(f'{v:.4f}' for v in kaldi['losses'])}, front-end "
+            f"launches {kaldi['launches']}, {kaldi['wall_s']:.2f} s wall [{smi}]")
+        trainer = kaldi.pop("trainer")
+        steps = kaldi_step_check(trainer, loader["trainer"].pipeline, audio, smi)
+        tb = tb_check(trainer.exp_dir)
+        step_ms = {f"{r['kind'] if r['kind'] == 'kaldi' else 'audio'}_bf16_{r['n_frames']}":
+                   r["step_ms"] for r in steps["timings"]}
+        step_ms["video_bf16"] = video_step_ms["bf16"]
+        rates = host_rates(loader, trainer, clip_root, step_ms, smi)
+        xv = kaldi_xv_round_trip(store, root)
+        log(f"kaldi_xv: {xv['vectors']} x-vectors through save_kaldi, from-kaldi, to-kaldi and "
+            f"load_kaldi bit-equal; TensorBoard file: {tb['records']} records, every CRC "
+            f"checked, {tb['losses']} losses equal to the JSON records'")
+        loader = {k: v for k, v in loader.items() if k not in ("trainer", "stdlib")}
+    wall = time.perf_counter() - t0
+    log(f"phase 16: {wall:.1f} s")
+    return {"native_build_s": native_build_s, "native_parity": parity, "native_loader": loader,
+            "kaldi_feature_launches": feature_launches, "kaldi_train": kaldi,
+            "kaldi_steps": steps, "host_rates": rates, "kaldi_xv": xv, "tensorboard": tb,
+            "wall_s": wall}
+
+
 BN_REPLACES = {"fwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:56",
                        "deeplip_tpu/ops/pallas/bn_prelu_kernel.py:70"),
                "bwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:80",
@@ -4147,7 +4646,7 @@ def main() -> int:
         return 2
     dev = device_phase()
     part, peaks = card_peaks(dev["name"])
-    build_phase()
+    native_build_s = build_phase()
     kern = kernel_phase(peaks)
     main_path = main_path_phase()
     sweep = sweep_phase(main_path["extractor"])
@@ -4169,6 +4668,9 @@ def main() -> int:
     grouped = grouped_dispatch_phase(dev["smi"])
     release()
     variants = variants_phase(dev["smi"], peaks)
+    release()
+    kaldi_io = kaldi_host_io_phase(dev["smi"], main_path.pop("store"), video_bf16["step_ms"],
+                                   native_build_s)
     launches = {
         "launches": main_path["launches"]["fused_fbank"],
         "launches_sweep": sweep["launches"]["fft"],
@@ -4314,6 +4816,14 @@ def main() -> int:
     by_name["maxpool_frontend"]["shape_24_channels"] = {
         r["dtype"]: {k: v for k, v in r.items() if k not in ("dtype", "what")}
         for r in shuffle["c24"]["maxpool"]}
+    # phase 16: the native-loader epoch runs K1 once a step, the Kaldi steps never
+    for name in ("fused_fbank", "fused_fbank_v1_configs", "fused_fbank_dft"):
+        kernel = "dft" if name == "fused_fbank_dft" else "fft"
+        by_name[name].update(
+            launches_native_loader_epoch=kaldi_io["native_loader"]["launches"][kernel],
+            launches_kaldi_train=kaldi_io["kaldi_train"]["launches"][kernel],
+            launches_kaldi_ark_features=kaldi_io["kaldi_feature_launches"] if kernel == "fft"
+            else 0)
     summary = {
         "card": dev["smi"],
         "peaks_part": part,
@@ -4357,6 +4867,7 @@ def main() -> int:
         "video_bf16": video_bf16,
         "grouped_dispatch": grouped,
         "variants": variants,
+        "kaldi_host_io": kaldi_io,
     }
     print(json.dumps(summary), flush=True)
     print(json.dumps(kernels), flush=True)

@@ -16,7 +16,10 @@ heads, AS-norm, ``serve.AVSpeakerVerifier``, ``serve.SpeakerVerifier`` behind
 max-pool, forward and backward, as hand-written CUDA kernels
 (``csrc/maxpool_kernel.cu``); and audio x-vector training
 (``train.audio.AudioTrainer``, ``cli/train_audio.py``), whose every step
-runs the front-end kernel on its PCM crops.
+runs the front-end kernel on its PCM crops; and training on Kaldi features
+(``data.kaldi_dataset``, ``interop.kaldi``, ``cli/kaldi_xv.py``) with the
+host tooling around it: a native wav/npz reader (``native``, built by g++
+at its first call), TensorBoard event files, MFU and synthetic corpora.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """Host-side audio IO: WAV decode/encode and resampling (numpy).
 
-Counterpart of ``deeplip_tpu/data/audio_io.py``, stdlib/RIFF readers only
-(the JAX package's C++ decoder is not ported yet). Conventions of the
+Counterpart of ``deeplip_tpu/data/audio_io.py``: the stdlib/RIFF readers
+(the C++ batch decoder is ``deeplip_tpu_torch.native``). Conventions of the
 reference's soundfile reads: float32 in [-1, 1), channel 0 of multi-channel
 files, ``start``/``stop`` sample offsets. Resampling is resampy's
 ``kaiser_best`` windowed sinc (what the reference's ``librosa.resample``

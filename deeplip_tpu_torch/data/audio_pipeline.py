@@ -24,6 +24,7 @@ from typing import Callable, Iterator, Sequence
 
 import numpy as np
 
+from deeplip_tpu_torch import native
 from deeplip_tpu_torch.data.audio_io import (read_wav, read_wav_int16,
                                              resample, resampled_length,
                                              wav_format)
@@ -32,6 +33,14 @@ from deeplip_tpu_torch.data.prefetch import ThreadedPrefetcher
 from deeplip_tpu_torch.data.sampler import SpeakerBatchSampler
 from deeplip_tpu_torch.ops.framing import (frame_len_step, num_frames,
                                            samples_for_frames)
+
+
+def value_preserving(reader: Callable) -> bool:
+    """True for the wav decoders whose float32 samples are the stored PCM's
+    (the stdlib ``read_wav`` and its native drop-in ``native.read_wav``),
+    under which ``transport="auto"`` may resolve to int16. A custom reader
+    may transform the samples, so it resolves to float32."""
+    return reader is read_wav or reader is native.read_wav
 
 
 def assemble_speaker_crop(rng, speaker, samples_num: int, reader,
@@ -61,10 +70,11 @@ class AudioTrainPipeline:
     ``transport="int16"`` ships the crops as PCM16 (half the float32 bytes;
     the train step rescales on the device). ``"auto"`` probes every manifest
     header once and resolves to int16 exactly when every utterance is an
-    integer-PCM16 WAV at the pipeline's rate read by the stock reader: then
-    ``round(y·32768)`` recovers each stored sample and the device's
-    power-of-two rescale gives bit-identical float32 PCM. A custom reader
-    or another source resolves to float32.
+    integer-PCM16 WAV at the pipeline's rate read by a value-preserving
+    reader (:func:`value_preserving`): then ``round(y·32768)`` recovers
+    each stored sample and the device's power-of-two rescale gives
+    bit-identical float32 PCM. A custom reader or another source resolves
+    to float32.
     """
 
     def __init__(
@@ -104,7 +114,9 @@ class AudioTrainPipeline:
         (threaded; fmt-chunk reads only)."""
         if self._resolved_transport is None:
             def probe(utt):
-                if self.reader is not read_wav or utt.rate != self.rate:
+                # int16 is value-exact only for integer-PCM16 sources read at
+                # their own rate, the pipeline's, by a value-preserving reader
+                if not value_preserving(self.reader) or utt.rate != self.rate:
                     return False
                 fmt = wav_format(utt.path)
                 return fmt is not None and fmt[0] == 1 and fmt[1] == 16
@@ -227,8 +239,8 @@ class EvalUtteranceSet:
     ``transport="int16"`` ships PCM16 batches (half the float32 bytes; the
     extractor rescales on the device). ``transport="auto"`` resolves during
     the header scan: int16 iff every utterance is an integer-PCM16 WAV at
-    the target rate read by the stock reader, where ``i/32768`` gives back
-    the exact float32 samples; float32 otherwise.
+    the target rate read by a value-preserving reader, where ``i/32768``
+    gives back the exact float32 samples; float32 otherwise.
     """
 
     def __init__(
@@ -283,7 +295,9 @@ class EvalUtteranceSet:
         """Sample count after resampling, and int16-transport eligibility for
         ``transport="auto"``, from the header alone."""
         n = None
-        if self.reader is read_wav:
+        if self.reader is read_wav and native.available():
+            rate, _, n = native.wav_info(utt.path)
+        elif self.reader is read_wav:
             try:
                 with wave.open(utt.path, "rb") as w:
                     rate, n = w.getframerate(), w.getnframes()
@@ -295,7 +309,7 @@ class EvalUtteranceSet:
             y, rate = self.reader(utt.path)
             n = len(y)
         i16_ok = False
-        if self.transport == "auto" and rate == self.rate and self.reader is read_wav:
+        if self.transport == "auto" and rate == self.rate and value_preserving(self.reader):
             fmt = wav_format(utt.path)
             i16_ok = fmt is not None and fmt[0] == 1 and fmt[1] == 16
         if rate != self.rate:

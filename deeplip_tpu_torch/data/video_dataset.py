@@ -6,14 +6,16 @@ as ``(T, H, W)`` uint8 (``np.load(...)['data']``), bucketed by temporal
 length (rounded up to ``bucket_t``), padded with zeros and shipped as uint8
 ``(B, T, H, W)`` batches with their true lengths. The shuffle, the bucket
 sort and the batch assembly are the JAX package's, so both give the same
-batches. Clips load on a thread pool (``np.load``; the JAX package's native
-reader is not used).
+batches. Clips load through the native threaded npz reader
+(``deeplip_tpu_torch.native``) where it is built, else on a thread pool
+with ``np.load``; the clip lengths come from the headers alone.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import warnings
 import zipfile
 from dataclasses import dataclass
 from typing import Iterator, Sequence
@@ -21,6 +23,7 @@ from typing import Iterator, Sequence
 import numpy as np
 from numpy.lib import format as npf
 
+from deeplip_tpu_torch import native
 from deeplip_tpu_torch.data.prefetch import ThreadedPrefetcher
 
 
@@ -59,7 +62,17 @@ def load_clip(path: str) -> np.ndarray:
 
 
 def load_clips(paths: Sequence[str], num_threads: int = 4) -> list[np.ndarray]:
-    """Load clips on ``num_threads`` threads, in the order given."""
+    """Load clips on ``num_threads`` threads, in the order given: through the
+    native npz reader (zip walk, inflate and header parse in C++, without
+    the GIL) where it is built, else ``np.load``."""
+    if native.npy_available():
+        try:
+            return [_squeeze_channel(a)
+                    for a in native.read_npy_batch(list(paths), n_threads=num_threads)]
+        except (IOError, ValueError) as exc:
+            # an unusual container (zip64, Fortran order): keep the fallback
+            # threaded, a serial np.load loop would slow epochs silently
+            warnings.warn(f"native npz reader fell back to np.load: {exc}")
     return list(ThreadedPrefetcher(list(paths), load_clip, num_workers=num_threads))
 
 
@@ -103,6 +116,19 @@ class VideoClipBatches:
     def _bucket(self, t: int) -> int:
         return -(-t // self.bucket_t)
 
+    def _probe_lengths(self, clips: Sequence[VideoClip]) -> list[int]:
+        """Clip frame counts from the headers alone: the native probe, else
+        a zipfile/npy-header read."""
+        if native.npy_available():
+            try:
+                shapes = native.probe_npy_shapes([c.path for c in clips],
+                                                 n_threads=self.num_workers)
+                return [int(shape[0]) for shape, _ in shapes]
+            except (IOError, ValueError):
+                pass
+        return list(ThreadedPrefetcher(clips, lambda c: _probe_clip_length(c.path),
+                                       num_workers=self.num_workers))
+
     def epoch(self, epoch_idx: int = 0) -> Iterator[dict]:
         """Length-bucketed batches, streamed: a header scan buckets the
         clips, then each batch's payloads load one batch ahead."""
@@ -110,8 +136,7 @@ class VideoClipBatches:
         if self.shuffle:
             np.random.default_rng((self.seed, epoch_idx)).shuffle(order)
         clips = [self.clips[i] for i in order]
-        lengths = list(ThreadedPrefetcher(
-            clips, lambda c: _probe_clip_length(c.path), num_workers=self.num_workers))
+        lengths = self._probe_lengths(clips)
         if self.max_frames:
             lengths = [min(t, self.max_frames) for t in lengths]
         items = list(zip(clips, lengths))

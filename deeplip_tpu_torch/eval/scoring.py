@@ -8,7 +8,7 @@ formula (:func:`deeplip_tpu_torch.eval.eer.eer_from_scores`).
 
 ``EmbeddingStore`` holds tensors where they were computed (on the card for
 the extractor's output) and reads/writes the reference's on-disk layout,
-one ``.npy`` per utterance. Kaldi ark I/O is not ported yet.
+one ``.npy`` per utterance, and Kaldi x-vector ark/scp tables.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 
 from deeplip_tpu_torch.core.device import resolve_device
 from deeplip_tpu_torch.eval.eer import eer_from_scores
+from deeplip_tpu_torch.interop.kaldi import read_scp, write_ark_scp
 
 
 @dataclass
@@ -95,6 +96,18 @@ class EmbeddingStore:
         store = cls()
         for utt in utts:
             store[utt] = np.load(os.path.join(root, utt.removesuffix(".wav") + ".npy"))
+        return store
+
+    def save_kaldi(self, ark_path: str, scp_path: str | None = None) -> None:
+        """One float32 ``FV`` record per utterance, in insertion order."""
+        write_ark_scp({u: e.detach().cpu().numpy() for u, e in self.table.items()},
+                      ark_path, scp_path)
+
+    @classmethod
+    def load_kaldi(cls, scp_path: str) -> "EmbeddingStore":
+        store = cls()
+        for utt, vec in read_scp(scp_path):
+            store[utt] = vec
         return store
 
 

@@ -20,7 +20,12 @@ same-shape batches run as one group (:func:`group_batches`): one captured
 CUDA graph of K steps on the card (``train.dispatch``), K eager steps on the
 CPU; a partial run at the tail of an epoch runs as single steps. The
 learning rate and the margin reach every step as tensors on the device.
-The Kaldi feature path is not ported; it raises. A reference DeepLip
+With ``data.data_format: kaldi`` the batches are precomputed features from
+Kaldi ark/scp tables (``data.kaldi_dataset.KaldiTrainPipeline``), and the
+step skips the front-end and CMVN (:meth:`AudioTrainer.train_step_feats`).
+``train.loader: native`` (the default) reads the wavs with the C++ decoder
+(``deeplip_tpu_torch.native``) where it builds, ``python`` with the stdlib;
+the batches are the same either way. A reference DeepLip
 ``.pth`` loads through :meth:`AudioTrainer.load_torch_checkpoint` and
 :meth:`AudioExtractor.load_checkpoint`.
 
@@ -51,7 +56,9 @@ import torch
 from deeplip_tpu_torch.core.config import Config
 from deeplip_tpu_torch.core.device import fp32_math, resolve_device
 from deeplip_tpu_torch.data.audio_io import read_wav
+from deeplip_tpu_torch import native
 from deeplip_tpu_torch.data.audio_pipeline import AudioTrainPipeline, EvalUtteranceSet
+from deeplip_tpu_torch.data.kaldi_dataset import KaldiTrainPipeline
 from deeplip_tpu_torch.data.manifest import SpeakerManifest
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore, TrialList, cosine_eer
 from deeplip_tpu_torch.interop.torch_import import load_reference_audio_checkpoint
@@ -289,18 +296,28 @@ class AudioTrainer:
         self.data_opts = self.cfg.get("data") or Config()
         self.train_opts = self.cfg.get("train") or Config()
         self.test_opts = self.cfg.get("test") or Config()
-        if self.data_opts.get("data_format", "python") != "python":
-            raise NotImplementedError("the Kaldi feature path is not ported yet")
         self.steps_per_dispatch = max(int(self.train_opts.get("steps_per_dispatch", 1)), 1)
         self.compute_dtype = compute_dtype_of(self.train_opts.get("compute_dtype", "float32"),
                                               "train.compute_dtype")
 
         self.manifest = None
-        manifest_path = self.data_opts.get("train_manifest")
-        if manifest_path and os.path.exists(str(manifest_path)):
-            self.manifest = SpeakerManifest.load(str(manifest_path))
+        kaldi = None
+        frame_range = tuple(self.data_opts.get("frames", (200, 400)))
+        if self.data_opts.get("data_format", "python") == "kaldi":
+            # precomputed features (the JAX trainer passes no seed and no
+            # worker count from the config, and neither does this one)
+            kcfg = (self.data_opts.get("kaldi_data_config") or Config()).get("trainset") or {}
+            if kcfg.get("nn_spk2utt") and os.path.exists(str(kcfg["nn_spk2utt"])):
+                kaldi = KaldiTrainPipeline(
+                    kcfg["nn_spk2utt"], kcfg["nn_feat_scp"],
+                    int(self.train_opts.get("bs", 256)), frame_range=frame_range,
+                    n_buckets=int(self.train_opts.get("frame_buckets", 11)))
+        else:
+            manifest_path = self.data_opts.get("train_manifest")
+            if manifest_path and os.path.exists(str(manifest_path)):
+                self.manifest = SpeakerManifest.load(str(manifest_path))
         self.n_spk = n_spk if n_spk is not None else (
-            self.manifest.n_spk if self.manifest else 0)
+            self.manifest.n_spk if self.manifest else kaldi.n_spk if kaldi else 0)
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
@@ -325,18 +342,21 @@ class AudioTrainer:
 
         self.batch_size = int(self.train_opts.get("bs", 256))
         self.epochs = int(self.train_opts.get("epoch", 30))
-        self.pipeline = None
+        self.pipeline = kaldi
         if self.manifest is not None:
-            # the stock reader: the port has no native wav decoder, and
-            # int16 transport needs the stock reader to be value-exact
+            # the native (C++, GIL-free) wav decoder where it builds; 'loader:
+            # python' keeps the stdlib reader. Both are value-preserving, so
+            # the int16 transport and the batches are the same either way.
+            reader = read_wav
+            if self.train_opts.get("loader", "native") == "native" and native.available():
+                reader = native.read_wav
             self.pipeline = AudioTrainPipeline(
-                self.manifest, self.batch_size,
-                frame_range=tuple(self.data_opts.get("frames", (200, 400))),
+                self.manifest, self.batch_size, frame_range=frame_range,
                 win_len=self.feat_cfg.win_len, win_shift=self.feat_cfg.win_shift,
                 rate=self.feat_cfg.rate,
                 n_buckets=int(self.train_opts.get("frame_buckets", 11)),
                 num_workers=int(self.train_opts.get("loader_workers", 8)),
-                reader=read_wav, transport=str(self.train_opts.get("transport", "auto")),
+                reader=reader, transport=str(self.train_opts.get("transport", "auto")),
                 bucket_run=self.steps_per_dispatch)
 
         steps_per_epoch = self.pipeline.batches_per_epoch() if self.pipeline else 1
@@ -422,7 +442,9 @@ class AudioTrainer:
         return metrics
 
     def train_step_feats(self, feats: torch.Tensor, labels: torch.Tensor, margin) -> dict:
-        """One optimizer step from precomputed ``(B, T, D)`` features."""
+        """One optimizer step from precomputed ``(B, T, D)`` features (a
+        Kaldi batch): no front-end and no CMVN, the rest as
+        :meth:`train_step`, ``train.compute_dtype`` included."""
         with fp32_math():
             metrics = self._step_on_features(feats, labels, *self._scalars(margin))
         self.step += 1
@@ -473,11 +495,13 @@ class AudioTrainer:
         return self.init_margin if epoch <= 5 else self.end_margin
 
     def _device_batches(self, source):
-        """The pipeline's batches on the device, each one's copy started
-        before the previous batch's step runs."""
+        """The pipeline's batches (``pcm`` or Kaldi ``feats``) on the
+        device, each one's copy started before the previous batch's step
+        runs."""
         pending = None
         for batch in source:
-            staged = (batch, *stage_arrays([batch["pcm"], batch["labels"]], self.device,
+            data = batch["feats"] if "feats" in batch else batch["pcm"]
+            staged = (batch, *stage_arrays([data, batch["labels"]], self.device,
                                            self._copy_stream))
             if pending is not None:
                 yield pending[0], claim_staged(pending[1], pending[2], self.device)
@@ -490,7 +514,7 @@ class AudioTrainer:
         after each; ``auto_resume`` first loads the newest ``net_<epoch>`` of
         the exp dir. Returns every step's loss."""
         if self.pipeline is None:
-            raise RuntimeError("no train manifest configured")
+            raise RuntimeError("no train manifest (or Kaldi trainset) configured")
         if auto_resume:
             latest = ckpt.latest_checkpoint(self.exp_dir)
             if latest is not None and latest > self.current_epoch:
@@ -508,13 +532,16 @@ class AudioTrainer:
             source = self.pipeline.epoch(epoch)
             if self.steps_per_dispatch > 1:
                 source = group_batches(source, self.steps_per_dispatch)
-            for batch, (pcm, labels) in self._device_batches(source):
+            for batch, (data, labels) in self._device_batches(source):
                 if "group" in batch:
-                    group = self.train_group(pcm, labels, margin)
+                    group = self.train_group(data, labels, margin)
                     losses.extend(group["loss"])
                     metrics = {k: v[-1] for k, v in group.items()}
+                elif "feats" in batch:
+                    metrics = self.train_step_feats(data, labels, margin)
+                    losses.append(metrics["loss"])
                 else:
-                    metrics = self.train_step(pcm, labels, margin)
+                    metrics = self.train_step(data, labels, margin)
                     losses.append(metrics["loss"])
                 # a metric read waits for the card: only on logging steps
                 if self.step - last_log >= log_every:

@@ -1,29 +1,39 @@
-"""Structured training metrics.
+"""Structured training metrics and profiling hooks.
 
 Counterpart of ``deeplip_tpu/train/metrics.py``: :class:`StepLogger` writes
 one JSON record per call (step, loss, accuracy, lr, steps/s, examples/s) to
-``<exp_dir>/<prefix>_metrics.jsonl`` and prints every ``print_every``
-steps; :class:`NanGuard` raises after ``patience`` non-finite losses in a
-row. The TensorBoard event writer is not ported yet.
+``<exp_dir>/<prefix>_metrics.jsonl``, its float scalars to a TensorBoard
+event file under ``<exp_dir>/tb/`` (``train.tb_events``), and prints every
+``print_every`` steps; :class:`NanGuard` raises after ``patience``
+non-finite losses in a row; :func:`profile_trace` wraps a region in a
+``torch.profiler`` trace written as a Chrome trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import time
 
+import torch
+
+from deeplip_tpu_torch.train.tb_events import TBEventWriter
+
 
 class StepLogger:
     def __init__(self, exp_dir: str | None = None, print_every: int = 10,
-                 prefix: str = "train"):
+                 prefix: str = "train", tensorboard: bool = True):
         self.print_every = print_every
         self.prefix = prefix
         self._file = None
+        self._tb = None
         if exp_dir:
             os.makedirs(exp_dir, exist_ok=True)
             self._file = open(os.path.join(exp_dir, f"{prefix}_metrics.jsonl"), "a")
+            if tensorboard:
+                self._tb = TBEventWriter(os.path.join(exp_dir, "tb"))
         self._t0 = time.perf_counter()
         self._last_time = self._t0
         self._last_step = 0
@@ -43,6 +53,9 @@ class StepLogger:
         if self._file is not None:
             self._file.write(json.dumps(record) + "\n")
             self._file.flush()
+        if self._tb is not None:
+            self._tb.add_scalars(step, {f"{self.prefix}/{k}": v for k, v in record.items()
+                                        if k not in ("step", "time") and isinstance(v, float)})
         # a delta gate, not `step % print_every`: a caller that logs every
         # K steps would otherwise never hit the modulo
         if self.print_every and (self._last_printed is None
@@ -56,6 +69,8 @@ class StepLogger:
     def close(self) -> None:
         if self._file is not None:
             self._file.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class NanGuard:
@@ -74,3 +89,20 @@ class NanGuard:
         if self.streak >= self.patience:
             raise FloatingPointError(f"non-finite loss for {self.streak} consecutive steps")
         return False
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str | None):
+    """A ``torch.profiler`` trace of the region (host, and the card's kernels
+    where there is one), written into ``logdir`` as a Chrome trace
+    (``trace.json``); a no-op when ``logdir`` is None."""
+    if not logdir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

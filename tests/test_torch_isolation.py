@@ -54,6 +54,15 @@ _PROBE = textwrap.dedent("""
         "deeplip_tpu_torch.models.shufflenetv2", "deeplip_tpu_torch.models.audio_resnet",
         "deeplip_tpu_torch.models.pooling", "deeplip_tpu_torch.models.tcn"]
     assert set(variants) <= set(names), sorted(set(variants) - set(names))
+    kaldi_and_host_io = [
+        "deeplip_tpu_torch.interop.kaldi", "deeplip_tpu_torch.data.kaldi_dataset",
+        "deeplip_tpu_torch.cli.kaldi_xv", "deeplip_tpu_torch.native",
+        "deeplip_tpu_torch.train.tb_events", "deeplip_tpu_torch.train.flops",
+        "deeplip_tpu_torch.data.synthetic"]
+    assert set(kaldi_and_host_io) <= set(names), sorted(set(kaldi_and_host_io) - set(names))
+    # importing builds nothing: the native library is built at its first call
+    native = sys.modules["deeplip_tpu_torch.native"]
+    assert native._lib is None and native._error is None
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0].startswith("jax")
                  or m == "deeplip_tpu" or m.startswith("deeplip_tpu."))
