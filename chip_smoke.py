@@ -171,8 +171,8 @@ without the package, it exits non-zero and prints no result. Phases:
    of the PCM moves the single run; the rate and the margin frozen at
    capture (planted) are each caught; then the config's bf16 recipe (11
    crop lengths, a graph each) within phase 11's bf16 bar. K1 launches
-   once per step, counted over the replays (and once per eager warm-up
-   step before a capture). ms per step single and grouped at bs 256 x 300
+   once per step, counted over the replays (and once for each of the K
+   eager steps that precede a capture). ms per step single and grouped at bs 256 x 300
    in bf16, peak memory both ways, one profiled group's idle share. The
    f32 run's last checkpoint, exported by ``cli/export_torch.py
    --dp-prefix`` as a reference ``.pth``, enrolls through ``cli/verify.py
@@ -185,6 +185,19 @@ without the package, it exits non-zero and prints no result. Phases:
    memory, one profiled group. Last, a step that cannot be captured
    raises, no eager step runs in its place, and the card's random-number
    generator is not left capturing (an eager dropout runs after it).
+
+14b. Captures under memory pressure, in a subprocess of their own (run
+   right after phase 2, so that it has the card to itself and a cuDNN plan
+   taken there for want of memory reaches no other phase): phase 14's f32
+   video group, first with nothing held (held to phase 14's bars against
+   the process's own single and nudged runs), then with that run's trainer
+   and graphs kept alive, with one allocation leaving 30 GB free, with one
+   leaving 1.25x the group's peak + 4 GB, and with the memory back. The
+   runner must refuse a capture during which an allocation failed (or the
+   card ran out of memory) or whose first replay is not bit-equal to the
+   K eager steps; every run it does not refuse meets phase 14's f32 bars
+   against a single run made right after it with the pressure gone; at
+   least one capture must be refused; any other failure fails the phase.
 
 15. The model and front-end variants. (a) ``conf/audio_config.yaml`` with
    ``arch: resnet`` (64/128/256 channels x 3/3/3 BasicBlocks, embedding
@@ -240,7 +253,27 @@ without the package, it exits non-zero and prints no result. Phases:
    file parsed with every record's CRC checked, its losses the JSON
    records'.
 
-The phases run in the order 1-5, 11, 6, 9, 7, 8, 10, 12, 13, 14, 15, 16. The last line is
+17. The process group on the card. An NCCL group of world size 1 joined
+   through ``core/distributed.initialize`` on a local ``FileStore`` (no
+   network), and the data mesh over it (``core/mesh.make_mesh``). (a) K3/K4
+   under the group, where each finalize runs as two passes (chunk totals to
+   float64, then statistics) with the all-reduce of the totals between
+   them: at the nine sites' shapes of a bs 128 x 29 step in f32 and bf16,
+   every output bit-equal to the single-process kernels', 4 launches a call
+   (2 of them the split passes), and within phase 6's bars of the plain
+   versions under the same group; the split passes timed alone beside their
+   plain version, their bound and the all-reduce. (b) One audio bf16 step
+   (bs 256 x 300), one video f32 step (bs 128 x 29) and one fusion f32 step
+   (bs 60 x 300) under the group, each bit-equal (loss, every parameter and
+   buffer) to the same step without it from one state, with their launches
+   (the video step's K3/K4 36 + 36, 18 + 18 of them the split passes) and
+   their ms per step with and without the group, in turns, by CUDA events.
+   (c) A grouped audio capture (K = 4, f32) under the group, the all-reduces
+   inside the graph, held to phase 14's bars against 4 single steps under
+   the group.
+
+The phases run in the order 1, 2, 14b, 17, 3-5, 11, 6, 9, 7, 8, 10, 12, 13, 14,
+15, 16. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the ``kernels``
 JSON record.
 """
@@ -1880,14 +1913,15 @@ def video_main_path_phase() -> dict:
 # convolutions, the TCN and the classifier), Adam, the rest of PyTorch's own
 KERNEL_KINDS = [
     ("K3/K4 (bn_prelu_kernel.cu)", re.compile(
-        r"::(stats_partial|stats_finalize|apply|bwd_partial|bwd_finalize|bwd_apply)_kernel\b")),
+        r"::(stats_partial|stats_finalize|stats_totals|stats_from_totals|apply|bwd_partial|"
+        r"bwd_finalize|bwd_totals|bwd_from_totals|bwd_apply)_kernel\b")),
     ("max-pool (maxpool_kernel.cu)", re.compile(r"::maxpool_(fwd|bwd)_kernel\b")),
     ("cuDNN/cuBLAS", re.compile(r"cudnn|xmma|cublas|gemm|wgrad|dgrad|fprop|fft", re.I)),
     ("Adam", re.compile(r"multi_tensor_apply|adam", re.I)),
     ("other PyTorch", re.compile(r"")),
 ]
-def plain_bn_prelu_forward(x, scale, bias, alpha, eps):
-    y, mean, var = bn_prelu.bn_prelu_reference(x, scale, bias, alpha, eps)
+def plain_bn_prelu_forward(x, scale, bias, alpha, eps, group=None):
+    y, mean, var = bn_prelu.bn_prelu_reference(x, scale, bias, alpha, eps, group)
     return y, mean, var, torch.rsqrt(var + eps)
 
 
@@ -1895,8 +1929,8 @@ def faulty_bn_prelu_forward(fault):
     """A K3 with a planted fault, for the step bars to catch: the plain
     forward with the batch variance scaled by ``1 + fault``, or, for
     ``fault == "bf16"``, with the mean and variance held in bf16."""
-    def forward(x, scale, bias, alpha, eps):
-        _, mean, var = bn_prelu.bn_prelu_reference(x, scale, bias, alpha, eps)
+    def forward(x, scale, bias, alpha, eps, group=None):
+        _, mean, var = bn_prelu.bn_prelu_reference(x, scale, bias, alpha, eps, group)
         if fault == "bf16":
             mean, var = mean.bfloat16().float(), var.bfloat16().float()
         else:
@@ -2931,8 +2965,8 @@ def video_bf16_audit(model, record: dict):
                   logits_err=0.0)
     inner = bn_prelu.bn_prelu_train
 
-    def audited_bn(x, scale, bias, alpha, eps):
-        y, mean, var = inner(x, scale, bias, alpha, eps)
+    def audited_bn(x, scale, bias, alpha, eps, group=None):
+        y, mean, var = inner(x, scale, bias, alpha, eps, group)
         xd = x.detach().double().reshape(-1, x.shape[-1])
         m, v = xd.mean(0), xd.var(0, unbiased=False)
         sd = (v + eps).sqrt()
@@ -3272,9 +3306,9 @@ def grouped_audio_config(root: str, manifest: str, trials: str, dtype: str,
 
 
 def release() -> None:
-    """Free what dropped trainers held on the card: a trainer and its graph
-    runner refer to each other, so only the cycle collector frees them (and
-    with them their graphs' memory pool)."""
+    """Free what dropped trainers held on the card (a dropped trainer frees
+    its runner, graphs and pool at once; the collector takes any other
+    cycle) and hand the cached memory back to the card."""
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -3351,7 +3385,7 @@ def grouped_audio_phase(smi: str, root: str, device=None) -> dict:
         f"bs {BATCH} x {GROUPED_FRAMES}, K = {GROUPED_K_AUDIO}): {GROUPED_EPOCHS} epochs x "
         f"{bpe} steps, the rate decayed after epoch {GROUPED_DECAY[0]} and the margin "
         f"{GROUPED_MARGIN[0]} -> {GROUPED_MARGIN[1]} after epoch 5; {grouped['graphs']} graph, "
-        f"{grouped['replays']} replays, {grouped['warmups']} warm-up step; each step's loss "
+        f"{grouped['replays']} replays, {grouped['warmups']} eager warm-up steps; each step's loss "
         f"within {rel:.2e} of the single run's (bar {GROUPED_LOSS_RTOL}); final parameters "
         f"{d_group:.3e} of their norm from the single run's, a {NUDGE} nudge of the PCM moves "
         f"them {d_nudge:.3e} (bar {NUDGE_FACTOR} x); walls grouped {grouped['wall_s']:.1f} s, "
@@ -3589,8 +3623,8 @@ def grouped_video_phase(smi: str, root: str, device=None) -> dict:
         log(f"grouped video training through cli/train_video.py --steps-per-dispatch "
             f"{GROUPED_K_VIDEO} ({dtype}, bs {VIDEO_BATCH} x {GROUPED_VIDEO_FRAMES}, TCN "
             f"dropout {video_config()['tcn_dropout']}): {steps} steps, {grouped['replays']} "
-            f"replays, {grouped['warmups']} warm-up step; losses within {rel:.2e} of the single "
-            f"run's; final parameters {d_group:.3e} of their norm from the single run's"
+            f"replays, {grouped['warmups']} eager warm-up steps; losses within {rel:.2e} of "
+            f"the single run's; final parameters {d_group:.3e} of their norm from the single run's"
             + (f", a {NUDGE} nudge of the frames moves them {row['nudge_distance']:.3e}"
                if nudged else "") + f"; launches {grouped['launches']} [{smi}]")
         if dtype == "float32":
@@ -3609,10 +3643,160 @@ def grouped_video_phase(smi: str, root: str, device=None) -> dict:
     return out
 
 
+PRESSURE_HEADROOM_GB = 4.0        # free memory left beside 1.25x the grouped run's peak
+PRESSURE_TIGHT_GB = 30.0          # free memory at which the f32 video step's cuDNN workspace
+                                  # allocations fail (read off a sweep of 23-36 GB)
+PRESSURE_TIMEOUT_S = 600          # the subprocess's whole run
+PRESSURE_MARK = "capture pressure result: "
+REFUSALS = ("failed while warming up and capturing", "is not bit-equal to the same steps")
+
+
+def _failed_allocations() -> int:
+    """The caching allocator's count of failed allocations so far."""
+    return torch.cuda.memory_stats().get("num_ooms", 0) if torch.cuda.is_available() else 0
+
+
+def _free_gb() -> float:
+    return torch.cuda.mem_get_info()[0] / 1e9
+
+
+def grouped_video_under_pressure(data: str, root: str, smi: str, device=None) -> dict:
+    """The condition under which a grouped capture once computed other
+    numbers than the eager steps, in a process of its own: phase 14's f32 grouped video run (cli/train_video.py
+    --steps-per-dispatch 2) captured while the card's memory is held (a) by
+    an earlier grouped run's trainer and its graphs, kept alive, (b) by one
+    allocation that leaves ``PRESSURE_TIGHT_GB`` free, (c) by one that
+    leaves 1.25x the grouped run's peak plus ``PRESSURE_HEADROOM_GB``, and
+    (d) with the memory back. When a cuDNN workspace cannot be allocated,
+    the convolution runs another algorithm and cuDNN keeps that plan for
+    the shape, for the rest of the process, so the runner
+    (``train/dispatch.py``) must refuse a capture during which an
+    allocation failed, or whose first replay is not bit-equal to the eager
+    steps. Each attempt is either refused by the runner, or meets phase
+    14's f32 bars against a single run made right after it with the
+    pressure gone (with the plans the process holds by then); any other
+    failure, running out of memory outside the runner included, fails the
+    phase, and so does a run of cases in which no capture was refused.
+    Phase 14's bars are read here from the process's own single and nudged
+    runs, made first."""
+    single = grouped_video_run(data, root, "single", "float32", 1, device)
+    with nudged_video_frames():
+        nudged = grouped_video_run(data, root, "nudged", "float32", 1, device)
+    nudge = grad_distance(nudged["state"], single["state"])
+    torch.cuda.reset_peak_memory_stats()
+    holder = [grouped_video_run(data, root, "held", "float32", GROUPED_K_VIDEO, device,
+                                keep=True)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first = holder[0]
+    out = {"nudge_distance": nudge, "peak_gb": peak_gb,
+           "held_run": {"loss_rel": loss_rel(first["losses"], single["losses"]),
+                        "distance": grad_distance(first["state"], single["state"])},
+           "failed_allocations_before": _failed_allocations()}
+    check(out["held_run"]["loss_rel"] <= GROUPED_LOSS_RTOL
+          and out["held_run"]["distance"] <= NUDGE_FACTOR * nudge,
+          f"grouped f32 video before any pressure: {out['held_run']} from the single run's")
+    del single, nudged, first
+
+    def attempt(tag: str, relieve) -> dict:
+        r = {"free_gb_at_start": _free_gb()}
+        before = _failed_allocations()
+        try:
+            grouped, error = grouped_video_run(data, root, tag, "float32", GROUPED_K_VIDEO,
+                                               device), None
+        except RuntimeError as exc:
+            grouped, error = None, str(exc).splitlines()[0][:300]
+        r["failed_allocations"] = _failed_allocations() - before
+        relieve()
+        release()
+        if error is not None:
+            check(any(text in error for text in REFUSALS),
+                  f"grouped f32 video under pressure ({tag}) failed outside the runner's "
+                  f"refusal: {error}")
+            return {**r, "fit": False, "error": error}
+        before = _failed_allocations()
+        one = grouped_video_run(data, root, tag + "_single", "float32", 1, device)
+        r.update(fit=True, single_failed_allocations=_failed_allocations() - before,
+                 loss_rel=loss_rel(grouped["losses"], one["losses"]),
+                 distance=grad_distance(grouped["state"], one["state"]))
+        return r
+
+    out["graphs_held"] = attempt("graphs_held", holder.clear)
+    for name, keep_gb in (("tight", PRESSURE_TIGHT_GB),
+                          ("ballast", 1.25 * peak_gb + PRESSURE_HEADROOM_GB)):
+        free = torch.cuda.mem_get_info()[0]
+        ballast = [torch.empty(max(free - int(keep_gb * 1e9), 0), dtype=torch.uint8,
+                               device="cuda")]
+        held_gb = ballast[0].numel() / 1e9
+        out[name] = {**attempt(name, ballast.clear), "held_gb": held_gb}
+    out["after"] = attempt("after", lambda: None)
+    cases = ("graphs_held", "tight", "ballast", "after")
+    log(f"grouped f32 video before any pressure ({GROUPED_K_VIDEO} steps a group, peak "
+        f"{peak_gb:.1f} GB): losses within {out['held_run']['loss_rel']:.2e} of the single "
+        f"run's, parameters {out['held_run']['distance']:.3e} of their norm [{smi}]")
+    for name in cases:
+        r = out[name]
+        log(f"grouped f32 video ({name}, {r['free_gb_at_start']:.1f} GB free at the start, "
+            f"{r['failed_allocations']} failed allocations): "
+            + (f"losses within {r['loss_rel']:.2e} of a single run's made right after "
+               f"({r['single_failed_allocations']} failed allocations in it), parameters "
+               f"{r['distance']:.3e} of their norm (bars {GROUPED_LOSS_RTOL:g} and "
+               f"{NUDGE_FACTOR:g} x {nudge:.3e})" if r["fit"] else
+               "refused by the runner: " + r["error"]) + f" [{smi}]")
+    for name in (n for n in cases if out[n]["fit"]):
+        r = out[name]
+        check(r["loss_rel"] <= GROUPED_LOSS_RTOL and r["distance"] <= NUDGE_FACTOR * nudge,
+              f"grouped f32 video ({name}) not refused and off the single run made right "
+              f"after it: losses {r['loss_rel']:.3e}, parameters {r['distance']:.3e}")
+    check(any(not out[name]["fit"] for name in cases),
+          "no grouped capture under memory pressure was refused")
+    return out
+
+
+def capture_pressure_child(smi: str) -> int:
+    """``chip_smoke.py --capture-pressure SMI``: :func:`grouped_video_under_pressure`
+    on a fresh card, its result printed after ``PRESSURE_MARK``."""
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "clips")
+        write_grouped_clip_corpus(data)
+        t0 = time.perf_counter()
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            out = grouped_video_under_pressure(data, root, smi)
+        out["wall_s"] = time.perf_counter() - t0
+    print(PRESSURE_MARK + json.dumps(out), flush=True)
+    return 0
+
+
+def capture_pressure_phase(smi: str) -> dict:
+    """Phase 14b: :func:`grouped_video_under_pressure` in a subprocess, so
+    that it has the card to itself and a convolution plan cuDNN takes there
+    for want of memory reaches no other phase. Run before the other phases
+    allocate; fails when the subprocess fails or outlives its time."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--capture-pressure", smi],
+                          cwd=REPO, stdout=subprocess.PIPE, text=True,
+                          timeout=PRESSURE_TIMEOUT_S)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(PRESSURE_MARK):
+            result = json.loads(line[len(PRESSURE_MARK):])
+        else:
+            log("  pressure: " + line)
+    check(proc.returncode == 0 and result is not None,
+          f"the capture-pressure subprocess exited {proc.returncode}")
+    result["process_s"] = time.perf_counter() - t0
+    log(f"phase 14b (capture pressure, own process): {result['process_s']:.1f} s")
+    return result
+
+
 def grouped_video_timing(trainer: VideoTrainer, smi: str) -> dict:
     """ms per step of two single steps against one group of two at bs 128 x
     29, peak memory both ways, and one profiled group's idle share."""
     k, dev = GROUPED_K_VIDEO, trainer.device
+    # the timed group captures its own graph: drop the training run's first,
+    # so that its warm-up and capture are not short of memory beside it
+    trainer.grouped.graphs.clear()
+    release()
     rng = np.random.default_rng(3)
     clips = torch.from_numpy(rng.integers(0, 256, (k, VIDEO_BATCH, GROUPED_VIDEO_FRAMES, 96, 96),
                                           dtype=np.uint8)).to(dev)
@@ -4563,6 +4747,370 @@ def kaldi_host_io_phase(smi: str, store: EmbeddingStore, video_step_ms: dict,
             "wall_s": wall}
 
 
+# ---------------------------------------------------------------- phase 17
+GROUP_FRAMES = 300                # the audio steps' crop length
+GROUP_AUDIO_K = 4                 # the grouped capture under the group
+GROUP_TIMING_ITERS = {"audio": 10, "video": 2, "fusion": 5}
+TOTALS_BYTES = {"fwd": (2, 2 + 2, 3), "bwd": (3, 3 + 2, 3 + 2)}  # see totals_bound_ms
+VIDEO_BN_SITES = 9                # fused BN+PReLU sites of the ResNet Lipreading
+
+
+def nccl_group(root: str):
+    """A process group of world size 1 on the card (NCCL, a ``FileStore``
+    under ``root``; no network), joined through the port's
+    ``core.distributed.initialize``, and the data mesh over it."""
+    from deeplip_tpu_torch.core.distributed import initialize
+    from deeplip_tpu_torch.core.mesh import make_mesh
+
+    check(torch.distributed.is_nccl_available(), "this torch build has no NCCL")
+    check(initialize(f"file://{root}/nccl_store", num_processes=1, process_id=0),
+          "no process group was created")
+    check(torch.distributed.get_backend() == "nccl",
+          f"the group's backend is {torch.distributed.get_backend()}, not nccl")
+    mesh = make_mesh()
+    check(mesh.data_group is not None and mesh.data_size == 1, "the data mesh has no group")
+    return mesh
+
+
+def totals_counts() -> dict:
+    return {"bn_totals_fwd": bn_prelu.bn_prelu_forward.totals_launches,
+            "bn_totals_bwd": bn_prelu.bn_prelu_backward.totals_launches}
+
+
+def zero_totals_counts() -> None:
+    bn_prelu.bn_prelu_forward.totals_launches = 0
+    bn_prelu.bn_prelu_backward.totals_launches = 0
+
+
+def totals_bound_ms(chunks: int, c: int, peaks, kind: str) -> tuple[float, str]:
+    """The least time of a split finalize (both passes): it reads the
+    ``(chunks, k, C)`` f32 partials once, writes and reads the ``(k, C)``
+    float64 totals, and writes the statistics (fwd: mean, var, inv; bwd: the
+    f32 sums and two means), adding the partials in double. The adds are
+    counted at the FP32 rate: the guide's table has no FP64 rate."""
+    fp32, _, bw = peaks
+    k, tot, out = TOTALS_BYTES[kind]
+    nbytes = 4 * chunks * k * c + 8 * tot * c + 4 * out * c
+    bytes_ms, ops_ms = nbytes / bw * 1e3, chunks * k * c / fp32 * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def totals_pass_times(x, dy, mean, inv, scale, bias, alpha, eps, group, peaks) -> dict:
+    """The split finalize passes alone (totals, then statistics), timed on
+    partials the partial passes wrote, beside their plain version (a float64
+    sum of the partials and the statistics in torch), their bound and the
+    world-size-1 all-reduce of the totals between them."""
+    c = x.shape[-1]
+    rows = x.numel() // c
+    per, chunks = bn_prelu._chunking(rows, c)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    is_bf16, stream = bn_prelu._device_args(x)
+    ptrs = (mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), alpha.data_ptr())
+    fwd_partial, bwd_partial = torch.empty((chunks, 2, c), **f32), torch.empty((chunks, 3, c), **f32)
+    bn_prelu._launch("bn_stats_partial", x.data_ptr(), is_bf16, fwd_partial.data_ptr(), rows, c,
+                     per, chunks, stream)
+    bn_prelu._launch("bn_prelu_bwd_partial", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
+                     bwd_partial.data_ptr(), rows, c, per, chunks, stream)
+    fwd_totals = torch.empty((2, c), dtype=torch.float64, device=x.device)
+    bwd_totals = torch.empty((3, c), dtype=torch.float64, device=x.device)
+    stats, sums, means = torch.empty((3, c), **f32), torch.empty((3, c), **f32), \
+        torch.empty((2, c), **f32)
+
+    def fwd():
+        bn_prelu._launch("bn_stats_totals", fwd_partial.data_ptr(), chunks, c,
+                         fwd_totals.data_ptr(), stream)
+        bn_prelu._launch("bn_stats_from_totals", fwd_totals.data_ptr(), c, rows, eps,
+                         stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(), stream)
+
+    def fwd_plain():
+        t = fwd_partial.double().sum(0)
+        m = t[0] / rows
+        v = torch.clamp(t[1] / rows - m * m, min=0.0)
+        return m.float(), v.float(), torch.rsqrt(v + eps).float()
+
+    def bwd():
+        bn_prelu._launch("bn_prelu_bwd_totals", bwd_partial.data_ptr(), chunks, c,
+                         bwd_totals.data_ptr(), sums.data_ptr(), stream)
+        bn_prelu._launch("bn_prelu_bwd_from_totals", bwd_totals.data_ptr(), c, rows,
+                         means.data_ptr(), stream)
+
+    def bwd_plain():
+        t = bwd_partial.double().sum(0)
+        return t.float(), (t[:2] / rows).float()
+
+    with torch.cuda.device(x.device):
+        times = {"fwd": time_ms(fwd), "fwd_plain": time_ms(fwd_plain), "bwd": time_ms(bwd),
+                 "bwd_plain": time_ms(bwd_plain),
+                 "all_reduce_fwd": time_ms(lambda: torch.distributed.all_reduce(
+                     fwd_totals, group=group)),
+                 "all_reduce_bwd": time_ms(lambda: torch.distributed.all_reduce(
+                     bwd_totals, group=group))}
+    for kind in ("fwd", "bwd"):
+        times[f"{kind}_bound"], times[f"{kind}_bound_by"] = totals_bound_ms(chunks, c, peaks, kind)
+    times["chunks"] = chunks
+    return times
+
+
+def totals_check(mesh, peaks) -> dict:
+    """K3/K4 under the group (the split finalize and the all-reduce of the
+    float64 totals between its passes) at the nine sites' shapes of a bs 128
+    x 29 step, f32 and bf16: every output bit-equal to the single-process
+    kernels' (and the group's launches 4 a call, 2 of them the split
+    passes); against their plain versions under the same group with phase
+    6's bars; the split passes timed alone."""
+    group, eps, rows = mesh.data_group, 1e-5, []
+    fwd, bwd = bn_prelu.bn_prelu_forward, bn_prelu.bn_prelu_backward
+    with fp32_math():
+        for i, (shape, sites) in enumerate(BN_SHAPES):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, dy, scale, bias, alpha = bn_inputs(shape, dtype, 100 + i)
+                what = f"bn_prelu under the group {shape} {str(dtype)[6:]}"
+                atol, rtol = BN_TOL[dtype]
+                single = fwd(x, scale, bias, alpha, eps)
+                before = (fwd.launches, fwd.totals_launches)
+                grouped = fwd(x, scale, bias, alpha, eps, group=group)
+                check((fwd.launches - before[0], fwd.totals_launches - before[1]) == (4, 2),
+                      f"{what}: K3 under a group launched {fwd.launches - before[0]} kernels")
+                check(all(bit_equal(a, b) for a, b in zip(grouped, single)),
+                      f"{what}: K3's split finalize is not bit-equal to its finalize")
+                y_p, mean_p, var_p = bn_prelu.bn_prelu_reference(x, scale, bias, alpha, eps,
+                                                                 group=group)
+                err = {"y": compare_tol(grouped[0], y_p, atol, rtol, what + " y"),
+                       "mean": compare_tol(grouped[1], mean_p, *STAT_TOL, what + " mean"),
+                       "var": compare_tol(grouped[2], var_p, *STAT_TOL, what + " var")}
+                mean, inv = single[1], single[3]
+                del single, grouped, y_p
+                g_single = bwd(x, dy, mean, inv, scale, bias, alpha)
+                before = (bwd.launches, bwd.totals_launches)
+                g_group = bwd(x, dy, mean, inv, scale, bias, alpha, group=group)
+                check((bwd.launches - before[0], bwd.totals_launches - before[1]) == (4, 2),
+                      f"{what}: K4 under a group launched {bwd.launches - before[0]} kernels")
+                check(all(bit_equal(a, b) for a, b in zip(g_group, g_single)),
+                      f"{what}: K4's split finalize is not bit-equal to its finalize")
+                g_plain = bn_prelu.bn_prelu_backward_reference(x, dy, mean, inv, scale, bias,
+                                                               alpha, group=group)
+                err["dx"] = compare_tol(g_group[0], g_plain[0], atol, rtol, what + " dx")
+                for name, got, want in zip(("dscale", "dbias", "dalpha"), g_group[1:],
+                                           g_plain[1:]):
+                    rel = float((got - want).abs().max()) / float(want.abs().max())
+                    check(rel <= PARAM_GRAD_RTOL, f"{what} {name}: {rel:.3e} of the plain "
+                          f"largest, bar {PARAM_GRAD_RTOL}")
+                    err[name] = rel
+                del g_single, g_group, g_plain
+                times = totals_pass_times(x, dy, mean, inv, scale, bias, alpha, eps, group,
+                                          peaks)
+                del x, dy
+                torch.cuda.empty_cache()
+                rows.append({"shape": list(shape), "dtype": str(dtype)[6:], "sites": sites,
+                             "bit_equal": True, **{f"err_{k}": v for k, v in err.items()},
+                             **times})
+                log(f"{what}: bit-equal to the single-process kernels; vs plain "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in err.items()) + "; split passes ms "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in times.items()
+                                if not k.endswith("_by") and k != "chunks"))
+    f32 = [r for r in rows if r["dtype"] == "float32"]
+    per_step = {k: sum(r["sites"] * r[k] for r in f32) for k in (
+        "fwd", "fwd_plain", "fwd_bound", "bwd", "bwd_plain", "bwd_bound", "all_reduce_fwd",
+        "all_reduce_bwd")}
+    log("split finalize per bs 128 x 29 step (9 sites, f32): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in per_step.items()))
+    return {"rows": rows, "per_step": per_step}
+
+
+def trainer_state(*modules) -> dict:
+    """Every floating parameter and buffer of the modules, by name."""
+    return {f"{i}.{n}": v.detach().clone() for i, m in enumerate(modules)
+            for n, v in m.state_dict().items() if v.is_floating_point()}
+
+
+def paired_step(what: str, trainers: dict, step, modules, counts, smi: str) -> dict:
+    """One step of the trainer without a group and of the one under the
+    world-size-1 group, from one state (the same seeded init, the same
+    inputs, the card's generator reseeded): loss and every floating
+    parameter and buffer bit-equal. Then ms per step of each, in turns
+    (plain, group, group, plain), by CUDA events."""
+    states = {k: trainer_state(*modules(t)) for k, t in trainers.items()}
+    check(all(bit_equal(states["plain"][n], v) for n, v in states["group"].items()),
+          f"{what}: the two trainers do not start from one state")
+    losses, launches = {}, {}
+    for name in ("plain", "group"):
+        zero_kernel_counts()
+        zero_totals_counts()
+        torch.manual_seed(0)
+        losses[name] = step(trainers[name])["loss"]
+        _sync()
+        launches[name] = {**counts(), **totals_counts()}
+    after = {k: trainer_state(*modules(t)) for k, t in trainers.items()}
+    equal = bit_equal(losses["plain"], losses["group"]) and all(
+        bit_equal(after["plain"][n], v) for n, v in after["group"].items())
+    iters = GROUP_TIMING_ITERS[what.split()[0]]
+    ms = {"plain": [], "group": []}
+    for name in ("plain", "group", "group", "plain"):
+        ms[name].append(time_ms(lambda: step(trainers[name]), iters=iters, warmup=1))
+    out = {"loss": float(losses["plain"]), "bit_equal": equal, "launches": launches,
+           "ms": {k: sum(v) / len(v) for k, v in ms.items()}, "ms_turns": ms}
+    out["group_cost"] = out["ms"]["group"] / out["ms"]["plain"] - 1.0
+    log(f"{what} step under an NCCL group of world size 1: loss and every parameter and "
+        f"buffer {'bit-equal to' if equal else 'DIFFER from'} the step without it; "
+        f"{out['ms']['plain']:.2f} ms without, {out['ms']['group']:.2f} ms with the group "
+        f"({out['group_cost']:+.2%}); launches {launches} [{smi}]")
+    check(equal, f"{what}: the step under the group is not bit-equal to the step without it")
+    return out
+
+
+def group_audio_config(dtype: str, k: int = 1) -> Config:
+    cfg = load_audio_config(AUDIO_CONFIG_PATH).to_dict()
+    cfg["data"]["train_manifest"] = None
+    cfg["train"].update(compute_dtype=dtype, steps_per_dispatch=k)
+    return Config(cfg)
+
+
+def group_audio_batch(k: int, seed: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    rng = np.random.default_rng(seed)
+    s = samples_for_frames(GROUP_FRAMES, 0.025, 0.01, RATE)
+    pcm = rng.integers(-8000, 8000, (k, BATCH, s)).astype(np.int16)
+    labels = rng.integers(0, TRAIN_SPEAKERS, (k, BATCH)).astype(np.int64)
+    return torch.from_numpy(pcm).to(dev), torch.from_numpy(labels).to(dev)
+
+
+def group_steps(mesh, root: str, smi: str, device=None) -> dict:
+    """One audio bf16, one video f32 and one fusion f32 step under the group
+    against the same step without it (:func:`paired_step`)."""
+    out, dev = {}, torch.device(device or "cuda")
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        # audio: conf/audio_config.yaml's bf16 recipe at bs 256 x 300
+        pcm, labels = group_audio_batch(1, 21, dev)
+        audio = {name: AudioTrainer(group_audio_config("bf16"), device=device,
+                                    n_spk=TRAIN_SPEAKERS, exp_root=os.path.join(root, "exp"),
+                                    log_time=f"a_{name}", mesh=m)
+                 for name, m in (("plain", None), ("group", mesh))}
+        out["audio"] = paired_step(
+            "audio bf16 (bs 256 x 300)", audio,
+            lambda t: t.train_step(pcm[0], labels[0], t.init_margin),
+            lambda t: (t.model, t.criterion), fbank_counts, smi)
+        check(out["audio"]["launches"]["group"]["fft"] == 1, "the audio step skipped K1")
+        del audio, pcm, labels
+        release()
+        # video: conf/video_config.json at bs 128 x 29, f32
+        rng = np.random.default_rng(22)
+        clips = torch.from_numpy(rng.integers(0, 256, (VIDEO_BATCH, 29, 96, 96), dtype=np.uint8))
+        lengths = torch.from_numpy(rng.integers(21, 30, VIDEO_BATCH).astype(np.int32))
+        vlabels = torch.from_numpy(rng.integers(0, VIDEO_SPEAKERS, VIDEO_BATCH))
+        batch = [t.to(dev) for t in (clips, lengths, vlabels)]
+        video = {name: VideoTrainer(video_config(), VIDEO_SPEAKERS, device=device,
+                                    exp_root=os.path.join(root, "exp"), log_time=f"v_{name}",
+                                    mesh=m) for name, m in (("plain", None), ("group", mesh))}
+        out["video"] = paired_step(
+            "video f32 (bs 128 x 29)", video,
+            lambda t: t.train_step(*batch, torch.Generator().manual_seed(5)),
+            lambda t: (t.model,), video_counts, smi)
+        sites = VIDEO_BN_SITES
+        want = {name: {"bn_prelu_fwd": per * sites, "bn_prelu_bwd": per * sites,
+                       "bn_totals_fwd": split * sites, "bn_totals_bwd": split * sites,
+                       "maxpool_fwd": 1, "maxpool_bwd": 1}
+                for name, per, split in (("plain", 3, 0), ("group", 4, 2))}
+        check(out["video"]["launches"] == want,
+              f"video launches {out['video']['launches']}, expected {want}")
+        del video, batch
+        release()
+        # fusion: conf/fusion_config.yaml's train width at bs 60 x 300, f32
+        cfg = load_fusion_config(FUSION_CONFIG_PATH)
+        cfg.data["train_manifest"] = None
+        cfg.train["n_spk"] = FUSION_SPEAKERS
+        for key in ("audio_config", "video_config"):
+            cfg.train[key]["resume"] = None
+        fusion = {name: make_trainer(cfg, os.path.join(root, "exp"), f"f_{name}",
+                                     device=device, mesh=m)
+                  for name, m in (("plain", None), ("group", mesh))}
+        rng = np.random.default_rng(23)
+        s = samples_for_frames(GROUP_FRAMES, 0.025, 0.01, RATE)
+        fb = [torch.from_numpy(a).to(dev) for a in (
+            rng.standard_normal((FUSION_BATCH, s)).astype(np.float32) * 0.1,
+            rng.integers(0, 256, (FUSION_BATCH, FUSION_CLIPS, FUSION_CLIP_FRAMES, 96, 96),
+                         dtype=np.uint8),
+            np.full((FUSION_BATCH, FUSION_CLIPS), FUSION_CLIP_FRAMES, np.int32),
+            (np.arange(FUSION_BATCH) % FUSION_NO_CLIP != 0).astype(np.int32) * FUSION_CLIPS,
+            rng.integers(0, FUSION_SPEAKERS, FUSION_BATCH).astype(np.int64))]
+        out["fusion"] = paired_step(
+            "fusion f32 (bs 60 x 300)", fusion, lambda t: t.train_step(*fb),
+            lambda t: (t.fusion_head, t.criterion),
+            lambda: {**fbank_counts(), **video_counts()}, smi)
+        del fusion, fb
+        release()
+    return out
+
+
+def group_capture(mesh, root: str, smi: str, device=None) -> dict:
+    """A grouped audio capture (K = 4, f32 at bs 256 x 300) under the group:
+    the gradient, BN and metric all-reduces inside the CUDA graph. Held to
+    phase 14's bars against 4 single steps under the same group from one
+    state: each loss within 1e-5 relative, the final parameters no further
+    than 3x what a 1e-6 nudge of the PCM moves the single run."""
+    dev = torch.device(device or "cuda")
+    pcm, labels = group_audio_batch(GROUP_AUDIO_K, 24, dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    pcm_f = pcm.float() / 32768.0
+    nudged = pcm_f * (1.0 + NUDGE * torch.randn(pcm_f.shape, generator=gen, device=dev))
+    runs = {}
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        for name in ("grouped", "single", "nudged"):
+            trainer = AudioTrainer(group_audio_config("float32", GROUP_AUDIO_K), device=device,
+                                   n_spk=TRAIN_SPEAKERS, exp_root=os.path.join(root, "exp"),
+                                   log_time=f"g_{name}", mesh=mesh)
+            margin = trainer.init_margin
+            zero_kernel_counts()
+            if name == "grouped":
+                losses = [float(v) for v in trainer.train_group(pcm, labels, margin)["loss"]]
+                runner = trainer.grouped
+                extra = {"graphs": len(runner.graphs), "warmups": runner.warmup_steps,
+                         "replays": sum(e.replays for e in runner.graphs.values())}
+            else:
+                source = nudged if name == "nudged" else pcm
+                losses = [float(trainer.train_step(source[i], labels[i], margin)["loss"])
+                          for i in range(GROUP_AUDIO_K)]
+                extra = {}
+            _sync()
+            runs[name] = {"losses": losses, "launches": fbank_counts(),
+                          "state": floating_state(trainer.model, trainer.criterion), **extra}
+            del trainer
+            release()
+    rel = loss_rel(runs["grouped"]["losses"], runs["single"]["losses"])
+    d_group = grad_distance(runs["grouped"]["state"], runs["single"]["state"])
+    d_nudge = grad_distance(runs["nudged"]["state"], runs["single"]["state"])
+    g = runs["grouped"]
+    log(f"grouped audio capture under the group (K = {GROUP_AUDIO_K}, f32, bs {BATCH} x "
+        f"{GROUP_FRAMES}): {g['graphs']} graph, {g['replays']} replay, {g['warmups']} eager "
+        f"warm-up steps; losses within {rel:.2e} of the single steps'; parameters "
+        f"{d_group:.3e} of their norm from theirs, a {NUDGE} nudge moves them {d_nudge:.3e}; K1 launches "
+        f"{g['launches']} [{smi}]")
+    check(g["graphs"] == 1 and g["replays"] == 1, "the group was not captured and replayed")
+    check(g["launches"] == {"fft": GROUP_AUDIO_K + g["warmups"], "dft": 0},
+          f"the grouped capture launched {g['launches']}")
+    check(rel <= GROUPED_LOSS_RTOL, f"grouped losses under the group {rel:.3e} from single")
+    check(0 < d_nudge and d_group <= NUDGE_FACTOR * d_nudge,
+          f"grouped parameters under the group {d_group:.3e} from the single run's")
+    return {"loss_rel": rel, "distance": d_group, "nudge_distance": d_nudge,
+            **{k: g[k] for k in ("graphs", "replays", "warmups", "launches")}}
+
+
+def process_group_phase(smi: str, peaks) -> dict:
+    """Phase 17: an NCCL process group of world size 1 on the card."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        mesh = nccl_group(root)
+        try:
+            totals = totals_check(mesh, peaks)
+            steps = group_steps(mesh, root, smi)
+            capture = group_capture(mesh, root, smi)
+        finally:
+            torch.distributed.destroy_process_group()
+    wall = time.perf_counter() - t0
+    log(f"phase 17: {wall:.1f} s")
+    return {"totals": totals, "steps": steps, "grouped_capture": capture, "wall_s": wall}
+
+
 BN_REPLACES = {"fwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:56",
                        "deeplip_tpu/ops/pallas/bn_prelu_kernel.py:70"),
                "bwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:80",
@@ -4599,6 +5147,39 @@ def bn_entry(name: str, kind: str, bn: dict, video: dict) -> dict:
                                       f"{kind}_bound") + ((f"{kind}_library",)
                                                           if f"{kind}_library" in r else ())}
                    for r in bn["rows"]],
+    }
+
+
+def totals_entry(name: str, kind: str, group: dict) -> dict:
+    """A line of the ``kernels`` record for K3's or K4's finalize split in
+    two (totals, then statistics) under a process group: the two passes
+    summed over the nine sites of one bs 128 x 29 step in f32, their
+    launches in phase 17's video step under the group."""
+    rows, per_step = group["totals"]["rows"], group["totals"]["per_step"]
+    errs = ("err_mean", "err_var") if kind == "fwd" else ("err_dx",)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "deeplip_tpu_torch/csrc/bn_prelu_kernel.cu",
+        "replaces": BN_REPLACES[kind][0],
+        "also_replaces": BN_REPLACES[kind][1],
+        "launches": group["steps"]["video"]["launches"]["group"][f"bn_totals_{kind}"],
+        "max_abs_err": max(r[e] for r in rows if r["dtype"] == "float32" for e in errs),
+        "max_abs_err_bf16": max(r[e] for r in rows if r["dtype"] == "bfloat16" for e in errs),
+        "bit_equal_to_single_process": all(r["bit_equal"] for r in rows),
+        "ms": per_step[kind],
+        "plain_ms": per_step[f"{kind}_plain"],
+        "bound_ms": per_step[f"{kind}_bound"],
+        "bound_by": rows[0][f"{kind}_bound_by"],
+        "library_ms": None,
+        "library_note": "no PyTorch call computes it; plain_ms is a float64 sum of the "
+                        "partials and the statistics in torch",
+        "all_reduce_ms": per_step[f"all_reduce_{kind}"],
+        "per": "one bs 128 x 29 Lipreading train step under a process group: 9 sites, f32, "
+               "the two split passes (the NCCL all-reduce between them beside)",
+        "shapes": [{k: r[k] for k in ("shape", "dtype", "sites", "chunks", kind,
+                                      f"{kind}_plain", f"{kind}_bound",
+                                      f"all_reduce_{kind}")} for r in rows],
     }
 
 
@@ -4647,6 +5228,12 @@ def main() -> int:
     dev = device_phase()
     part, peaks = card_peaks(dev["name"])
     native_build_s = build_phase()
+    pressure = capture_pressure_phase(dev["smi"])
+    # phase 17 runs while the card is clean: its grouped capture needs free
+    # device memory for its graph's pool, which the earlier phases' cached
+    # and fragmented segments leave too little of by the end of the script
+    group = process_group_phase(dev["smi"], peaks)
+    release()
     kern = kernel_phase(peaks)
     main_path = main_path_phase()
     sweep = sweep_phase(main_path["extractor"])
@@ -4671,6 +5258,7 @@ def main() -> int:
     release()
     kaldi_io = kaldi_host_io_phase(dev["smi"], main_path.pop("store"), video_bf16["step_ms"],
                                    native_build_s)
+    release()
     launches = {
         "launches": main_path["launches"]["fused_fbank"],
         "launches_sweep": sweep["launches"]["fft"],
@@ -4756,7 +5344,8 @@ def main() -> int:
         "source": "deeplip_tpu_torch/csrc/fbank_kernel.cu",
         **fbank_common,
     }, bn_entry("bn_prelu_fwd", "fwd", bn, video), bn_entry("bn_prelu_bwd", "bwd", bn, video),
-        pool_entry(pool, av, video)]}
+        pool_entry(pool, av, video), totals_entry("bn_prelu_fwd_totals", "fwd", group),
+        totals_entry("bn_prelu_bwd_totals", "bwd", group)]}
     by_name = {e["name"]: e for e in kernels["kernels"]}
     for name in ("fused_fbank", "fused_fbank_v1_configs"):
         by_name[name]["launches_fusion_train"] = fusion["launches"]["fft"]
@@ -4824,6 +5413,15 @@ def main() -> int:
             launches_kaldi_train=kaldi_io["kaldi_train"]["launches"][kernel],
             launches_kaldi_ark_features=kaldi_io["kaldi_feature_launches"] if kernel == "fft"
             else 0)
+    # phase 17: K3/K4 under the world-size-1 group launch 4 a call
+    for name, kind in (("bn_prelu_fwd", "fwd"), ("bn_prelu_bwd", "bwd")):
+        by_name[name]["launches_process_group_video_step"] = {
+            k: v[name] for k, v in group["steps"]["video"]["launches"].items()}
+    for name in ("fused_fbank", "fused_fbank_v1_configs"):
+        by_name[name]["launches_process_group"] = {
+            "audio_step": group["steps"]["audio"]["launches"]["group"]["fft"],
+            "fusion_step": group["steps"]["fusion"]["launches"]["group"]["fft"],
+            "grouped_capture": group["grouped_capture"]["launches"]["fft"]}
     summary = {
         "card": dev["smi"],
         "peaks_part": part,
@@ -4868,6 +5466,8 @@ def main() -> int:
         "grouped_dispatch": grouped,
         "variants": variants,
         "kaldi_host_io": kaldi_io,
+        "process_group": group,
+        "capture_pressure": pressure,
     }
     print(json.dumps(summary), flush=True)
     print(json.dumps(kernels), flush=True)
@@ -4878,4 +5478,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--capture-pressure"]:
+        sys.exit(capture_pressure_child(sys.argv[2]))
     sys.exit(main())

@@ -19,7 +19,10 @@ max-pool, forward and backward, as hand-written CUDA kernels
 runs the front-end kernel on its PCM crops; and training on Kaldi features
 (``data.kaldi_dataset``, ``interop.kaldi``, ``cli/kaldi_xv.py``) with the
 host tooling around it: a native wav/npz reader (``native``, built by g++
-at its first call), TensorBoard event files, MFU and synthetic corpora.
+at its first call), TensorBoard event files, MFU and synthetic corpora;
+and data-parallel training and extraction over processes, one per GPU
+(``core.mesh``, ``core.distributed``; ``torchrun``), with the BN statistics
+of the global batch in ``TorchBatchNorm`` and the BN+PReLU kernels.
 """
 
 __version__ = "0.1.0"

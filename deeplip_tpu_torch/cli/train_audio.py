@@ -18,19 +18,23 @@ Usage::
 
 It runs on the card unless ``--device`` names another device. The config's
 ``train.steps_per_dispatch: K > 1`` trains K same-shape steps as one
-captured CUDA graph on the card (``train/dispatch.py``).
+captured CUDA graph on the card (``train/dispatch.py``). Under ``torchrun
+--nproc_per_node N`` it trains data-parallel over the N processes (one per
+card; ``train.bs`` is the global batch), extracts with each batch split over
+them, and rank 0 writes the checkpoints, logs and stored embeddings.
 """
 
 from __future__ import annotations
 
 import argparse
+import builtins
 import os
 import sys
 
 import numpy as np
 
-from deeplip_tpu_torch.cli.common import (labels_from_speaker_prefix, utterances_from_names,
-                                          utterances_from_trials)
+from deeplip_tpu_torch.cli.common import (labels_from_speaker_prefix, launcher_mesh,
+                                          utterances_from_names, utterances_from_trials)
 from deeplip_tpu_torch.core.config import load_audio_config
 from deeplip_tpu_torch.data.audio_pipeline import EvalUtteranceSet, eval_set_kwargs
 from deeplip_tpu_torch.eval.plda import PLDA, plda_eer
@@ -50,7 +54,7 @@ def _extract_and_save(trainer: AudioTrainer, trial_path: str, root: str,
                       out_dir: str | None) -> EmbeddingStore:
     store = trainer.extract_embeddings(_eval_set(trainer, utterances_from_trials(trial_path,
                                                                                root)))
-    if out_dir:
+    if out_dir and trainer.mesh.is_main:
         store.save_npy_tree(out_dir)
     return store
 
@@ -60,6 +64,8 @@ def run_mode(trainer: AudioTrainer, cfg, mode: str) -> dict:
     list ``<trial_key>_cosine_eer`` / ``_plda_eer`` / ``_fusion_eer``)."""
     data, test = cfg.data, cfg.get("test") or {}
     out: dict = {}
+    # under torchrun every rank computes the same results; rank 0 reports them
+    print = builtins.print if trainer.mesh.is_main else (lambda *a, **k: None)
     if mode in ("test", "av_test") and not trainer.loaded_checkpoint:
         print(f"WARNING: mode '{mode}' is evaluating RANDOMLY INITIALIZED weights (no "
               "train.resume / --resume checkpoint was loaded); the reported EER is "
@@ -84,7 +90,8 @@ def run_mode(trainer: AudioTrainer, cfg, mode: str) -> dict:
             x = np.stack([dev_store[n].detach().cpu().numpy() for n in dev_names])
             labels = np.asarray(labels_from_speaker_prefix(dev_names))
             plda_model = PLDA().fit(x, labels, n_principal_components=20)
-            plda_model.save(os.path.join(trainer.exp_dir, "plda.npz"))
+            if trainer.mesh.is_main:
+                plda_model.save(os.path.join(trainer.exp_dir, "plda.npz"))
         for list_name, trial_key, tag in _LISTS:
             if not test.get(list_name):
                 continue
@@ -145,7 +152,7 @@ def main(argv=None) -> tuple[AudioTrainer, dict]:
     if args.resume:
         cfg.train["resume"] = args.resume
     trainer = AudioTrainer(cfg, device=args.device, exp_root=args.exp_root,
-                           log_time=args.log_time)
+                           log_time=args.log_time, mesh=launcher_mesh(args.device))
     return trainer, run_mode(trainer, cfg, args.mode)
 
 

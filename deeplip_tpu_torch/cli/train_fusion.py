@@ -24,7 +24,10 @@ Usage::
     python -m deeplip_tpu_torch.cli.train_fusion --config conf/fusion_config.yaml \\
         --mode train [--exp-root exp] [--device cpu]
 
-It runs on the card unless ``--device`` names another device.
+It runs on the card unless ``--device`` names another device. Under
+``torchrun --nproc_per_node N`` the train mode trains the head data-parallel
+over the N processes (``train.bs`` is the global batch); rank 0 writes the
+checkpoints and the logs and runs the evaluation.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import os
 import numpy as np
 import torch
 
-from deeplip_tpu_torch.cli.common import labels_from_speaker_prefix
+from deeplip_tpu_torch.cli.common import labels_from_speaker_prefix, launcher_mesh
 from deeplip_tpu_torch.core.config import load_fusion_config
 from deeplip_tpu_torch.data.fusion_pipeline import AVTrainPipeline
 from deeplip_tpu_torch.data.manifest import SpeakerManifest
@@ -90,7 +93,7 @@ def _is_pth(path: str | None) -> bool:
 
 
 def make_trainer(cfg, exp_root: str, log_time: str | None, mode: str = "train",
-                 device: str | torch.device | None = None) -> FusionTrainer:
+                 device: str | torch.device | None = None, mesh=None) -> FusionTrainer:
     """The fusion config's trainer with its encoders loaded from the
     ``resume`` keys and, in the eval modes, the fusion head from
     ``train.resume``; each key names the port's ``net_<tag>`` or a
@@ -128,7 +131,8 @@ def make_trainer(cfg, exp_root: str, log_time: str | None, mode: str = "train",
         lr_decay=float(train_opts.get("lr_decay", 0.1)), steps_per_epoch=steps_per_epoch,
         fusion_head=str(train_opts.get("fusion_head", "lowfer")),
         loss=str(train_opts.get("loss", "CrossEntropy")), exp_root=exp_root,
-        log_time=log_time, compute_dtype=str(train_opts.get("compute_dtype", "float32")))
+        log_time=log_time, compute_dtype=str(train_opts.get("compute_dtype", "float32")),
+        mesh=mesh)
     trainer.manifest = manifest
     audio_resume = _resolve((train_opts.get("audio_config") or {}).get("resume"),
                             "audio encoder")
@@ -260,7 +264,8 @@ def main(argv=None) -> tuple[FusionTrainer, dict]:
 
     cfg = load_fusion_config(args.config)
     trainer = make_trainer(cfg, args.exp_root, args.log_time, mode=args.mode,
-                           device=args.device)
+                           device=args.device,
+                           mesh=launcher_mesh(args.device) if args.mode == "train" else None)
     if args.mode != "train":
         return trainer, run_eval_lists(trainer, cfg, args.mode)
     if trainer.manifest is None:
@@ -273,8 +278,9 @@ def main(argv=None) -> tuple[FusionTrainer, dict]:
         clip_frames=int(cfg.train.get("clip_frames", 32)))
     losses = trainer.train(pipeline, epochs=int(cfg.train.get("epoch", 15)))
     trainer.model_average(avg_num=2)
-    # the reference's train mode evaluates after training
-    return trainer, {"losses": losses, **run_eval_lists(trainer, cfg, "test")}
+    # the reference's train mode evaluates after training (rank 0 alone)
+    evals = run_eval_lists(trainer, cfg, "test") if trainer.mesh.is_main else {}
+    return trainer, {"losses": losses, **evals}
 
 
 if __name__ == "__main__":

@@ -19,14 +19,18 @@ Usage::
         --data-dir data/video_npz --extract-feats \\
         --model-path exp/<t>/net_10 --mouth-embedding-out-path data/embedding
 
-It runs on the card unless ``--device`` names another device.
+It runs on the card unless ``--device`` names another device. Under
+``torchrun --nproc_per_node N`` it trains data-parallel over the N processes
+(``--batch-size`` is the global batch) and rank 0 writes the checkpoints and
+the logs; extraction runs on rank 0 alone.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from deeplip_tpu_torch.core.config import load_config
+from deeplip_tpu_torch.cli.common import launcher_mesh
+from deeplip_tpu_torch.core.config import load_video_config
 from deeplip_tpu_torch.data.video_dataset import VideoClipBatches, scan_clip_dir
 from deeplip_tpu_torch.train.video import VideoTrainer
 
@@ -61,7 +65,7 @@ def main(argv=None) -> tuple[VideoTrainer, dict]:
     p.add_argument("--device", default=None, help="default: the card")
     args = p.parse_args(argv)
 
-    cfg = load_config(args.config_path)
+    cfg = load_video_config(args.config_path)
     labels = None
     if args.label_path:
         with open(args.label_path) as fh:
@@ -71,11 +75,14 @@ def main(argv=None) -> tuple[VideoTrainer, dict]:
     trainer = VideoTrainer(cfg, num_classes=n_classes, device=args.device, lr=args.lr,
                            weight_decay=args.weight_decay, exp_root=args.exp_root,
                            log_time=args.log_time, compute_dtype=args.compute_dtype,
-                           steps_per_dispatch=args.steps_per_dispatch)
+                           steps_per_dispatch=args.steps_per_dispatch,
+                           mesh=launcher_mesh(args.device))
     if args.model_path:
         trainer.load(args.model_path)
 
     if args.extract_feats:
+        if not trainer.mesh.is_main:
+            return trainer, {"features": {}}
         batches = VideoClipBatches(clips, batch_size=args.batch_size, bucket_t=args.bucket_t,
                                    shuffle=False, num_workers=args.workers,
                                    pre_crop=trainer.crop_size)

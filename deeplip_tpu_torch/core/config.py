@@ -116,6 +116,11 @@ def load_audio_config(path: str) -> Config:
     return cfg
 
 
+def load_video_config(path: str) -> Config:
+    """Load the video model config (flat JSON, ``conf/video_config.json``)."""
+    return load_config(path)
+
+
 def _ensure_sections(cfg: Config) -> None:
     for section in ("data", "model", "train", "test"):
         if cfg.get(section) is None:

@@ -29,8 +29,20 @@
 // float4, or four bf16 in 8 bytes) and strides down the rows, so a warp
 // reads whole contiguous rows, and the block's row slots are added in
 // shared memory in a fixed order. The finalize pass adds the chunk slots in
-// double, in a fixed order. So repeated runs give bit-equal statistics. The
-// elementwise passes keep the per-channel constants in shared memory and
+// double, in a fixed order. So repeated runs give bit-equal statistics.
+//
+// Under a process group (data-parallel training, one process per card) the
+// statistics are those of the global batch. Each finalize then runs as two
+// passes: the chunk totals to float64 (2, C) or (3, C), added in the same
+// slot order, and, after the caller has all-reduced those totals across
+// the processes (NCCL on the card), the totals to the statistics with the
+// global row count. The backward keeps its local totals, cast to f32, as
+// this process's dscale, dbias and dalpha: the one gradient all-reduce of
+// the trainer sums them. The single finalize and the two passes compute
+// the statistics by the same device functions, so a group of one process
+// gives them bit for bit.
+//
+// The elementwise passes keep the per-channel constants in shared memory and
 // the op order of the plain PyTorch version, with __fmul_rn / __fadd_rn so
 // that nothing contracts into an FMA: y differs from the plain version's
 // only through the statistics' rounding, and the backward decides z < 0
@@ -130,19 +142,45 @@ __device__ __forceinline__ bool chunk_totals(const float* __restrict__ partial,
   return true;
 }
 
-// K3, finalize: mean, biased var (single pass, clamped at 0) and inv.
+// Channel c's mean, biased var (single pass, clamped at 0) and inv from
+// its totals [sum x, sum x^2] over n rows.
+__device__ __forceinline__ void stats_from(double s, double q, long long n, float eps,
+                                           int c, float* mean, float* var, float* inv) {
+  const double m = s / (double)n;
+  const double v = fmax(q / (double)n - m * m, 0.0);
+  mean[c] = (float)m;
+  var[c] = (float)v;
+  inv[c] = (float)(1.0 / sqrt(v + (double)eps));
+}
+
+// K3, finalize: mean, biased var and inv.
 __global__ void __launch_bounds__(kFinC * kFinS)
 stats_finalize_kernel(const float* __restrict__ partial, int chunks, int C,
                       long long n, float eps, float* __restrict__ mean,
                       float* __restrict__ var, float* __restrict__ inv) {
   double t[2];
   if (!chunk_totals<2>(partial, chunks, C, t)) return;
+  stats_from(t[0], t[1], n, eps, blockIdx.x * kFinC + threadIdx.x, mean, var, inv);
+}
+
+// K3 under a group, first pass: the chunk totals, totals[2][C] in double.
+__global__ void __launch_bounds__(kFinC * kFinS)
+stats_totals_kernel(const float* __restrict__ partial, int chunks, int C,
+                    double* __restrict__ totals) {
+  double t[2];
+  if (!chunk_totals<2>(partial, chunks, C, t)) return;
   const int c = blockIdx.x * kFinC + threadIdx.x;
-  const double m = t[0] / (double)n;
-  const double v = fmax(t[1] / (double)n - m * m, 0.0);
-  mean[c] = (float)m;
-  var[c] = (float)v;
-  inv[c] = (float)(1.0 / sqrt(v + (double)eps));
+  totals[c] = t[0];
+  totals[C + c] = t[1];
+}
+
+// K3 under a group, second pass: the all-reduced totals over the global n.
+__global__ void __launch_bounds__(kThreads)
+stats_from_totals_kernel(const double* __restrict__ totals, int C, long long n, float eps,
+                         float* __restrict__ mean, float* __restrict__ var,
+                         float* __restrict__ inv) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < C) stats_from(totals[c], totals[C + c], n, eps, c, mean, var, inv);
 }
 
 // K3, apply: y = prelu(((x - mean) * inv) * scale + bias).
@@ -227,6 +265,21 @@ bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   reduce_slots<3>(sh, slots, C, partial + 3LL * C * blockIdx.x);
 }
 
+// Channel c's (mean dz, mean dz*xhat) from its totals over n rows.
+__device__ __forceinline__ void bwd_means_from(double a, double b, long long n, int C, int c,
+                                               float* means) {
+  means[c] = (float)(a / (double)n);
+  means[C + c] = (float)(b / (double)n);
+}
+
+// Channel c's totals as the f32 (dbias, dscale, dalpha).
+__device__ __forceinline__ void bwd_sums_from(const double (&t)[3], int C, int c,
+                                              float* sums) {
+  sums[c] = (float)t[0];
+  sums[C + c] = (float)t[1];
+  sums[2 * C + c] = (float)t[2];
+}
+
 // K4, finalize: sums[3][C] = (dbias, dscale, dalpha); means[2][C] =
 // (mean dz, mean dz*xhat).
 __global__ void __launch_bounds__(kFinC * kFinS)
@@ -235,11 +288,31 @@ bwd_finalize_kernel(const float* __restrict__ partial, int chunks, int C,
   double t[3];
   if (!chunk_totals<3>(partial, chunks, C, t)) return;
   const int c = blockIdx.x * kFinC + threadIdx.x;
-  sums[c] = (float)t[0];
-  sums[C + c] = (float)t[1];
-  sums[2 * C + c] = (float)t[2];
-  means[c] = (float)(t[0] / (double)n);
-  means[C + c] = (float)(t[1] / (double)n);
+  bwd_sums_from(t, C, c, sums);
+  bwd_means_from(t[0], t[1], n, C, c, means);
+}
+
+// K4 under a group, first pass: totals[3][C] in double, and this
+// process's own totals as the f32 sums (its parameter gradients).
+__global__ void __launch_bounds__(kFinC * kFinS)
+bwd_totals_kernel(const float* __restrict__ partial, int chunks, int C,
+                  double* __restrict__ totals, float* __restrict__ sums) {
+  double t[3];
+  if (!chunk_totals<3>(partial, chunks, C, t)) return;
+  const int c = blockIdx.x * kFinC + threadIdx.x;
+  totals[c] = t[0];
+  totals[C + c] = t[1];
+  totals[2 * C + c] = t[2];
+  bwd_sums_from(t, C, c, sums);
+}
+
+// K4 under a group, second pass: the global means from the all-reduced
+// totals.
+__global__ void __launch_bounds__(kThreads)
+bwd_from_totals_kernel(const double* __restrict__ totals, int C, long long n,
+                       float* __restrict__ means) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < C) bwd_means_from(totals[c], totals[C + c], n, C, c, means);
 }
 
 // K4, apply: dx = (inv * scale) * (dz - mean(dz) - xhat * mean(dz*xhat)).
@@ -288,6 +361,8 @@ int grid_for(long long n4) {
 
 int finalize_blocks(int C) { return (C + kFinC - 1) / kFinC; }
 
+int channel_blocks(int C) { return (C + kThreads - 1) / kThreads; }
+
 size_t slot_bytes(int k, int C) {
   return sizeof(float) * (size_t)k * (size_t)(kThreads / (C / 4)) * (size_t)C;
 }
@@ -317,6 +392,23 @@ int bn_stats_finalize(const float* partial, int chunks, int C, long long n,
   stats_finalize_kernel<<<finalize_blocks(C), dim3(kFinC, kFinS), 0,
                           static_cast<cudaStream_t>(stream)>>>(
       partial, chunks, C, n, eps, mean, var, inv);
+  return (int)cudaGetLastError();
+}
+
+// The finalize split in two for a process group: chunk totals to float64,
+// then (after the caller's all-reduce) totals to mean, var and inv.
+int bn_stats_totals(const float* partial, int chunks, int C, double* totals,
+                    void* stream) {
+  stats_totals_kernel<<<finalize_blocks(C), dim3(kFinC, kFinS), 0,
+                        static_cast<cudaStream_t>(stream)>>>(partial, chunks, C, totals);
+  return (int)cudaGetLastError();
+}
+
+int bn_stats_from_totals(const double* totals, int C, long long n, float eps,
+                         float* mean, float* var, float* inv, void* stream) {
+  stats_from_totals_kernel<<<channel_blocks(C), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      totals, C, n, eps, mean, var, inv);
   return (int)cudaGetLastError();
 }
 
@@ -360,6 +452,20 @@ int bn_prelu_bwd_finalize(const float* partial, int chunks, int C, long long n,
   bwd_finalize_kernel<<<finalize_blocks(C), dim3(kFinC, kFinS), 0,
                         static_cast<cudaStream_t>(stream)>>>(
       partial, chunks, C, n, sums, means);
+  return (int)cudaGetLastError();
+}
+
+int bn_prelu_bwd_totals(const float* partial, int chunks, int C, double* totals,
+                        float* sums, void* stream) {
+  bwd_totals_kernel<<<finalize_blocks(C), dim3(kFinC, kFinS), 0,
+                      static_cast<cudaStream_t>(stream)>>>(partial, chunks, C, totals, sums);
+  return (int)cudaGetLastError();
+}
+
+int bn_prelu_bwd_from_totals(const double* totals, int C, long long n, float* means,
+                             void* stream) {
+  bwd_from_totals_kernel<<<channel_blocks(C), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(totals, C, n, means);
   return (int)cudaGetLastError();
 }
 

@@ -25,6 +25,15 @@ a criterion of any type). The cosine products run at the tensors' own
 precision: callers on the card keep TF32 off
 (``core.device.fp32_math``), as the JAX package asks for
 ``precision="highest"``.
+
+Each criterion's ``class_logits(embeddings, target, ...)`` gives the
+logits its cross-entropy reads (the margin applied where the boolean
+``target`` mask is set) and the logits the accuracy reads; ``forward`` is
+the cross-entropy over them, plus :meth:`LMCL.penalty`. The same method
+serves :func:`sharded_softmax_loss`, the classifier split by rows over a
+mesh's ``model`` axis (``core.mesh.param_sharding``): each rank scores its
+own classes, and the logsumexp and the target logit cross the ranks in
+all-reduces, as the JAX package's ``param_sharding`` has XLA insert them.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -55,8 +65,9 @@ def _promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(dtype), b.to(dtype))
 
 
-def _one_hot(labels: torch.Tensor, n: int, like: torch.Tensor) -> torch.Tensor:
-    return F.one_hot(labels.long(), n).to(like.dtype)
+def _target(labels: torch.Tensor, n: int) -> torch.Tensor:
+    """``(B, n)`` boolean mask of each row's class."""
+    return F.one_hot(labels.long(), n) > 0
 
 
 class _CosineHead(nn.Module):
@@ -81,10 +92,14 @@ class CrossEntropyHead(nn.Module):
         self.num_classes = num_classes
         self.fc = nn.Linear(embedding_dim, num_classes)
 
-    def forward(self, embeddings: torch.Tensor, labels: torch.Tensor,
-                reduction: str = "mean"):
+    def class_logits(self, embeddings: torch.Tensor, target: torch.Tensor = None):
         logits = self.fc(embeddings.to(torch.promote_types(embeddings.dtype,
                                                            self.fc.weight.dtype)))
+        return logits, logits
+
+    def forward(self, embeddings: torch.Tensor, labels: torch.Tensor,
+                reduction: str = "mean"):
+        logits, _ = self.class_logits(embeddings)
         return softmax_cross_entropy(logits, labels, reduction), logits
 
 
@@ -99,13 +114,21 @@ class LMCL(_CosineHead):
         self.init_margin = init_margin
         self.l1_weight = l1_weight
 
-    def forward(self, embeddings: torch.Tensor, labels: torch.Tensor, margin=None,
-                reduction: str = "mean"):
+    def class_logits(self, embeddings: torch.Tensor, target: torch.Tensor, margin=None):
         margin = self.init_margin if margin is None else margin
         logits = self.cosines(embeddings)
-        margins = _one_hot(labels, self.num_classes, logits) * margin
-        loss = softmax_cross_entropy(self.scale * (logits - margins), labels, reduction)
-        return loss + self.l1_weight * self.weights.abs().sum(), logits
+        margins = target.to(logits.dtype) * margin
+        return self.scale * (logits - margins), logits
+
+    def penalty(self) -> torch.Tensor:
+        """``1e-5 * ||W||_1`` of the (local) class weights."""
+        return self.l1_weight * self.weights.abs().sum()
+
+    def forward(self, embeddings: torch.Tensor, labels: torch.Tensor, margin=None,
+                reduction: str = "mean"):
+        z, logits = self.class_logits(embeddings, _target(labels, self.num_classes), margin)
+        loss = softmax_cross_entropy(z, labels, reduction)
+        return loss + self.penalty(), logits
 
 
 class AAMSoftmax(_CosineHead):
@@ -117,8 +140,7 @@ class AAMSoftmax(_CosineHead):
         self.scale = scale
         self.init_margin = init_margin
 
-    def forward(self, embeddings: torch.Tensor, labels: torch.Tensor, margin=None,
-                reduction: str = "mean"):
+    def class_logits(self, embeddings: torch.Tensor, target: torch.Tensor, margin=None):
         margin = self.init_margin if margin is None else margin
         # a margin tensor stays on the device (a train step captured in a
         # CUDA graph reads the value written before each replay)
@@ -130,9 +152,12 @@ class AAMSoftmax(_CosineHead):
         cos_m, sin_m = trig.cos(margin), trig.sin(margin)
         phi = cos * cos_m - sin * sin_m
         phi = torch.where(cos > trig.cos(math.pi - margin), phi, cos - margin * sin_m)
-        onehot = _one_hot(labels, self.num_classes, cos)
-        logits_m = torch.where(onehot > 0, phi, cos)
-        return softmax_cross_entropy(self.scale * logits_m, labels, reduction), cos
+        return self.scale * torch.where(target, phi, cos), cos
+
+    def forward(self, embeddings: torch.Tensor, labels: torch.Tensor, margin=None,
+                reduction: str = "mean"):
+        z, cos = self.class_logits(embeddings, _target(labels, self.num_classes), margin)
+        return softmax_cross_entropy(z, labels, reduction), cos
 
 
 class ASoftmax(_CosineHead):
@@ -146,8 +171,7 @@ class ASoftmax(_CosineHead):
         self.m = m
         self.base_lambda = base_lambda
 
-    def forward(self, embeddings: torch.Tensor, labels: torch.Tensor, lam=None,
-                reduction: str = "mean"):
+    def class_logits(self, embeddings: torch.Tensor, target: torch.Tensor, lam=None):
         lam = self.base_lambda if lam is None else lam
         norms = torch.linalg.vector_norm(embeddings, dim=-1, keepdim=True).clamp(min=1e-12)
         cos = _promoted_matmul(embeddings / norms, _unit(self.weights).T).clamp(
@@ -157,9 +181,42 @@ class ASoftmax(_CosineHead):
         sign = 1.0 - 2.0 * torch.remainder(k, 2.0)   # (-1)^k by parity
         psi = sign * torch.cos(self.m * theta) - 2.0 * k
         blended = (lam * cos + psi) / (1.0 + lam)
-        onehot = _one_hot(labels, self.num_classes, cos)
-        logits_m = torch.where(onehot > 0, blended, cos) * norms
-        return softmax_cross_entropy(logits_m, labels, reduction), cos * norms
+        return torch.where(target, blended, cos) * norms, cos * norms
+
+    def forward(self, embeddings: torch.Tensor, labels: torch.Tensor, lam=None,
+                reduction: str = "mean"):
+        z, logits = self.class_logits(embeddings, _target(labels, self.num_classes), lam)
+        return softmax_cross_entropy(z, labels, reduction), logits
+
+
+def sharded_softmax_loss(criterion: nn.Module, embeddings: torch.Tensor,
+                         labels: torch.Tensor, offset: int, group, *margin):
+    """The criterion's per-row cross-entropy and accuracy with its classes
+    split by rows over ``group``: this rank holds classes ``[offset, offset
+    + rows)``. Returns ``(per_example, correct)``, both ``(B,)`` and equal on
+    every rank of the group; the per-example losses carry gradients to this
+    rank's classes and, through the all-reduces' backward (a sum over the
+    group), to the embeddings. ``margin`` is the criterion's per-call
+    argument, if any."""
+    from torch.distributed.nn.functional import all_reduce
+
+    weight = next(criterion.parameters())
+    local = torch.arange(weight.shape[0], device=labels.device) + offset
+    target = labels.long()[:, None] == local[None, :]
+    z, report = criterion.class_logits(embeddings, target, *margin)
+    top = z.detach().amax(dim=-1)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    total = all_reduce(torch.exp(z - top[:, None]).sum(dim=-1), group=group)
+    true_logit = all_reduce(torch.where(target, z, torch.zeros_like(z)).sum(dim=-1),
+                            group=group)
+    per_example = torch.log(total) + top - true_logit
+    # the accuracy's argmax over every rank's classes, the first index on a tie
+    best, arg = report.detach().max(dim=-1)
+    top_report = best.clone()
+    dist.all_reduce(top_report, op=dist.ReduceOp.MAX, group=group)
+    first = torch.where(best == top_report, arg + offset, torch.full_like(arg, 2 ** 62))
+    dist.all_reduce(first, op=dist.ReduceOp.MIN, group=group)
+    return per_example, first == labels.long()
 
 
 def build_criterion(name: str, num_classes: int, embedding_dim: int,

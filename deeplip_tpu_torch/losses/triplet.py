@@ -11,6 +11,13 @@ data-dependent shapes:
 
 A hinge is ``relu(cos(a, n) - cos(a, p) + margin)``: higher cosine means
 more similar. Every function returns ``(loss, count)``.
+
+Under a mesh (data-parallel training) the JAX step mines over the global
+batch; :class:`OnlineTripletLoss` then gathers every rank's embeddings and
+labels first (``core.mesh.Mesh.gather_rows``). The gather's backward
+returns this rank's slice of the gradient without summing it: every rank
+computes the same loss of the whole batch, and the trainer's one gradient
+all-reduce counts each row once.
 """
 
 from __future__ import annotations
@@ -84,11 +91,14 @@ class OnlineTripletLoss:
     ``strategy`` of ``train.triplet_strategy``."""
 
     def __init__(self, margin: float = 0.2,
-                 strategy: Literal["all", "hardest", "semihard"] = "hardest"):
+                 strategy: Literal["all", "hardest", "semihard"] = "hardest", mesh=None):
         self.margin = margin
         self.strategy = strategy
+        self.mesh = mesh
 
     def __call__(self, embeddings: torch.Tensor, labels: torch.Tensor):
         fn = {"all": batch_all_triplet_loss, "hardest": batch_hard_triplet_loss,
               "semihard": semihard_triplet_loss}[self.strategy]
+        if self.mesh is not None:
+            embeddings, labels = self.mesh.gather_rows(embeddings), self.mesh.gather_rows(labels)
         return fn(embeddings, labels, self.margin)

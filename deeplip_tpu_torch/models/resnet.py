@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deeplip_tpu_torch.core.mesh import batch_group, global_rows
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.ops.cuda import bn_prelu as K
 
@@ -57,11 +58,13 @@ def bn_act(bn: TorchBatchNorm, act: nn.Module, x: torch.Tensor) -> torch.Tensor:
     statistics it returns then feed ``bn``'s running update. On the card
     ``x`` comes from a cuDNN convolution of a channels-last input, which is
     itself channels-last, so its ``(..., C)`` view is contiguous as the
-    kernels require."""
+    kernels require. Inside a mesh's ``batch_stats`` block the statistics
+    and the running update are the global batch's."""
     if not (bn.training and isinstance(act, PReLU)):
         return act(bn(x))
-    y, mean, var = K.bn_prelu_train(x, bn.weight, bn.bias, act.weight, bn.eps)
-    bn.update_running(mean, var, x.numel() // x.shape[-1])
+    group = batch_group()
+    y, mean, var = K.bn_prelu_train(x, bn.weight, bn.bias, act.weight, bn.eps, group)
+    bn.update_running(mean, var, global_rows(x, group))
     return y
 
 

@@ -25,6 +25,19 @@ wrapper counts them.
 
 For bf16 activations the plain versions, like the kernels, compute in f32
 and round ``y`` and ``dx`` to bf16 once.
+
+``group`` (a ``torch.distributed`` process group, data-parallel training
+with one process per card) makes the statistics those of the global batch,
+as the JAX package's sharded step computes them. Each finalize is then two
+passes, chunk totals to float64 and totals to statistics, with an
+all-reduce of the float64 totals between them (NCCL on the card, gloo on
+the CPU) and the global row count in the second pass: four launches per
+call, two of them the split finalize, counted also in ``.totals_launches``.
+The backward returns this process's own totals as dscale, dbias and dalpha
+(the trainer's one gradient all-reduce sums them) and uses the global
+means in dx. The plain versions take the same all-reduce. Every process
+must bring the same number of rows. Without a group each call launches
+three kernels, as before.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from functools import lru_cache
 
 import torch
 
+from deeplip_tpu_torch.core.mesh import all_reduce, global_rows
 from deeplip_tpu_torch.ops.cuda import build
 
 _THREADS = 256        # threads of a partial-pass block (csrc kThreads)
@@ -47,9 +61,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "bn_stats_partial": [_P, _I, _P, _L, _I, _L, _I, _P],
     "bn_stats_finalize": [_P, _I, _I, _L, _F, _P, _P, _P, _P],
+    "bn_stats_totals": [_P, _I, _I, _P, _P],
+    "bn_stats_from_totals": [_P, _I, _L, _F, _P, _P, _P, _P],
     "bn_prelu_apply": [_P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _P],
     "bn_prelu_bwd_partial": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _P],
     "bn_prelu_bwd_finalize": [_P, _I, _I, _L, _P, _P, _P],
+    "bn_prelu_bwd_totals": [_P, _I, _I, _P, _P, _P],
+    "bn_prelu_bwd_from_totals": [_P, _I, _L, _P, _P],
     "bn_prelu_bwd_apply": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
 }
 
@@ -77,13 +95,17 @@ def _reduced(x: torch.Tensor) -> tuple[tuple[int, ...], int]:
 
 
 def bn_prelu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                       alpha: torch.Tensor, eps: float = 1e-5):
+                       alpha: torch.Tensor, eps: float = 1e-5, group=None):
     """Plain PyTorch version of K3: ``(y, mean, var)``, with the op order of
-    the JAX package's ``bn_prelu_reference`` (statistics in >= f32)."""
-    red, n = _reduced(x)
+    the JAX package's ``bn_prelu_reference`` (statistics in >= f32); under
+    ``group`` the sums are all-reduced first (in the working type: a group of
+    one gives the statistics of no group bit for bit)."""
+    red = _reduced(x)[0]
     xf = x.to(_work_type(x))
-    mean = xf.sum(red) / n
-    var = torch.clamp((xf * xf).sum(red) / n - mean * mean, min=0.0)
+    sums = all_reduce(torch.stack([xf.sum(red), (xf * xf).sum(red)]), group)
+    n = global_rows(x, group)
+    mean = sums[0] / n
+    var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
     inv = torch.rsqrt(var + eps)
     z = ((xf - mean) * inv) * scale.to(xf.dtype) + bias.to(xf.dtype)
     y = torch.where(z >= 0, z, alpha.to(xf.dtype) * z)
@@ -92,10 +114,11 @@ def bn_prelu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def bn_prelu_backward_reference(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
                                 inv: torch.Tensor, scale: torch.Tensor,
-                                bias: torch.Tensor, alpha: torch.Tensor):
+                                bias: torch.Tensor, alpha: torch.Tensor, group=None):
     """Plain PyTorch version of K4, the analytic backward of
     :func:`bn_prelu_reference` with the ``mean``/``var`` cotangents taken as
-    zero: ``(dx, dscale, dbias, dalpha)``."""
+    zero: ``(dx, dscale, dbias, dalpha)``; under ``group`` dx takes the
+    all-reduced means, and the parameter sums stay this process's."""
     red, n = _reduced(x)
     wt = _work_type(x)
     xf, g = x.to(wt), dy.to(wt)
@@ -107,7 +130,13 @@ def bn_prelu_backward_reference(x: torch.Tensor, dy: torch.Tensor, mean: torch.T
     dbias = dz.sum(red)
     dscale = (dz * xhat).sum(red)
     dalpha = torch.where(neg, g * z, torch.zeros_like(z)).sum(red)
-    dx = (inv * scale) * (dz - dbias / n - xhat * (dscale / n))
+    if group is None:
+        mean_dz, mean_dzxh = dbias / n, dscale / n
+    else:
+        totals = all_reduce(torch.stack([dbias, dscale, dalpha]), group)
+        n = global_rows(x, group)
+        mean_dz, mean_dzxh = totals[0] / n, totals[1] / n
+    dx = (inv * scale) * (dz - mean_dz - xhat * mean_dzxh)
     return dx.to(x.dtype), dscale, dbias, dalpha
 
 
@@ -146,11 +175,11 @@ def _device_args(x: torch.Tensor):
 
 
 def bn_prelu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                     alpha: torch.Tensor, eps: float = 1e-5):
-    """K3: ``(y, mean, var, inv)``. Counts its kernel launches in
-    ``bn_prelu_forward.launches``."""
+                     alpha: torch.Tensor, eps: float = 1e-5, group=None):
+    """K3: ``(y, mean, var, inv)``, global statistics under ``group``.
+    Counts its kernel launches in ``bn_prelu_forward.launches``."""
     if x.device.type == "cpu":
-        y, mean, var = bn_prelu_reference(x, scale, bias, alpha, eps)
+        y, mean, var = bn_prelu_reference(x, scale, bias, alpha, eps, group)
         return y, mean, var, torch.rsqrt(var + eps)
     if x.device.type != "cuda":
         raise ValueError(f"bn_prelu_forward runs on cuda or cpu, not {x.device}")
@@ -168,9 +197,21 @@ def bn_prelu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         _launch("bn_stats_partial", x.data_ptr(), is_bf16, partial.data_ptr(),
                 rows, c, per, chunks, stream)
         bn_prelu_forward.launches += 1
-        _launch("bn_stats_finalize", partial.data_ptr(), chunks, c, rows, eps,
-                mean.data_ptr(), var.data_ptr(), inv.data_ptr(), stream)
-        bn_prelu_forward.launches += 1
+        if group is None:
+            _launch("bn_stats_finalize", partial.data_ptr(), chunks, c, rows, eps,
+                    mean.data_ptr(), var.data_ptr(), inv.data_ptr(), stream)
+            bn_prelu_forward.launches += 1
+        else:
+            totals = torch.empty((2, c), dtype=torch.float64, device=x.device)
+            _launch("bn_stats_totals", partial.data_ptr(), chunks, c, totals.data_ptr(),
+                    stream)
+            bn_prelu_forward.launches += 1
+            bn_prelu_forward.totals_launches += 1
+            all_reduce(totals, group)
+            _launch("bn_stats_from_totals", totals.data_ptr(), c, global_rows(x, group), eps,
+                    mean.data_ptr(), var.data_ptr(), inv.data_ptr(), stream)
+            bn_prelu_forward.launches += 1
+            bn_prelu_forward.totals_launches += 1
         _launch("bn_prelu_apply", x.data_ptr(), is_bf16, mean.data_ptr(),
                 inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), alpha.data_ptr(),
                 y.data_ptr(), rows, c, stream)
@@ -180,11 +221,13 @@ def bn_prelu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def bn_prelu_backward(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
                       inv: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                      alpha: torch.Tensor):
+                      alpha: torch.Tensor, group=None):
     """K4: ``(dx, dscale, dbias, dalpha)`` from the forward's ``mean`` and
-    ``inv``. Counts its kernel launches in ``bn_prelu_backward.launches``."""
+    ``inv``; under ``group`` dx takes the global means and the parameter
+    sums stay this process's. Counts its kernel launches in
+    ``bn_prelu_backward.launches``."""
     if x.device.type == "cpu":
-        return bn_prelu_backward_reference(x, dy, mean, inv, scale, bias, alpha)
+        return bn_prelu_backward_reference(x, dy, mean, inv, scale, bias, alpha, group)
     if x.device.type != "cuda":
         raise ValueError(f"bn_prelu_backward runs on cuda or cpu, not {x.device}")
     _check_cuda(x, (mean, inv, scale, bias, alpha), "bn_prelu_backward")
@@ -207,9 +250,21 @@ def bn_prelu_backward(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
         _launch("bn_prelu_bwd_partial", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
                 partial.data_ptr(), rows, c, per, chunks, stream)
         bn_prelu_backward.launches += 1
-        _launch("bn_prelu_bwd_finalize", partial.data_ptr(), chunks, c, rows,
-                sums.data_ptr(), means.data_ptr(), stream)
-        bn_prelu_backward.launches += 1
+        if group is None:
+            _launch("bn_prelu_bwd_finalize", partial.data_ptr(), chunks, c, rows,
+                    sums.data_ptr(), means.data_ptr(), stream)
+            bn_prelu_backward.launches += 1
+        else:
+            totals = torch.empty((3, c), dtype=torch.float64, device=x.device)
+            _launch("bn_prelu_bwd_totals", partial.data_ptr(), chunks, c, totals.data_ptr(),
+                    sums.data_ptr(), stream)
+            bn_prelu_backward.launches += 1
+            bn_prelu_backward.totals_launches += 1
+            all_reduce(totals, group)
+            _launch("bn_prelu_bwd_from_totals", totals.data_ptr(), c, global_rows(x, group),
+                    means.data_ptr(), stream)
+            bn_prelu_backward.launches += 1
+            bn_prelu_backward.totals_launches += 1
         _launch("bn_prelu_bwd_apply", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
                 means.data_ptr(), dx.data_ptr(), rows, c, stream)
         bn_prelu_backward.launches += 1
@@ -218,27 +273,33 @@ def bn_prelu_backward(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
 
 bn_prelu_forward.launches = 0
 bn_prelu_backward.launches = 0
+bn_prelu_forward.totals_launches = 0    # of them, the split finalize under a group
+bn_prelu_backward.totals_launches = 0
 
 
 class _BnPReLUTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, alpha, eps):
-        y, mean, var, inv = bn_prelu_forward(x, scale, bias, alpha, eps)
+    def forward(ctx, x, scale, bias, alpha, eps, group):
+        y, mean, var, inv = bn_prelu_forward(x, scale, bias, alpha, eps, group)
         ctx.save_for_backward(x, scale, bias, alpha, mean, inv)
         ctx.mark_non_differentiable(mean, var)
+        # the backward may run on autograd's device thread: the group goes
+        # with the saved tensors, not through a context the step set
+        ctx.group = group
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, bias, alpha, mean, inv = ctx.saved_tensors
-        dx, dscale, dbias, dalpha = bn_prelu_backward(x, dy, mean, inv, scale, bias, alpha)
+        dx, dscale, dbias, dalpha = bn_prelu_backward(x, dy, mean, inv, scale, bias, alpha,
+                                                      ctx.group)
         return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype),
-                dalpha.to(alpha.dtype), None)
+                dalpha.to(alpha.dtype), None, None)
 
 
 def bn_prelu_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   alpha: torch.Tensor, eps: float = 1e-5):
-    """Fused train-mode BN (batch statistics) + per-channel PReLU with K4 as
-    its backward: ``(y, mean, var)``; ``var`` is the biased batch variance
-    for the caller's running update."""
-    return _BnPReLUTrain.apply(x, scale, bias, alpha, eps)
+                   alpha: torch.Tensor, eps: float = 1e-5, group=None):
+    """Fused train-mode BN (batch statistics, global under ``group``) +
+    per-channel PReLU with K4 as its backward: ``(y, mean, var)``; ``var``
+    is the biased batch variance for the caller's running update."""
+    return _BnPReLUTrain.apply(x, scale, bias, alpha, eps, group)

@@ -67,3 +67,13 @@ def frame_signal(signal: torch.Tensor, frame_len: int, frame_step: int) -> torch
     with the zero-pad-to-cover convention of :func:`num_frames`."""
     t = num_frames(signal.shape[-1], frame_len, frame_step)
     return sliding_frames(signal, frame_len, frame_step, t)
+
+
+def pad_for_frames(signal: torch.Tensor, frame_len: int, frame_step: int) -> torch.Tensor:
+    """Zero-pad the last axis so an integral number of frames covers it."""
+    n = signal.shape[-1]
+    t = num_frames(n, frame_len, frame_step)
+    pad = (t - 1) * frame_step + frame_len - n
+    if pad <= 0:
+        return signal
+    return torch.nn.functional.pad(signal, (0, pad))

@@ -22,6 +22,12 @@ CLIP_MEAN = 0.421
 CLIP_STD = 0.165
 
 
+def rgb_to_gray(frames: torch.Tensor) -> torch.Tensor:
+    """``(..., H, W, 3) -> (..., H, W)`` ITU-R BT.601 luma (cv2 RGB2GRAY)."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=frames.dtype, device=frames.device)
+    return torch.tensordot(frames, w, dims=([-1], [0]))
+
+
 def center_crop(clips: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """``(..., H, W) -> (..., th, tw)`` centre crop (preprocess.py:74-92)."""
     h, w = clips.shape[-2], clips.shape[-1]
@@ -124,3 +130,19 @@ def mask_pad_frames(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     eff = torch.where(lengths > 0, lengths, torch.full_like(lengths, t))
     mask = (torch.arange(t, device=x.device)[None, :] < eff[:, None]).to(x.dtype)
     return x * mask.reshape(mask.shape + (1,) * (x.ndim - 2))
+
+
+def add_noise_snr(signal: torch.Tensor, noise: torch.Tensor, snr_db: float) -> torch.Tensor:
+    """SNR-targeted additive noise for raw audio (the reference's
+    ``preprocess.py:150-179``, defined there but unused)."""
+    sig_power = (signal ** 2).mean(dim=-1, keepdim=True)
+    noise_power = torch.clamp((noise ** 2).mean(dim=-1, keepdim=True), min=1e-12)
+    factor = (sig_power / noise_power) / (10.0 ** (snr_db / 10.0))
+    return signal + noise * torch.sqrt(factor)
+
+
+def normalize_utterance(signal: torch.Tensor) -> torch.Tensor:
+    """Per-utterance audio z-norm (population std; a silent row keeps std 1)."""
+    std = signal.std(dim=-1, keepdim=True, unbiased=False)
+    std = torch.where(std == 0, torch.ones_like(std), std)
+    return (signal - signal.mean(dim=-1, keepdim=True)) / std

@@ -247,14 +247,17 @@ class SpeakerVerifier(ProfileVerifier):
         threshold: accept threshold for :meth:`verify`; usually left unset
             and obtained from :meth:`calibrate`.
         device: ``None`` runs on the card and raises where there is none.
+        mesh: a ``core.mesh.Mesh`` over several processes: each extraction
+            batch is split over them and every process gets every
+            embedding (the JAX verifier's ``mesh`` argument).
     """
 
     def __init__(self, config: str | Config, checkpoint: str | None = None,
                  threshold: float | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         super().__init__(threshold, device)
         cfg = load_audio_config(config) if isinstance(config, str) else config
-        self.extractor = AudioExtractor(cfg, device=device)
+        self.extractor = AudioExtractor(cfg, device=device, mesh=mesh)
         if checkpoint:
             self.extractor.load_checkpoint(str(checkpoint))
 

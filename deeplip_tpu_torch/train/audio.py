@@ -37,6 +37,20 @@ counts each row's valid frames as librosa frames them (``1 + len // hop``),
 not as the buckets' mel framing does. It stages the next
 batch's host→device copy on a side stream while the current batch computes.
 
+With ``mesh`` (``core.mesh``; one process per card, ``torchrun``) the
+trainer is data-parallel as the JAX trainer is under its mesh: every rank
+draws the same global batch and keeps its rows (the pipelines assemble the
+whole batch, since each crop's draws follow the previous rows'), the BN
+statistics are the global batch's, each rank's loss is its rows' share of
+the global mean, and one all-reduce of the gradients after the backward
+sums them; the reported loss and accuracy are all-reduced too. With
+``model > 1`` the criterion's rows split over ``model``
+(``losses.softmax.sharded_softmax_loss``). The triplet criterion mines over
+the gathered global batch. Rank 0 writes the checkpoints and the logs, and
+the parameters are broadcast from it before training. The extractor pads a
+batch to the ranks with zero PCM of length 1, embeds its rows and
+all-gathers the embeddings in order, so every rank holds the whole store.
+
 Embedding math is pinned to FP32: cuDNN runs float32 convolutions in TF32
 by default, which keeps about three digits and misses the 1e-4 embedding
 bar. Train steps run inside the same pin, so the f32 recipe is FP32
@@ -55,6 +69,7 @@ import torch
 
 from deeplip_tpu_torch.core.config import Config
 from deeplip_tpu_torch.core.device import fp32_math, resolve_device
+from deeplip_tpu_torch.core.mesh import Mesh, local_mesh, param_sharding, replicate
 from deeplip_tpu_torch.data.audio_io import read_wav
 from deeplip_tpu_torch import native
 from deeplip_tpu_torch.data.audio_pipeline import AudioTrainPipeline, EvalUtteranceSet
@@ -62,7 +77,8 @@ from deeplip_tpu_torch.data.kaldi_dataset import KaldiTrainPipeline
 from deeplip_tpu_torch.data.manifest import SpeakerManifest
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore, TrialList, cosine_eer
 from deeplip_tpu_torch.interop.torch_import import load_reference_audio_checkpoint
-from deeplip_tpu_torch.losses.softmax import AAMSoftmax, LMCL, build_criterion
+from deeplip_tpu_torch.losses.softmax import (AAMSoftmax, LMCL, build_criterion,
+                                              sharded_softmax_loss)
 from deeplip_tpu_torch.losses.triplet import OnlineTripletLoss
 from deeplip_tpu_torch.models.audio_resnet import AudioResNet
 from deeplip_tpu_torch.models.tdnn import SpeakerEmbNet
@@ -175,11 +191,14 @@ class AudioExtractor:
 
     ``device=None`` runs on the card and raises where there is none. The
     config's ``python_data_config.backend`` (``xla|pallas``) is accepted,
-    but the tensors' device picks the front-end.
+    but the tensors' device picks the front-end. With ``mesh`` each rank
+    embeds its rows of every batch and the ranks gather the embeddings.
     """
 
-    def __init__(self, config: Config, device: str | torch.device | None = None):
+    def __init__(self, config: Config, device: str | torch.device | None = None,
+                 mesh: Mesh | None = None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else local_mesh()
         self.cfg = Config(config)
         data_opts = self.cfg.get("data") or Config()
         feat_opts = data_opts.get("python_data_config") or Config()
@@ -238,14 +257,21 @@ class AudioExtractor:
                 xv, dim=-1, keepdim=True).clamp(min=1e-12)
 
     def _stage(self, batch: dict):
-        """Start the host→device copies of one batch (:func:`stage_arrays`)."""
-        dev, done = stage_arrays([batch[k] for k in ("pcm", "feat_lengths", "sample_lengths")],
-                                 self.device, self._copy_stream)
+        """Start the host→device copies of one batch (:func:`stage_arrays`):
+        under a mesh, this rank's rows of the batch padded to the ranks with
+        zero PCM of length 1 (the JAX extractor's mesh padding)."""
+        arrays = [batch[k] for k in ("pcm", "feat_lengths", "sample_lengths")]
+        if self.mesh.data_group is not None:
+            pad = -len(batch["names"]) % self.mesh.data_size
+            arrays = [np.concatenate([a, (np.zeros if i == 0 else np.ones)(
+                (pad,) + a.shape[1:], a.dtype)]) for i, a in enumerate(arrays)]
+            arrays = [a[self.mesh.rows(len(a))] for a in arrays]
+        dev, done = stage_arrays(arrays, self.device, self._copy_stream)
         return batch["names"], dev, done
 
     def _embed_staged(self, staged, store: EmbeddingStore) -> None:
         names, args, done = staged
-        out = self.embed(*claim_staged(args, done, self.device))
+        out = self.mesh.gather_rows(self.embed(*claim_staged(args, done, self.device)))
         for i, name in enumerate(names):
             store[name] = out[i]
 
@@ -285,13 +311,16 @@ class AudioTrainer:
     ``n_spk`` overrides the manifest's speaker count (the criterion's
     classes). The weights are initialised from seed 0 without touching
     the caller's global RNG. Extraction and scoring go through
-    :class:`AudioExtractor`, which shares the model.
+    :class:`AudioExtractor`, which shares the model. ``mesh``
+    (``core.mesh.make_mesh``) trains data-parallel over its processes; the
+    batch size must divide by its batch ranks.
     """
 
     def __init__(self, config: Config, device: str | torch.device | None = None,
                  exp_root: str = "exp", log_time: str | None = None,
-                 n_spk: int | None = None):
+                 n_spk: int | None = None, mesh: Mesh | None = None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else local_mesh()
         self.cfg = Config(config)
         self.data_opts = self.cfg.get("data") or Config()
         self.train_opts = self.cfg.get("train") or Config()
@@ -321,7 +350,7 @@ class AudioTrainer:
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
-            self.extractor = AudioExtractor(self.cfg, device=self.device)
+            self.extractor = AudioExtractor(self.cfg, device=self.device, mesh=self.mesh)
             self.model = self.extractor.model
             margin_range = self.train_opts.get("margin", [0.2, 0.2])
             self.init_margin = float(margin_range[0])
@@ -330,7 +359,8 @@ class AudioTrainer:
             if self.loss_name == "Triplet":
                 self.criterion = OnlineTripletLoss(
                     margin=self.init_margin,
-                    strategy=self.train_opts.get("triplet_strategy", "hardest"))
+                    strategy=self.train_opts.get("triplet_strategy", "hardest"),
+                    mesh=self.mesh if self.mesh.data_group is not None else None)
                 crit_params = []
             else:
                 self.criterion = build_criterion(
@@ -339,8 +369,12 @@ class AudioTrainer:
                 ).to(self.device)
                 crit_params = list(self.criterion.parameters())
         self.feat_cfg = self.extractor.feat_cfg
+        self._shards = self._shard_criterion()
 
         self.batch_size = int(self.train_opts.get("bs", 256))
+        if self.batch_size % self.mesh.data_size:
+            raise ValueError(f"train.bs {self.batch_size} does not split over "
+                             f"{self.mesh.data_size} batch ranks")
         self.epochs = int(self.train_opts.get("epoch", 30))
         self.pipeline = kaldi
         if self.manifest is not None:
@@ -388,6 +422,7 @@ class AudioTrainer:
         self._rate, self._margin = device_scalar(self.device), device_scalar(self.device)
         self.grouped = GroupedSteps(self._group_body, self._state_tensors, self.device,
                                     prepare=self.optimizer.init_state)
+        self.replicate()
 
         self.loaded_checkpoint = False
         resume = self.train_opts.get("resume")
@@ -408,15 +443,63 @@ class AudioTrainer:
         return {"model": self.model, "criterion": self.criterion,
                 "optimizer": self.optimizer, "step": self.step}
 
+    def _shard_criterion(self) -> dict:
+        """With ``model > 1``, keep this rank's rows of the criterion's
+        classifier (``core.mesh.param_sharding``); returns ``{name:
+        RowSharding}`` of the sharded parameters."""
+        if self.mesh.model_size == 1:
+            return {}
+        named = dict(self.criterion.named_parameters()) if self.loss_name != "Triplet" else {}
+        shards = {n: r for n, r in param_sharding(
+            self.mesh, {f"criterion.{n}": p for n, p in named.items()}).items() if r}
+        if not shards:
+            raise ValueError(f"a model axis of {self.mesh.model_size} needs a classifier whose "
+                             f"rows divide by it; {self.loss_name} over {self.n_spk} has none")
+        with torch.no_grad():
+            for name, rows in shards.items():
+                p = named[name.split(".", 1)[1]]
+                p.data = rows(p.data).clone()
+        self._class_offset = next(iter(shards.values())).rows(self.n_spk).start
+        return {name.split(".", 1)[1]: rows for name, rows in shards.items()}
+
+    def _replicated_params(self) -> list[torch.Tensor]:
+        crit = [] if self.loss_name == "Triplet" else [
+            p for n, p in self.criterion.named_parameters() if n not in self._shards]
+        return [*self.model.parameters(), *crit]
+
+    def _sharded_params(self) -> list[torch.Tensor]:
+        named = dict(self.criterion.named_parameters()) if self._shards else {}
+        return [named[n] for n in self._shards]
+
+    def replicate(self) -> None:
+        """Overwrite the weights, BN buffers and criterion with rank 0's (the
+        sharded criterion rows with their batch group's first rank's)."""
+        if self.mesh.world_group is None:
+            return
+        replicate(self.mesh, [*self._replicated_params(), *self.model.buffers()])
+        self.mesh.broadcast([p.data for p in self._sharded_params()], self.mesh.data_group)
+
     def _criterion_apply(self, emb: torch.Tensor, labels: torch.Tensor, margin):
+        """``(loss, correct)``: this rank's objective (its rows' share of the
+        global loss; the whole loss for the triplet criterion, whose rows
+        are gathered) and its rows' hits as a float ``(B,)``."""
+        mesh = self.mesh
+        margin_arg = (margin,) if isinstance(self.criterion, (LMCL, AAMSoftmax)) else ()
         if self.loss_name == "Triplet":
             loss, _count = self.criterion(emb, labels)
-            # no classification logits: report zeros so the accuracy reads 0
-            return loss, torch.zeros((emb.shape[0], max(self.n_spk, 1)), dtype=emb.dtype,
-                                     device=emb.device)
-        if isinstance(self.criterion, (LMCL, AAMSoftmax)):
-            return self.criterion(emb, labels, margin=margin)
-        return self.criterion(emb, labels)
+            # no classification logits: the JAX trainer's argmax of zero
+            # logits, class 0
+            return loss, (labels == 0).to(torch.float32)
+        if self._shards:
+            per_ex, hit = sharded_softmax_loss(self.criterion, emb, labels, self._class_offset,
+                                               mesh.model_group, *margin_arg)
+            penalty = self.criterion.penalty() if isinstance(self.criterion, LMCL) else 0.0
+            # every model rank computes the same rows' loss: each takes 1/model
+            # of it, and its own rows' penalty
+            loss = mesh.local_share(per_ex.mean() / mesh.model_size + penalty)
+            return loss, hit.to(torch.float32) / mesh.model_size
+        loss, logits = self.criterion(emb, labels, *margin_arg)
+        return mesh.local_share(loss), (logits.argmax(-1) == labels).to(torch.float32)
 
     def _state_tensors(self) -> list[torch.Tensor]:
         """Every tensor a train step updates in place."""
@@ -481,13 +564,17 @@ class AudioTrainer:
         no Python number that changes from step to step, so a CUDA graph
         can capture it."""
         self.model.train()
-        emb = self.model(feats, compute_dtype=self.compute_dtype)
-        loss, logits = self._criterion_apply(emb, labels, margin)
-        acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+        mesh = self.mesh
+        with mesh.batch_stats():
+            emb = self.model(feats, compute_dtype=self.compute_dtype)
+        loss, hits = self._criterion_apply(emb, labels, margin)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        mesh.reduce_gradients(self._replicated_params(), self._sharded_params())
         self.optimizer.step(rate)
-        return {"loss": loss.detach(), "acc": acc.detach()}
+        # the triplet loss is the whole batch's on every rank
+        share = mesh.local_share(loss.detach()) if self.loss_name == "Triplet" else loss.detach()
+        return mesh.report(loss=share, acc=mesh.local_share(hits.mean()))
 
     def _margin_for_epoch(self, epoch: int) -> float:
         """The margin schedule: the init margin up to epoch 5, then the end
@@ -496,12 +583,14 @@ class AudioTrainer:
 
     def _device_batches(self, source):
         """The pipeline's batches (``pcm`` or Kaldi ``feats``) on the
-        device, each one's copy started before the previous batch's step
-        runs."""
+        device, this rank's rows of them, each one's copy started before the
+        previous batch's step runs."""
         pending = None
         for batch in source:
             data = batch["feats"] if "feats" in batch else batch["pcm"]
-            staged = (batch, *stage_arrays([data, batch["labels"]], self.device,
+            axis = 1 if "group" in batch else 0
+            rows = (slice(None),) * axis + (self.mesh.rows(batch["labels"].shape[axis]),)
+            staged = (batch, *stage_arrays([data[rows], batch["labels"][rows]], self.device,
                                            self._copy_stream))
             if pending is not None:
                 yield pending[0], claim_staged(pending[1], pending[2], self.device)
@@ -519,9 +608,11 @@ class AudioTrainer:
             latest = ckpt.latest_checkpoint(self.exp_dir)
             if latest is not None and latest > self.current_epoch:
                 self.load(os.path.join(self.exp_dir, f"net_{latest}"))
+        self.replicate()
         os.makedirs(self.exp_dir, exist_ok=True)
         log_every = int(self.train_opts.get("log_every", 20)) or 1
-        logger = StepLogger(self.exp_dir, print_every=log_every)
+        main = self.mesh.is_main
+        logger = StepLogger(self.exp_dir if main else None, print_every=log_every if main else 0)
         guard = NanGuard()
         epochs = self.epochs if epochs is None else epochs
         losses: list[torch.Tensor] = []
@@ -561,19 +652,39 @@ class AudioTrainer:
 
     # ------------------------------------------------------------------
     def save(self, epoch: int | None = None) -> str:
+        """Write ``net_<epoch>`` (rank 0 writes; every rank waits for it).
+        Under ``model > 1`` the criterion is gathered whole and the
+        optimizer state saved is rank 0's."""
         epoch = self.current_epoch if epoch is None else epoch
-        return ckpt.save_checkpoint(self.exp_dir, epoch, {
-            "epoch": epoch, "state_dict": self.model.state_dict(),
-            "criterion": self._criterion_state(),
-            "optimizer": self.optimizer.state_dict()})
+        tree = {"epoch": epoch, "state_dict": self.model.state_dict(),
+                "criterion": self.criterion_state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+        path = ckpt.checkpoint_path(self.exp_dir, epoch)
+        if self.mesh.is_main:
+            path = ckpt.save_checkpoint(self.exp_dir, epoch, tree)
+        self.mesh.barrier()
+        return path
 
-    def _criterion_state(self) -> dict:
-        return {} if self.loss_name == "Triplet" else self.criterion.state_dict()
+    def criterion_state_dict(self) -> dict:
+        """The criterion's state dict, its rows gathered from the ``model``
+        ranks where they are split."""
+        if self.loss_name == "Triplet":
+            return {}
+        state = self.criterion.state_dict()
+        for name in self._shards:
+            parts = [torch.empty_like(state[name]) for _ in range(self.mesh.model_size)]
+            torch.distributed.all_gather(parts, state[name].contiguous(),
+                                         group=self.mesh.model_group)
+            state[name] = torch.cat(parts)
+        return state
 
     def _restore_weights(self, tree: dict) -> None:
         self.model.load_state_dict(tree["state_dict"], strict=True)
         if tree.get("criterion") and self.loss_name != "Triplet":
-            self.criterion.load_state_dict(tree["criterion"], strict=True)
+            state = dict(tree["criterion"])
+            for name, rows in self._shards.items():
+                state[name] = rows(state[name])
+            self.criterion.load_state_dict(state, strict=True)
 
     def _load_tree(self, path_or_tag: str) -> tuple[str, dict]:
         exp_dir, tag = os.path.split(path_or_tag.rstrip("/"))

@@ -21,6 +21,15 @@ stay out of the optimizer and never move, as in torch's SGD and the JAX
 package's masked chain. ``compute_dtype='bf16'`` runs both encoders in
 bf16 and feeds the head bf16-rounded embeddings; the criterion stays f32.
 
+With ``mesh`` (``core.mesh``; one process per card) the head trains
+data-parallel: every rank pads the global batch to a multiple of the batch
+ranks with zero rows (group size 0, left out of the loss as a bad pair is;
+the JAX trainer's mesh padding), keeps its rows, divides its rows' loss by
+the all-reduced count of rows with clips, all-reduces the head's and the
+criterion's gradients once and reports all-reduced metrics. The head runs
+in eval mode, so no statistic crosses the ranks. Rank 0 writes the
+checkpoints and the logs.
+
 Test-time extraction is the reference's live path: z-norm(audio x-vector)
 ++ z-norm(clip-group mean video embedding), the head bypassed;
 ``use_fusion_head`` returns the head's output instead, and ``return_parts``
@@ -38,6 +47,7 @@ import torch
 from torch import nn
 
 from deeplip_tpu_torch.core.device import fp32_math, resolve_device
+from deeplip_tpu_torch.core.mesh import Mesh, all_reduce, local_mesh, replicate
 from deeplip_tpu_torch.data.audio_io import read_wav
 from deeplip_tpu_torch.data.video_dataset import load_clip
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore
@@ -51,7 +61,7 @@ from deeplip_tpu_torch.models.tdnn import SpeakerEmbNet
 from deeplip_tpu_torch.ops import features as F
 from deeplip_tpu_torch.ops import video as V
 from deeplip_tpu_torch.ops.framing import frame_len_step, num_frames
-from deeplip_tpu_torch.ops.masked import length_mask
+from deeplip_tpu_torch.ops.masked import length_mask, masked_mean
 from deeplip_tpu_torch.train import checkpoint as ckpt
 from deeplip_tpu_torch.train.audio import claim_staged, compute_dtype_of, masked_cmvn, stage_arrays
 from deeplip_tpu_torch.train.metrics import NanGuard, StepLogger
@@ -71,8 +81,7 @@ def _znorm(x: torch.Tensor) -> torch.Tensor:
 def _masked_mean(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Mean of ``x (B, L, D)`` over each row's first ``lengths[b]`` entries;
     an empty row gives zeros."""
-    mask = length_mask(lengths, x.shape[1], dtype=x.dtype)[..., None]
-    return (x * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)
+    return masked_mean(x, length_mask(lengths, x.shape[1], dtype=x.dtype)[..., None], axis=1)
 
 
 class FusionTrainer:
@@ -91,7 +100,9 @@ class FusionTrainer:
                  crop_size: tuple[int, int] = (88, 88), video_hidden_dim: int = 256,
                  video_trunk_layers=(2, 2, 2, 2), fusion_head: str = "lowfer",
                  loss: str = "CrossEntropy", exp_root: str = "exp",
-                 log_time: str | None = None, seed: int = 0, compute_dtype: str = "float32"):
+                 log_time: str | None = None, seed: int = 0, compute_dtype: str = "float32",
+                 mesh: Mesh | None = None):
+        self.mesh = mesh if mesh is not None else local_mesh()
         if fusion_head not in FUSION_HEADS:
             raise NotImplementedError(f"fusion head {fusion_head!r}")
         self.compute_dtype = compute_dtype_of(compute_dtype)
@@ -298,7 +309,8 @@ class FusionTrainer:
     def train_step(self, pcm: torch.Tensor, clips_u8: torch.Tensor, clip_lengths: torch.Tensor,
                    group_sizes: torch.Tensor, labels: torch.Tensor) -> dict:
         """One SGD step of the head and the criterion from one paired batch
-        on the device: the frozen encoders, then :meth:`head_step`."""
+        on the device (under a mesh, this rank's rows): the frozen encoders,
+        then :meth:`head_step`."""
         with fp32_math(), torch.no_grad():
             xv = self._audio_embed(pcm)
             em = self._video_group_embed(clips_u8, clip_lengths, group_sizes, self.compute_dtype)
@@ -312,10 +324,11 @@ class FusionTrainer:
         clips, the backward and the SGD update. Returns the step's ``loss``
         and ``acc`` as tensors on the device; the gradients stay in the
         parameters' ``.grad``."""
+        mesh = self.mesh
         with fp32_math():
             train_dtype = self.compute_dtype or self._param_dtype(self.audio_model)
             valid = (group_sizes > 0).to(torch.float32)
-            denom = torch.clamp(valid.sum(), min=1.0)
+            denom = torch.clamp(all_reduce(valid.sum(), mesh.data_group), min=1.0)
             fused = self._head_apply(xv.to(train_dtype), em.to(train_dtype))
             # the criterion takes the head's output in f32 (it promotes it to
             # its parameters' type where they are wider)
@@ -324,12 +337,26 @@ class FusionTrainer:
             acc = ((logits.argmax(-1) == labels) * valid).sum() / denom
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            mesh.reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"]])
             lr = self.schedule(self.step)
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
             self.optimizer.step()
         self.step += 1
-        return {"loss": loss.detach(), "acc": acc.detach()}
+        return mesh.report(loss=loss.detach(), acc=acc.detach())
+
+    def rank_rows(self, batch: dict) -> dict:
+        """A host batch padded with zero rows (group size 0) to a multiple of
+        the batch ranks, and cut to this rank's rows."""
+        keys = ("pcm", "clips", "clip_lengths", "group_sizes", "labels")
+        pad = -len(batch["labels"]) % self.mesh.data_size
+        out = {**batch, "n_real": len(batch["labels"])}
+        for k in keys:
+            arr = batch[k]
+            if pad:
+                arr = np.concatenate([arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
+            out[k] = arr[self.mesh.rows(len(arr))]
+        return out
 
     def _device_batches(self, source):
         """The pipeline's batches on the device, each one's copy started
@@ -356,16 +383,20 @@ class FusionTrainer:
                 tree = ckpt.load_checkpoint(self.exp_dir, latest, map_location=self.device)
                 self._restore(tree)
                 self.current_epoch = int(tree.get("epoch", 0))
+        replicate(self.mesh, [*self.fusion_head.parameters(), *self.criterion.parameters()])
         os.makedirs(self.exp_dir, exist_ok=True)
         log_every = 10
-        logger = StepLogger(self.exp_dir, print_every=log_every, prefix="fusion")
+        main = self.mesh.is_main
+        logger = StepLogger(self.exp_dir if main else None,
+                            print_every=log_every if main else 0, prefix="fusion")
         guard = NanGuard()
         losses: list[torch.Tensor] = []
         for epoch in range(self.current_epoch + 1, epochs + 1):
             self.current_epoch = epoch
             metrics, last_log, n_real = None, self.step, 0
-            for batch, args in self._device_batches(pipeline.epoch(epoch)):
-                n_real = len(batch["labels"])
+            for batch, args in self._device_batches(
+                    self.rank_rows(b) for b in pipeline.epoch(epoch)):
+                n_real = batch["n_real"]
                 metrics = self.train_step(*args)
                 losses.append(metrics["loss"])
                 # a metric read waits for the card: only on logging steps
@@ -392,9 +423,13 @@ class FusionTrainer:
         """Write ``net_<epoch>``: the head as ``state_dict``, the criterion
         and the epoch."""
         epoch = self.current_epoch if epoch is None else epoch
-        return ckpt.save_checkpoint(self.exp_dir, epoch, {
-            "epoch": epoch, "state_dict": self.fusion_head.state_dict(),
-            "criterion": self.criterion.state_dict()})
+        path = ckpt.checkpoint_path(self.exp_dir, epoch)
+        if self.mesh.is_main:
+            path = ckpt.save_checkpoint(self.exp_dir, epoch, {
+                "epoch": epoch, "state_dict": self.fusion_head.state_dict(),
+                "criterion": self.criterion.state_dict()})
+        self.mesh.barrier()
+        return path
 
     def model_average(self, avg_num: int = 2) -> None:
         """Average the last ``avg_num`` epoch checkpoints into ``net_avg``

@@ -28,6 +28,18 @@ partial run (a shape change, the end of an epoch) runs as single steps. The
 crop offsets and flips of a group are drawn on the host in the order K
 single steps draw them, and reach the graph, with each step's rate, through
 its input buffers.
+
+With ``mesh`` (``core.mesh``; one process per card) the trainer is
+data-parallel as the JAX trainer is under its mesh. Every rank reads the
+same global batch and pads it to a multiple of the batch ranks: pad rows
+repeat row 0's pixels and label and have length 0, so they are left out of
+the loss and the accuracy, and their pad frames are masked with row 0's
+length (BN never sees normalised black frames). The crop offsets and flips
+are drawn for the whole global batch and sliced, so every world size draws
+the same. A rank then steps on its rows: global BN statistics (the fused
+K3/K4 and ``TorchBatchNorm`` reduce over the batch group), the loss over
+the all-reduced count of valid rows, one all-reduce of the gradients, and
+all-reduced metrics. Rank 0 writes the checkpoints and the logs.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import numpy as np
 import torch
 
 from deeplip_tpu_torch.core.device import resolve_device
+from deeplip_tpu_torch.core.mesh import Mesh, all_reduce, local_mesh, replicate
 from deeplip_tpu_torch.data.video_dataset import VideoClipBatches
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore
 from deeplip_tpu_torch.losses.softmax import softmax_cross_entropy
@@ -55,14 +68,16 @@ from deeplip_tpu_torch.train.state import torch_adam
 
 
 class VideoTrainer:
-    """``device=None`` runs on the card and raises where there is none."""
+    """``device=None`` runs on the card and raises where there is none;
+    ``mesh`` trains data-parallel over its processes."""
 
     def __init__(self, model_cfg, num_classes: int, device: str | torch.device | None = None,
                  lr: float = 3e-4, weight_decay: float = 1e-4, t_max: int = 5,
                  crop_size: tuple[int, int] = (88, 88), exp_root: str = "exp",
                  log_time: str | None = None, hidden_dim: int = 256,
                  trunk_layers=(2, 2, 2, 2), seed: int = 0, compute_dtype: str = "float32",
-                 steps_per_dispatch: int = 1):
+                 steps_per_dispatch: int = 1, mesh: Mesh | None = None):
+        self.mesh = mesh if mesh is not None else local_mesh()
         self.compute_dtype = compute_dtype_of(compute_dtype)
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
         self.device = resolve_device(device)
@@ -85,6 +100,7 @@ class VideoTrainer:
         self._rate = device_scalar(self.device)
         self.grouped = GroupedSteps(self._group_body, self._state_tensors, self.device,
                                     prepare=self.optimizer.init_state)
+        replicate(self.mesh, self.model)
 
     # ------------------------------------------------------------------
     def _state_tensors(self) -> list[torch.Tensor]:
@@ -94,30 +110,55 @@ class VideoTrainer:
 
     def train_step(self, clips_u8: torch.Tensor, lengths: torch.Tensor,
                    labels: torch.Tensor, generator: torch.Generator) -> dict:
-        """One optimizer step from a uint8 ``(B, T, H, W)`` batch on the
-        device; ``generator`` draws the crop offsets and flips."""
+        """One optimizer step from a uint8 ``(B, T, H, W)`` batch;
+        ``generator`` draws the crop offsets and flips. Under a mesh the
+        batch is the global one, its rows a multiple of the batch ranks
+        (:meth:`pad_to_ranks`): the draws cover all of it, and this rank
+        steps on its rows."""
         dh, dw = V.crop_offsets(clips_u8, self.crop_size, generator)
         flip = V.flip_flags(clips_u8.shape[0], generator)
-        return self.train_step_frames(self._train_frames(clips_u8, lengths, dh, dw, flip),
-                                      lengths, labels)
+        rows = self.mesh.rows(clips_u8.shape[0])
+        clips, lens, labs = (t[rows].to(self.device, non_blocking=True)
+                             for t in (clips_u8, lengths, labels))
+        # a pad row repeats the global batch's row 0, not this rank's
+        fill = lengths[0].to(self.device) if self.mesh.data_group is not None else None
+        x = self._train_frames(clips, lens, dh[rows], dw[rows], flip[rows], fill)
+        return self.train_step_frames(x, lens, labs)
 
-    def _train_frames(self, clips_u8, lengths, dh, dw, flip) -> torch.Tensor:
+    def pad_to_ranks(self, batch: dict) -> dict:
+        """A host batch padded to a multiple of the batch ranks, as the JAX
+        trainer pads to its mesh: pad rows repeat row 0's pixels (blank
+        images would pollute the BN statistics) and label, with length 0."""
+        pad = -len(batch["labels"]) % self.mesh.data_size
+        if not pad:
+            return batch
+        zeros = np.zeros((pad,), batch["lengths"].dtype)
+        return {**batch, "clips": np.concatenate([batch["clips"],
+                                                  np.repeat(batch["clips"][:1], pad, axis=0)]),
+                "lengths": np.concatenate([batch["lengths"], zeros]),
+                "labels": np.concatenate([batch["labels"],
+                                          np.repeat(batch["labels"][:1], pad, axis=0)])}
+
+    def _train_frames(self, clips_u8, lengths, dh, dw, flip, fill=None) -> torch.Tensor:
         """The train transform at the given draws, ``(B, T, H, W, 1)`` in the
         parameters' type (f32 pixels meet f64 weights as Flax promotes
-        them)."""
+        them). ``fill`` is the global batch's row 0 length (default: this
+        batch's)."""
         x = V.train_transform_at(clips_u8, dh, dw, flip, self.crop_size)[..., None]
         # zero the pad frames after the transform. A length-0 row (a pad row
         # that repeats row 0's pixels) is masked with row 0's length, so the
         # BN statistics never see normalised black pad frames
-        x = V.mask_pad_frames(x, torch.where(lengths > 0, lengths, lengths[0]))
+        x = V.mask_pad_frames(x, torch.where(lengths > 0, lengths,
+                                             lengths[0] if fill is None else fill))
         return x.to(next(self.model.parameters()).dtype)
 
     def train_step_frames(self, x: torch.Tensor, lengths: torch.Tensor,
                           labels: torch.Tensor) -> dict:
         """One optimizer step from already transformed frames
-        ``(B, T, H, W, 1)``. Rows of length 0 are left out of the loss and
-        the accuracy. Returns the step's ``loss`` and ``acc`` as tensors on
-        the device; the gradients stay in the parameters' ``.grad``."""
+        ``(B, T, H, W, 1)`` (under a mesh, this rank's rows). Rows of length
+        0 are left out of the loss and the accuracy. Returns the step's
+        ``loss`` and ``acc`` as tensors on the device; the gradients stay in
+        the parameters' ``.grad``."""
         self._rate.fill_(self.schedule(self.step))
         metrics = self._frames_step(x, lengths, labels, self._rate)
         self.step += 1
@@ -128,8 +169,9 @@ class VideoTrainer:
         """K optimizer steps from ``(K, B, T, H, W)`` uint8 clips and ``(K,
         B)`` lengths and labels on the device, as one dispatch; ``draws``
         holds each step's crop offsets and flips (``dh``, ``dw``, ``flip``,
-        ``(K, B)`` each). Returns every step's ``loss`` and ``acc`` as
-        ``(K,)`` tensors."""
+        ``(K, B)`` each). Under a mesh these are this rank's rows, and
+        ``draws["fill"]`` ``(K,)`` holds each global batch's row 0 length.
+        Returns every step's ``loss`` and ``acc`` as ``(K,)`` tensors."""
         k = clips_u8.shape[0]
         rates = torch.tensor([self.schedule(self.step + i) for i in range(k)],
                              dtype=torch.float64)
@@ -141,8 +183,9 @@ class VideoTrainer:
 
     def _group_body(self, i: int, inputs, scalars) -> dict:
         lengths = inputs["lengths"][i]
+        fill = inputs["fill"][i] if "fill" in inputs else None
         x = self._train_frames(inputs["clips"][i], lengths, inputs["dh"][i], inputs["dw"][i],
-                               inputs["flip"][i])
+                               inputs["flip"][i], fill)
         return self._frames_step(x, lengths, inputs["labels"][i], scalars["rate"][i])
 
     def _frames_step(self, x, lengths, labels, rate) -> dict:
@@ -150,38 +193,46 @@ class VideoTrainer:
         number that changes from step to step, so a CUDA graph can capture
         it."""
         self.model.train()
+        mesh = self.mesh
         valid = (lengths > 0).to(torch.float32)
-        denom = torch.clamp(valid.sum(), min=1.0)
+        # the global count of valid rows: pad rows may all fall on one rank
+        denom = torch.clamp(all_reduce(valid.sum(), mesh.data_group), min=1.0)
         with fp32_math():
-            logits = self.model(x, lengths=torch.clamp(lengths, min=1),
-                                compute_dtype=self.compute_dtype)
+            with mesh.batch_stats():
+                logits = self.model(x, lengths=torch.clamp(lengths, min=1),
+                                    compute_dtype=self.compute_dtype)
             per_ex = softmax_cross_entropy(logits, labels, reduction="none")
             loss = (per_ex * valid).sum() / denom
             acc = ((logits.argmax(-1) == labels) * valid).sum() / denom
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            mesh.reduce_gradients(self.model.parameters())
             self.optimizer.step(rate)
-        return {"loss": loss.detach(), "acc": acc.detach()}
+        return mesh.report(loss=loss.detach(), acc=acc.detach())
 
     def _flush(self, pending: list, generator: torch.Generator, losses: list) -> dict:
-        """Run the pending same-shape batches: one group for a full run of
-        K > 1, single steps otherwise, as the JAX trainer's ``flush`` does.
-        Returns the last step's metrics."""
-        device_args = [[torch.from_numpy(p[k]).to(self.device, non_blocking=True)
-                        for k in ("clips", "lengths", "labels")] for p in pending]
+        """Run the pending same-shape (global, padded) batches: one group for
+        a full run of K > 1, single steps otherwise, as the JAX trainer's
+        ``flush`` does. Returns the last step's metrics."""
         if len(pending) == self.steps_per_dispatch > 1:
+            rows = self.mesh.rows(len(pending[0]["labels"]))
+            device_args = [[torch.from_numpy(p[k][rows]).to(self.device, non_blocking=True)
+                            for k in ("clips", "lengths", "labels")] for p in pending]
             size = self.crop_size
             draws = []
             for p in pending:   # the order in which single steps draw them
                 dh, dw = V.crop_offsets(torch.from_numpy(p["clips"]), size, generator)
-                draws.append((dh, dw, V.flip_flags(len(p["labels"]), generator)))
-            group = self.train_group(
-                *(torch.stack(a) for a in zip(*device_args)),
-                {n: torch.stack(d) for n, d in zip(("dh", "dw", "flip"), zip(*draws))})
+                draws.append((dh[rows], dw[rows], V.flip_flags(len(p["labels"]),
+                                                               generator)[rows]))
+            draws = {n: torch.stack(d) for n, d in zip(("dh", "dw", "flip"), zip(*draws))}
+            if self.mesh.data_group is not None:
+                draws["fill"] = torch.from_numpy(np.stack([p["lengths"][0] for p in pending]))
+            group = self.train_group(*(torch.stack(a) for a in zip(*device_args)), draws)
             losses.extend(group["loss"])
             return {k: v[-1] for k, v in group.items()}
-        for clips, lengths, labels in device_args:
-            metrics = self.train_step(clips, lengths, labels, generator)
+        for p in pending:
+            metrics = self.train_step(*(torch.from_numpy(p[k]) for k in
+                                        ("clips", "lengths", "labels")), generator)
             losses.append(metrics["loss"])
         return metrics
 
@@ -192,9 +243,12 @@ class VideoTrainer:
             latest = ckpt.latest_checkpoint(self.exp_dir)
             if latest is not None and latest > self.current_epoch:
                 self.load(os.path.join(self.exp_dir, f"net_{latest}"))
+        replicate(self.mesh, self.model)
         os.makedirs(self.exp_dir, exist_ok=True)
         log_every = 10
-        logger = StepLogger(self.exp_dir, print_every=log_every, prefix="video")
+        main = self.mesh.is_main
+        logger = StepLogger(self.exp_dir if main else None,
+                            print_every=log_every if main else 0, prefix="video")
         guard = NanGuard()
         generator = torch.Generator().manual_seed(seed)
         losses: list[torch.Tensor] = []
@@ -203,6 +257,7 @@ class VideoTrainer:
             metrics, b, last_log, pending = None, 0, self.step, []
             for batch in batches.epoch(epoch):
                 b = len(batch["labels"])
+                batch = self.pad_to_ranks(batch)
                 if pending and pending[-1]["clips"].shape != batch["clips"].shape:
                     metrics = self._flush(pending, generator, losses)
                     pending = []
@@ -231,9 +286,14 @@ class VideoTrainer:
 
     # ------------------------------------------------------------------
     def save(self, epoch: int | None = None) -> str:
+        """Write ``net_<epoch>`` (rank 0 writes; every rank waits for it)."""
         epoch = self.current_epoch if epoch is None else epoch
-        return ckpt.save_checkpoint(self.exp_dir, epoch, {
-            "epoch": epoch, "state_dict": self.model.state_dict()})
+        path = ckpt.checkpoint_path(self.exp_dir, epoch)
+        if self.mesh.is_main:
+            path = ckpt.save_checkpoint(self.exp_dir, epoch, {
+                "epoch": epoch, "state_dict": self.model.state_dict()})
+        self.mesh.barrier()
+        return path
 
     def load(self, path_or_tag: str) -> None:
         exp_dir, tag = os.path.split(path_or_tag.rstrip("/"))

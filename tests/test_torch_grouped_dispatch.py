@@ -12,9 +12,11 @@ audio and video trainers, against the JAX package's.
 - A grouped training run equals a single-step run from the same seed, bit
   for bit (on the CPU a group runs its K steps eagerly).
 - The runner's bookkeeping on the card, played out on the CPU with a stub
-  graph: the warm-up leaves no trace in the state, a capture moves no
-  launch count, each replay adds what the capture recorded, a replaced
-  state tensor forces a new capture, and the returned metrics are copies.
+  graph: the K eager warm-up steps leave no trace in the state, a capture
+  moves no launch count, each replay adds what the capture recorded, a
+  replaced state tensor forces a new capture, and the returned metrics are
+  copies; a capture short of memory, and (where cuDNN runs deterministic)
+  a first replay not bit-equal to the eager steps, are refused.
 - The optimizers' device-tensor rate against the float rate.
 """
 
@@ -292,23 +294,79 @@ def test_replay_counts_and_state_with_a_stub_graph():
     x = torch.ones(2, 3)
     rate = torch.tensor([1.0, 2.0], dtype=torch.float64)
     out = runner.run({"x": x}, {"rate": rate})
-    # one eager warm-up step ran (its state undone); one replay of 2 steps
-    assert runner.warmup_steps == 1 and len(replays) == 1
-    assert (counters.k1, counters.k3) == (1 + 2, 27 * 3)
+    # the group's 2 steps ran eagerly (their state undone); one replay of 2
+    assert runner.warmup_steps == 2 and len(replays) == 1
+    assert (counters.k1, counters.k3) == (2 + 2, 27 * 4)
     assert torch.equal(state["w"], torch.full((3,), 3.0))
     assert out["loss"].tolist() == [3.0, 9.0]
     out["loss"].zero_()                   # a copy: the static outputs stay
     out = runner.run({"x": x}, {"rate": torch.tensor([0.5, 0.5], dtype=torch.float64)})
     assert out["loss"].tolist() == [10.5, 12.0] and len(replays) == 2
-    assert (counters.k1, counters.k3) == (5, 27 * 5) and runner.warmup_steps == 1
+    assert (counters.k1, counters.k3) == (6, 27 * 6) and runner.warmup_steps == 2
     assert len(runner.graphs) == 1
     # another shape captures anew; a replaced state tensor does too
     runner.run({"x": torch.ones(3, 3)}, {"rate": torch.ones(3, dtype=torch.float64)})
-    assert len(runner.graphs) == 2 and runner.warmup_steps == 2
+    assert len(runner.graphs) == 2 and runner.warmup_steps == 5
     state["w"] = state["w"].clone()
     runner.run({"x": x}, {"rate": rate})
-    assert runner.warmup_steps == 3 and len(runner.graphs) == 2
-    assert (counters.k1, counters.k3) == (5 + 1 + 3 + 1 + 2, 27 * 12)
+    assert runner.warmup_steps == 7 and len(runner.graphs) == 2
+    assert (counters.k1, counters.k3) == (6 + 3 + 3 + 2 + 2, 27 * 16)
+
+
+@pytest.mark.parametrize("deterministic", [True, False], ids=["deterministic", "default"])
+def test_a_first_replay_unlike_the_eager_steps_is_refused(deterministic):
+    """A graph that computes other numbers than the eager steps (as one
+    whose convolution took another cuDNN algorithm), played out with a stub
+    graph whose replay drifts by 1e-6: where cuDNN runs deterministic, its
+    first replay is held bit for bit to the group's K eager steps from the
+    same state, and the runner raises, keeps no graph and leaves the state
+    as it was before the group; a graph that agrees is kept. With cuDNN's
+    nondeterministic algorithms allowed the check is off."""
+    counters = types.SimpleNamespace(k1=0, k3=0)
+    state = {"w": torch.zeros(3)}
+    drift = {"by": 0.0}
+
+    def body(i, inputs, scalars):
+        state["w"] += inputs["x"][i] * scalars["rate"][i] + drift["by"]
+        return {"loss": state["w"].sum().clone()}
+
+    class Drifting(_StubGraph):
+        def replay(self):
+            drift["by"] = 1e-6
+            try:
+                super().replay()
+            finally:
+                drift["by"] = 0.0
+
+    class DriftingRunner(_StubRunner):
+        def _graph_capture(self, fn):
+            graph, outputs = super()._graph_capture(fn)
+            return Drifting(graph.fn, outputs, graph.counters, graph.replays), outputs
+
+    inputs = {"x": torch.ones(2, 3)}
+    scalars = {"rate": torch.tensor([1.0, 2.0], dtype=torch.float64)}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=deterministic, allow_tf32=False):
+        drifting = DriftingRunner(body, lambda: [state["w"]], torch.device("cpu"),
+                                  counters=((counters, "k1"), (counters, "k3")), replays=[])
+        if deterministic:
+            with pytest.raises(RuntimeError, match="first replay of a group of 2 steps is not "
+                                                   "bit-equal .*largest difference"):
+                drifting.run(inputs, scalars)
+            assert not drifting.graphs and torch.equal(state["w"], torch.zeros(3))
+        else:
+            drifting.run(inputs, scalars)
+            assert len(drifting.graphs) == 1
+            state["w"].zero_()
+        agreeing = _StubRunner(body, lambda: [state["w"]], torch.device("cpu"),
+                               counters=((counters, "k1"), (counters, "k3")), replays=[])
+        out = agreeing.run(inputs, scalars)
+    assert len(agreeing.graphs) == 1 and out["loss"].tolist() == [3.0, 9.0]
+    nan = float("nan")
+    assert dispatch._first_unlike({"a": torch.tensor([nan, 1.0])},
+                                  {"a": torch.tensor([nan, 1.0])}) is None
+    assert "a: largest difference 5.000e-01" == dispatch._first_unlike(
+        {"a": torch.tensor([nan, 1.0])}, {"a": torch.tensor([nan, 1.5])})
 
 
 def test_a_failed_capture_ends_the_generators_capture(monkeypatch):
@@ -377,3 +435,75 @@ def test_a_device_tensor_rate_steps_like_the_float_rate(make):
     for x, y in zip(a, b):
         np.testing.assert_allclose(x.detach().numpy(), y.detach().numpy(), rtol=1e-14,
                                    atol=1e-15)
+
+
+@pytest.mark.parametrize("kind", ["audio", "video"])
+def test_a_dropped_trainer_is_freed_without_the_cycle_collector(kind):
+    """A trainer owns its runner, and the runner holds the trainer's step
+    body and state through weak references: a dropped trainer is freed at
+    once (on the card, with its graphs and their memory pool) while the
+    cycle collector is off, and its runner raises instead of stepping it."""
+    import gc
+    import weakref
+
+    from deeplip_tpu_torch.ops.framing import samples_for_frames
+
+    if kind == "audio":
+        tr = AudioTrainer(Config(A._cfg("LMCL", steps_per_dispatch=2)), device="cpu",
+                          n_spk=A.N_SPK)
+        rng = np.random.default_rng(0)
+        pcm = rng.integers(-3000, 3000, (2, A.BS, samples_for_frames(A.T, 0.025, 0.01, 16000)))
+        labels = rng.integers(0, A.N_SPK, (2, A.BS))
+        tr.train_group(torch.tensor(pcm, dtype=torch.int16), torch.tensor(labels), 0.2)
+    else:
+        tr = VideoTrainer(VT.CFG, VT.NC, device="cpu", steps_per_dispatch=2, **VT.SMALL)
+    runner, ref = tr.grouped, weakref.ref(tr)
+    gc.collect()
+    gc.disable()
+    try:
+        del tr
+        assert ref() is None
+    finally:
+        gc.enable()
+    with pytest.raises(ReferenceError):
+        runner.state()
+
+
+def test_a_capture_short_of_memory_is_refused(monkeypatch):
+    """The card's guard against a warm-up or capture short of memory, where
+    cuDNN would quietly take another algorithm than the eager steps, played
+    out with stubs: an allocation that failed in either (``num_ooms``
+    moved), or the card running out of memory there, makes the runner raise
+    and keep no graph, with the launch counts as they were; with none the
+    graph is kept."""
+    counters = types.SimpleNamespace(k1=0)
+    runner = dispatch.GroupedSteps(lambda i, inputs, scalars: {}, lambda: [],
+                                   torch.device("cpu"), counters=((counters, "k1"),))
+    runner.captures = True
+    stats, failed = {"num_ooms": 0}, {"warm_up": 0, "capture": 0, "raise": 0}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "memory_stats", lambda device=None: dict(stats))
+
+    def warm_up(k, inputs, scalars):
+        stats["num_ooms"] += failed["warm_up"] + failed["raise"]
+        if failed["raise"]:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        return {"loss": torch.zeros(k)}, []
+
+    def capture(fn):
+        counters.k1 += 2
+        stats["num_ooms"] += failed["capture"]
+        return types.SimpleNamespace(replay=lambda: None), {"loss": torch.zeros(2)}
+
+    monkeypatch.setattr(runner, "_warm_up", warm_up)
+    monkeypatch.setattr(runner, "_graph_capture", capture)
+    inputs, scalars = {"x": torch.zeros(2, 3)}, {"rate": torch.zeros(2)}
+    for where in ("warm_up", "capture", "raise"):
+        failed[where] = 1
+        with pytest.raises(RuntimeError, match="1 allocation.*failed while warming up and "
+                                               "capturing a group of 2"):
+            runner._capture(2, inputs, scalars)
+        failed[where] = 0
+    assert counters.k1 == 0
+    entry = runner._capture(2, inputs, scalars)
+    assert entry.graph is not None and entry.launches == [2] and counters.k1 == 0

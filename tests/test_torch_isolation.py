@@ -60,9 +60,14 @@ _PROBE = textwrap.dedent("""
         "deeplip_tpu_torch.train.tb_events", "deeplip_tpu_torch.train.flops",
         "deeplip_tpu_torch.data.synthetic"]
     assert set(kaldi_and_host_io) <= set(names), sorted(set(kaldi_and_host_io) - set(names))
+    multi_gpu = ["deeplip_tpu_torch.core.mesh", "deeplip_tpu_torch.core.distributed"]
+    assert set(multi_gpu) <= set(names), sorted(set(multi_gpu) - set(names))
     # importing builds nothing: the native library is built at its first call
     native = sys.modules["deeplip_tpu_torch.native"]
     assert native._lib is None and native._error is None
+    # and starts no process group
+    import torch.distributed
+    assert not torch.distributed.is_initialized()
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0].startswith("jax")
                  or m == "deeplip_tpu" or m.startswith("deeplip_tpu."))
@@ -79,6 +84,33 @@ def test_port_imports_no_jax_and_no_jax_package():
     n_modules, bad = int(out[0]), " ".join(out[1:])
     assert n_modules >= 40   # the serving and CLI modules among them
     assert bad == "[]", bad
+
+
+_SURFACES = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, {repo!r})
+    import deeplip_tpu_torch.core, deeplip_tpu_torch.data, deeplip_tpu_torch.eval
+    import deeplip_tpu_torch.interop, deeplip_tpu_torch.losses, deeplip_tpu_torch.models
+    import deeplip_tpu_torch.ops
+    packages = set("deeplip_tpu_torch." + p for p in
+                   ("core", "data", "eval", "interop", "losses", "models", "ops"))
+    loaded = sorted(m for m in sys.modules
+                    if m.startswith("deeplip_tpu_torch.") and m not in packages)
+    # the re-exports resolve at first use: no builder, no module behind them
+    from deeplip_tpu_torch.ops import extract_features, masked_mean
+    from deeplip_tpu_torch.core import make_mesh, initialize
+    import torch.distributed
+    builders = [m for m in ("deeplip_tpu_torch.ops.cuda.build", "deeplip_tpu_torch.native")
+                if m in sys.modules and getattr(sys.modules[m], "_lib", None) is not None]
+    print(loaded, builders, torch.distributed.is_initialized())
+""")
+
+
+def test_package_surfaces_import_nothing_eagerly():
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", _SURFACES.format(repo=REPO)],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    assert out.strip() == "[] [] False", out
 
 
 def _no_card(monkeypatch):
