@@ -14,19 +14,24 @@ without the package, it exits non-zero and prints no result. Phases:
 3. Each front-end kernel against its plain PyTorch version on the card,
    TF32 off, on raw PCM with and without ragged ``sample_lengths`` (whole,
    cut, short, empty rows): mfcc-24 (energy on and off), fbank-24 and
-   logfbank-60 at 24/200/203/299/331 frames, and seven configs at other
-   rates and FFT sizes (n_fft 64 to 4096, and 510), within atol 2e-4 /
-   rtol 1e-3; the per-kernel counters show that each case went to the
-   kernel the dispatch rule names (the FFT kernel for a power-of-two
-   n_fft, the DFT kernel at 510); log-mel band 0 of the MFCC configs held
-   alone; an empty row equal to the plain guarded zero; the FFT kernel's
-   largest error named and held against the plain version in float64. At
-   the 256 x 3 s batch: the FFT kernel, the DFT kernel forced at n_fft
+   logfbank-60 at 24/200/203/299/331 frames, and thirteen configs at other
+   rates and FFT sizes (n_fft 64 to 4096 in powers of two; 400 with
+   Whisper's logfbank-80, 480, 510, 441 at 44.1 kHz, 768 at 48 kHz, 66
+   and 4095), within atol 2e-4 / rtol 1e-3; the per-kernel counters show
+   that each case went to the kernel the dispatch rule names (every n_fft
+   in [64, 4096] to the FFT route: its power-of-two plan, or its
+   mixed-radix and Bluestein plan at any other size; none to the DFT
+   kernel); log-mel band 0 of the MFCC configs held alone; an empty row
+   equal to the plain guarded zero; each route's largest error named and
+   held against the plain version in float64, and at 441 with 40 filters
+   (single-bin filters) each version's misses of the bar against float64.
+   At the 256 x 3 s batch: the FFT kernel, the DFT kernel forced at n_fft
    512, the plain version and the plain ``dft='fft'`` front-end (cuFFT) in
    turns, by CUDA events, beside the least time the card could take for
    the function and the time of each kernel's own operations;
    logfbank-60 on the FFT kernel, with its DC bin against float64 beside
-   the plain versions'; n_fft 510 on the DFT kernel.
+   the plain versions'; at n_fft 400, 480 and 510 the mixed-radix route,
+   the DFT kernel forced, the plain version and ``dft='fft'`` the same way.
 4. The main path through the user's entry points at the flagship E-TDNN
    width (seeded random weights, BN statistics calibrated on one batch
    and then perturbed): a ragged
@@ -272,16 +277,39 @@ without the package, it exits non-zero and prints no result. Phases:
    inside the graph, held to phase 14's bars against 4 single steps under
    the group.
 
-The phases run in the order 1, 2, 14b, 17, 3-5, 11, 6, 9, 7, 8, 10, 12, 13, 14,
-15, 16. The last line is
+18. The mixed-radix route through the user's entry points: the flagship
+   E-TDNN (seeded, calibrated) with ``n_fft: 400`` in place of 512 (the
+   torchaudio and Whisper size) through ``AudioExtractor.extract_embeddings``
+   on a ragged 64-utterance corpus, one launch of the mixed-radix route per
+   batch and none of the others (counts zeroed before, read after), every
+   batch re-embedded through the plain front-end within 1e-4; then one f32
+   ``AudioTrainer`` step of ``conf/audio_config.yaml`` at that ``n_fft``
+   (bs 256 x 300, TF32 off, cuDNN deterministic) against one through the
+   plain front-end from the same state, by phase 11's rule.
+
+The phases run in the order 1, 2, 14b, 17, 3-5, 18, 11, 6, 9, 7, 8, 10, 12,
+13, 14, 15, 16; each one's wall seconds are logged and kept in the
+summary's ``phase_seconds``. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the ``kernels``
 JSON record.
+
+    python3 chip_smoke.py --k1-against OTHER/deeplip_tpu_torch/csrc/fbank_fft_kernel.cu
+
+holds this checkout's FFT kernel against another checkout's (an earlier
+commit's, unpacked by ``git archive``), built with the same nvcc flags:
+bit for bit at phase 3's power-of-two cases and at the 256 x 3 s batch
+(mfcc-24 and logfbank-60), both timed in turns. Then it forces the
+mixed-radix kernel onto the power-of-two plans 512 to 4096, holds it to
+the plain version within phase 3's bars and times it in turns against the
+FFT kernel at that batch. It prints one JSON line and exits non-zero when
+an output differs by a bit or misses a bar.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import gc
 import glob
@@ -402,13 +430,15 @@ def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
 
 
 def fft_flops(n_fft: int) -> float:
-    """Operations of the complex ``n_fft/2``-point FFT inside a real
-    ``n_fft``-point one: the FFT kernel's radix plan where ``n_fft`` is a
-    power of two, else the usual 5 M log2 M for M points."""
-    if n_fft & (n_fft - 1) == 0:
-        return float(fbank.fft_flops(n_fft))
+    """The function's least work for the complex ``n_fft/2``-point FFT
+    inside a real ``n_fft``-point one: the fewer of the route's plan
+    (``fbank.fft_flops``) and the usual 5 M log2 M for M = ``n_fft/2``
+    points. The plan's count is the smaller at every power of two and at
+    400, 480 and 768; 5 M log2 M is the smaller under Bluestein (510: the
+    plan does some 4x that, which :func:`kernel_flops` counts) and at an
+    odd ``n_fft``, whose plan transforms all ``n_fft`` points."""
     m = n_fft // 2
-    return 5.0 * m * math.log2(m)
+    return min(float(fbank.fft_flops(n_fft)), 5.0 * m * math.log2(m))
 
 
 def front_end_work(b: int, s: int, cfg: F.FeatureConfig) -> tuple[float, float]:
@@ -437,18 +467,21 @@ def front_end_work(b: int, s: int, cfg: F.FeatureConfig) -> tuple[float, float]:
 def kernel_flops(b: int, s: int, cfg: F.FeatureConfig, kernel: str) -> float:
     """Operations that one kernel's own algorithm does for a ``(b, s)``
     batch, beyond what :func:`front_end_work` counts for the function.
-    ``"fft"``: pre-emphasis of each frame's own samples (2 a sample), the
-    DC bin's sum in sample order (3 a sample), the FFT, the untangle of
-    both bins of every pair apart (20 a bin with the power), the mel sums,
-    and for MFCC the energy, the DCT and the lifter. ``"dft"``: the dense
+    ``"fft"`` and ``"mixed"``: pre-emphasis of each frame's own samples (2
+    a sample), the DC bin's sum in sample order (3 a sample), the FFT by
+    the route's plan (``fbank.fft_flops``), the untangle of both bins of
+    every pair apart (20 a bin with the power; an odd ``n_fft`` takes the
+    power alone, 3 a bin), the mel sums, and for MFCC the energy, the DCT
+    and the lifter. ``"dft"``: the dense
     product against the basis columns that are not zero (the sine columns
     at DC and at Nyquist are, up to rounding), the power (3 a bin), the mel
     sums, and for MFCC the energy, the DCT and the lifter."""
     t = num_frames(s, cfg.frame_len, cfg.frame_step)
     n = cfg.n_fft // 2
     _, weights = fbank.mel_csr(cfg.num_bin, cfg.n_fft, cfg.rate, cfg.low_freq, cfg.high_freq)
-    if kernel == "fft":
-        per_frame = 5 * cfg.frame_len + fft_flops(cfg.n_fft) + 20 * (n + 1)
+    if kernel in ("fft", "mixed"):
+        per_frame = (5 * cfg.frame_len + fbank.fft_flops(cfg.n_fft)
+                     + (20 if cfg.n_fft % 2 == 0 else 3) * (n + 1))
     else:
         basis = spectral.rdft_fused_matrix(cfg.frame_len, cfg.n_fft)
         cols = int(np.count_nonzero(np.abs(basis).max(axis=0) > 1e-6))
@@ -467,7 +500,8 @@ def bound(work: tuple[float, float], peaks) -> tuple[float, str]:
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-FBANK_KERNELS = {"fft": fbank.fft_audio_features, "dft": fbank.dft_audio_features}
+FBANK_KERNELS = {"fft": fbank.fft_audio_features, "mixed": fbank.mixed_fft_audio_features,
+                 "dft": fbank.dft_audio_features}
 
 
 def zero_fbank_counts() -> None:
@@ -541,8 +575,14 @@ KERNEL_FRAMES = [24, 200, 203, 299, 331]
 # multiples of 4 (22.05 kHz); the FFT kernel's two smallest sizes (64 and
 # 128 points at 8 kHz: 128 and 64 frames a block) and 256 points; a
 # 2048-point frame; its largest size (4096 points at 48 kHz, where the tile
-# shrinks to fit shared memory); and a 510-point FFT, which is no power of
-# two and goes to the DFT kernel
+# shrinks to fit shared memory). Then sizes that are no power of two, on
+# the mixed-radix route: Whisper's log-mel (80 filters, some of them empty,
+# n_fft 400 = 2 x 8 x 5 x 5, hop 160), a 30 ms frame (480 = 2 x 16 x 3 x 5),
+# 510 (N = 255 = 3 x 5 x 17: Bluestein, M = 512), a 10 ms frame at 44.1 kHz
+# (441 = 3^2 x 7^2, odd: the full complex DFT, hop 441, the 4-byte copies),
+# a 16 ms frame at 48 kHz (768 = 2 x 16 x 8 x 3, the size the TPU's v2
+# kernel takes), the smallest Bluestein size (66: N = 33, M = 128) and the
+# largest (4095, odd: M = 8192, one frame a block)
 OTHER_CONFIGS = [
     ("mfcc", {"rate": 22050, "n_fft": 1024, "num_bin": 40, "num_cep": 13}),
     ("mfcc", {"rate": 8000, "n_fft": 64, "win_len": 0.008, "win_shift": 0.004,
@@ -552,8 +592,22 @@ OTHER_CONFIGS = [
     ("logfbank", {"rate": 8000, "n_fft": 256, "num_bin": 23}),
     ("fbank", {"n_fft": 2048, "num_bin": 40, "win_len": 0.128}),
     ("logfbank", {"rate": 48000, "n_fft": 4096, "win_len": 0.085, "num_bin": 80}),
+    ("logfbank", {"n_fft": 400, "num_bin": 80}),
+    ("mfcc", {"n_fft": 480, "win_len": 0.03}),
     ("mfcc", {"n_fft": 510}),
+    ("mfcc", {"rate": 44100, "n_fft": 441, "win_len": 0.01}),
+    ("logfbank", {"rate": 48000, "n_fft": 768, "win_len": 0.016, "num_bin": 40}),
+    ("mfcc", {"rate": 8000, "n_fft": 66, "win_len": 0.008, "win_shift": 0.004,
+              "num_bin": 12, "num_cep": 10}),
+    ("logfbank", {"rate": 48000, "n_fft": 4095, "win_len": 0.085, "num_bin": 64}),
 ]
+# 40 filters at 441 points and 44.1 kHz: the lowest filters hold one bin
+# each (or none), so a log-mel band is the log of one bin's power, which in
+# f32 neither route nor the plain version gives within the bar of float64
+# in every frame (ill_conditioned_witness)
+ILL_CONDITIONED = ("mfcc", {"rate": 44100, "n_fft": 441, "win_len": 0.01, "num_bin": 40,
+                            "num_cep": 13})
+MIXED_TIMED = (400, 480, 510)     # n_fft of the mixed-radix route timed at 256 x 3 s
 OTHER_FRAMES = [24, 203]
 
 
@@ -565,12 +619,12 @@ def ragged_lengths(n: int) -> torch.Tensor:
 def launch_one(cfg: F.FeatureConfig, x: torch.Tensor, lengths, what: str) -> torch.Tensor:
     """``audio_features`` once, checking from the counters that it went to
     the kernel the dispatch rule names, and to it alone."""
-    kind = "fft" if fbank.uses_fft_kernel(cfg) else "dft"
+    kind = fbank.front_end_kernel(cfg)
     before = fbank_counts()
     got = audio_features(x, cfg, lengths)
     after = fbank_counts()
     moved = {k: after[k] - before[k] for k in after}
-    check(moved == {"fft": int(kind == "fft"), "dft": int(kind == "dft")},
+    check(moved == {k: int(k == kind) for k in FBANK_KERNELS},
           f"{what}: launches moved {moved}, not one of the {kind} kernel")
     return got
 
@@ -584,7 +638,7 @@ def f64_reference(x: torch.Tensor, cfg: F.FeatureConfig, lengths) -> torch.Tenso
 
 
 def explain_worst(worst: dict) -> dict:
-    """The FFT kernel's largest error against the f32 plain version, held
+    """A route's largest error against the f32 plain version, held
     against float64: the three values there, and in that frame the log-mel
     band furthest from float64 in the kernel, with the plain version's
     error in that band and the band's share of the frame's mel power."""
@@ -601,7 +655,9 @@ def explain_worst(worst: dict) -> dict:
            "band": band, "band_kernel_err": float(k_lm[band] - r_lm[band]),
            "band_plain_err": float(p_lm[band] - r_lm[band]),
            "band_power_share": float(power[band] / power.sum())}
-    log(f"FFT kernel's largest error {out['err']:.3e}: {out['case']}, row {r}, frame {t}, "
+    out["route"] = worst["route"]
+    log(f"{worst['route']} route's largest error {out['err']:.3e}: {out['case']}, row {r}, "
+        f"frame {t}, "
         f"coefficient {c}: kernel {out['kernel']:.6f}, plain {out['plain']:.6f}, float64 "
         f"{ref:.6f} (kernel {out['kernel'] - ref:+.2e}, plain {out['plain'] - ref:+.2e} from "
         f"float64); in that frame log-mel band {band} is the kernel's furthest from float64 "
@@ -640,10 +696,90 @@ def dc_witness(pcm: torch.Tensor, lengths, cfg: F.FeatureConfig, got: torch.Tens
     return out
 
 
+def ill_conditioned_witness() -> dict:
+    """:data:`ILL_CONDITIONED` at 203 frames, whole and ragged rows: how
+    many values of the mixed-radix route miss the kernel bar against the
+    plain version, and how many of each miss it against float64. Logged,
+    not barred: single-bin filters put f32 rounding of one bin straight
+    into a log-mel band (the lowest filters of this config)."""
+    feat_type, kw = ILL_CONDITIONED
+    cfg = F.FeatureConfig(feat_type=feat_type, normalize=False, **kw)
+    idx, _ = fbank.mel_csr(cfg.num_bin, cfg.n_fft, cfg.rate, cfg.low_freq, cfg.high_freq)
+    rng = np.random.default_rng(7)
+    n = samples_for_frames(203, cfg.win_len, cfg.win_shift, cfg.rate)
+    misses = lambda got, want: int((got.double() - want.double()).abs().gt(
+        ATOL + RTOL * want.double().abs()).sum())
+    out = {"config": f"{feat_type} {kw}", "filters_of_one_bin": int((idx[1] == 1).sum()),
+           "empty_filters": int((idx[1] == 0).sum()), "values": 0,
+           "kernel_vs_plain": 0, "kernel_vs_float64": 0, "plain_vs_float64": 0}
+    for _ in range(4):
+        x = torch.from_numpy((rng.standard_normal((4, n)) * 0.1).astype(np.float32)).cuda()
+        for lengths in (None, ragged_lengths(n)):
+            got = launch_one(cfg, x, lengths, "ill-conditioned witness")
+            want = audio_features_reference(x, cfg, lengths)
+            ref = f64_reference(x, cfg, lengths)
+            out["values"] += got.numel()
+            out["kernel_vs_plain"] += misses(got, want)
+            out["kernel_vs_float64"] += misses(got, ref)
+            out["plain_vs_float64"] += misses(want, ref)
+    log(f"ill-conditioned config {out['config']} ({out['filters_of_one_bin']} filters of one "
+        f"bin, {out['empty_filters']} empty), {out['values']} values: outside atol {ATOL} / "
+        f"rtol {RTOL} the mixed-radix route against the plain version {out['kernel_vs_plain']}, "
+        f"against float64 {out['kernel_vs_float64']}; the plain version against float64 "
+        f"{out['plain_vs_float64']} (logged, not barred)")
+    return out
+
+
+def mixed_timing(pcm: torch.Tensor, lengths, cfg: F.FeatureConfig, what: str, peaks) -> dict:
+    """At the 256 x 3 s batch and ``cfg`` at each ``n_fft`` of
+    :data:`MIXED_TIMED`: the mixed-radix route held to the plain version,
+    then it, the DFT kernel forced, the plain version and the plain
+    ``dft='fft'`` in turns by CUDA events, beside the function's bound and
+    each kernel's own operations. The route must beat the DFT kernel and
+    ``dft='fft'``."""
+    b, s = pcm.shape
+    rows = {}
+    for n_fft in MIXED_TIMED:
+        c = dataclasses.replace(cfg, n_fft=n_fft)
+        c_fft = dataclasses.replace(c, dft="fft")
+        fns = {"mixed": lambda: audio_features(pcm, c, lengths),
+               "dft": lambda: fbank.dft_audio_features(pcm, c, lengths),
+               "plain": lambda: audio_features_reference(pcm, c, lengths),
+               "cufft": lambda: audio_features_reference(pcm, c_fft, lengths)}
+        want = fns["plain"]()
+        err = {"mixed": compare(launch_one(c, pcm, lengths, f"{what}, n_fft {n_fft}"), want,
+                                f"{what}, n_fft {n_fft}"),
+               "dft": compare(fns["dft"](), want, f"{what}, DFT kernel at n_fft {n_fft}")}
+        del want
+        order = ["plain", "mixed", "dft", "cufft", "mixed", "dft", "cufft", "plain"]
+        runs = [(name, time_ms(fns[name])) for name in order]
+        ms = {name: sum(t for q, t in runs if q == name) / 2 for name in fns}
+        fn_bound, fn_by = bound(front_end_work(b, s, c), peaks)
+        rows[n_fft] = {"ms": ms, "runs_ms": runs, "max_abs_err": err, "bound_ms": fn_bound,
+                       "bound_by": fn_by, "plan": [r for r, _ in fbank.fft_plan(n_fft).passes],
+                       "bluestein": fbank.fft_plan(n_fft).bluestein,
+                       "algorithm_ops_ms": {k: kernel_flops(b, s, c, k) / peaks[0] * 1e3
+                                            for k in ("mixed", "dft")}}
+        r = rows[n_fft]
+        log(f"{what}, mfcc-24 at n_fft {n_fft} (plan {r['plan']}"
+            f"{', Bluestein' if r['bluestein'] else ''}; plain, mixed, DFT, dft='fft', mixed, "
+            f"DFT, dft='fft', plain: {', '.join(f'{t:.4f}' for _, t in runs)} ms): mixed-radix "
+            f"route {ms['mixed']:.4f} ms, DFT kernel {ms['dft']:.4f} ms, plain {ms['plain']:.4f} "
+            f"ms, plain dft='fft' {ms['cufft']:.4f} ms; the function's bound {fn_bound:.4f} ms "
+            f"({fn_by}): {fn_bound / ms['mixed']:.1%} of it; the route's own operations "
+            f"{r['algorithm_ops_ms']['mixed']:.4f} ms, the DFT kernel's "
+            f"{r['algorithm_ops_ms']['dft']:.4f} ms; max abs err mixed {err['mixed']:.3e}, DFT "
+            f"{err['dft']:.3e}")
+        check(ms["mixed"] < min(ms["dft"], ms["cufft"]),
+              f"n_fft {n_fft}: the mixed-radix route ({ms['mixed']:.4f} ms) is not faster than "
+              f"the DFT kernel ({ms['dft']:.4f}) and dft='fft' ({ms['cufft']:.4f})")
+    return rows
+
+
 def kernel_phase(peaks) -> dict:
     rng = np.random.default_rng(0)
-    max_err = {"fft": 0.0, "dft": 0.0}
-    worst = {"err": -1.0}
+    max_err = {k: 0.0 for k in FBANK_KERNELS}
+    worst = {"fft": {"err": -1.0}, "mixed": {"err": -1.0}}
     band0_err = 0.0
     cases = ([(c, KERNEL_FRAMES) for c in KERNEL_CONFIGS]
              + [(c, OTHER_FRAMES) for c in OTHER_CONFIGS])
@@ -651,7 +787,8 @@ def kernel_phase(peaks) -> dict:
     with fp32_math():
         for (feat_type, kw), frame_counts in cases:
             cfg = F.FeatureConfig(feat_type=feat_type, normalize=False, **kw)
-            kind = "fft" if fbank.uses_fft_kernel(cfg) else "dft"
+            kind = fbank.front_end_kernel(cfg)
+            check(kind != "dft", f"{feat_type} {kw}: phase 3's configs all take the FFT route")
             for frames in frame_counts:
                 n = samples_for_frames(frames, cfg.win_len, cfg.win_shift, cfg.rate)
                 x = torch.from_numpy((rng.standard_normal((4, n)) * 0.1).astype(np.float32)).cuda()
@@ -662,12 +799,12 @@ def kernel_phase(peaks) -> dict:
                     want = audio_features_reference(x, cfg, lengths)
                     err = compare(got, want, what)
                     max_err[kind] = max(max_err[kind], err)
-                    if kind == "fft" and err > worst["err"]:
+                    if err > worst[kind]["err"]:
                         at = tuple(int(i) for i in np.unravel_index(
                             int((got - want).abs().argmax()), got.shape))
-                        worst = {"err": err, "what": what, "cfg": cfg, "x": x,
-                                 "lengths": lengths, "at": at,
-                                 "got": float(got[at]), "want": float(want[at])}
+                        worst[kind] = {"err": err, "what": what, "cfg": cfg, "x": x,
+                                       "lengths": lengths, "at": at, "route": kind,
+                                       "got": float(got[at]), "want": float(want[at])}
                     n_cases += 1
                     if lengths is not None and feat_type != "mfcc":
                         # the empty row: every frame the guarded zero, eps or
@@ -683,9 +820,10 @@ def kernel_phase(peaks) -> dict:
                             got0, audio_features_reference(x, lm, lengths)[..., 0],
                             what + ", log-mel band 0"))
         log(f"kernel vs plain: {n_cases} cases, max abs err FFT kernel {max_err['fft']:.3e}, "
-            f"DFT kernel {max_err['dft']:.3e}; log-mel band 0 of the MFCC configs "
+            f"its mixed-radix route {max_err['mixed']:.3e}; log-mel band 0 of the MFCC configs "
             f"{band0_err:.3e}")
-        worst = explain_worst(worst)
+        worst = {k: explain_worst(w) for k, w in worst.items()}
+        ill = ill_conditioned_witness()
 
         # the lomgrid batch, with the sweep's sample_lengths
         cfg = dataclasses.replace(F.FeatureConfig.from_config(AUDIO_DATA_OPTS),
@@ -699,7 +837,8 @@ def kernel_phase(peaks) -> dict:
         dft_k = lambda: fbank.dft_audio_features(pcm, cfg, lengths)
         plain = lambda: audio_features_reference(pcm, cfg, lengths)
         cufft = lambda: audio_features_reference(pcm, cfg_cufft, lengths)
-        check(fbank.uses_fft_kernel(cfg), "the lomgrid config does not go to the FFT kernel")
+        check(fbank.front_end_kernel(cfg) == "fft",
+              "the lomgrid config does not go to the FFT kernel")
         want = plain()
         what = f"lomgrid batch {BATCH}x{s}"
         err = {"fft": compare(fft_k(), want, what + ", FFT kernel"),
@@ -724,15 +863,12 @@ def kernel_phase(peaks) -> dict:
               "kernel_ms": time_ms(lambda: audio_features(pcm, cfg_v1, lengths))}
         dc = dc_witness(pcm, lengths, cfg_v1, got_v1)
         del got_v1
-        # the DFT kernel at an n_fft it alone takes (510), at that batch
-        cfg510 = dataclasses.replace(cfg, n_fft=510)
-        d510 = {"max_abs_err": compare(launch_one(cfg510, pcm, lengths, what + ", n_fft 510"),
-                                       audio_features_reference(pcm, cfg510, lengths),
-                                       what + ", n_fft 510"),
-                "plain_ms": time_ms(lambda: audio_features_reference(pcm, cfg510, lengths)),
-                "kernel_ms": time_ms(lambda: audio_features(pcm, cfg510, lengths)),
-                "cufft_ms": time_ms(lambda: audio_features_reference(
-                    pcm, dataclasses.replace(cfg510, dft="fft"), lengths))}
+        # the mixed-radix route at 400, 480 and 510, with the DFT kernel
+        # forced there
+        mixed = mixed_timing(pcm, lengths, cfg, what, peaks)
+        for row in mixed.values():
+            max_err["mixed"] = max(max_err["mixed"], row["max_abs_err"]["mixed"])
+            max_err["dft"] = max(max_err["dft"], row["max_abs_err"]["dft"])
     flops, nbytes = front_end_work(BATCH, s, cfg)
     fn_bound, fn_by = bound((flops, nbytes), peaks)
     algo_ms = {k: kernel_flops(BATCH, s, cfg, k) / peaks[0] * 1e3 for k in ("fft", "dft")}
@@ -746,19 +882,133 @@ def kernel_phase(peaks) -> dict:
         f"{err['fft']:.3e}, DFT {err['dft']:.3e}, dft='fft' {err['cufft']:.3e}")
     v1["bound_ms"], v1["bound_by"] = bound(front_end_work(BATCH, s, cfg_v1), peaks)
     v1["algorithm_ops_ms"] = kernel_flops(BATCH, s, cfg_v1, "fft") / peaks[0] * 1e3
-    d510["bound_ms"], d510["bound_by"] = bound(front_end_work(BATCH, s, cfg510), peaks)
-    d510["algorithm_ops_ms"] = kernel_flops(BATCH, s, cfg510, "dft") / peaks[0] * 1e3
     log(f"logfbank-60 at that batch: FFT kernel {v1['kernel_ms']:.4f} ms, plain "
         f"{v1['plain_ms']:.4f} ms, bound {v1['bound_ms']:.4f} ms ({v1['bound_by']}; the "
-        f"kernel's own operations {v1['algorithm_ops_ms']:.4f} ms); n_fft 510: DFT kernel "
-        f"{d510['kernel_ms']:.4f} ms, plain {d510['plain_ms']:.4f} ms, plain dft='fft' "
-        f"{d510['cufft_ms']:.4f} ms, bound "
-        f"{d510['bound_ms']:.4f} ms ({d510['bound_by']}; the kernel's own operations "
-        f"{d510['algorithm_ops_ms']:.4f} ms)")
+        f"kernel's own operations {v1['algorithm_ops_ms']:.4f} ms)")
     return {"max_abs_err": max_err, "band0_err": band0_err, "err_lomgrid": err, "ms": ms,
             "runs_ms": runs, "bound_ms": fn_bound, "bound_by": fn_by, "algorithm_ops_ms": algo_ms,
-            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "v1": v1, "dft_510": d510,
-            "worst": worst, "dc_witness": dc}
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "v1": v1, "mixed": mixed,
+            "worst": worst, "dc_witness": dc, "ill_conditioned": ill}
+
+
+# ------------------------------------- the FFT kernel against another's
+MIXED_AT_POWERS = (512, 1024, 2048, 4096)   # power-of-two plans the mixed kernel is timed at
+
+
+def other_fft_kernel(source: str):
+    """Another checkout's ``fbank_fft_kernel.cu``, built with the port's
+    nvcc flags into ``_build/other/``: its ``fbank_fft_features``, typed as
+    this checkout's."""
+    out = build.BUILD_ROOT / "other" / "libfbank_fft_kernel.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build._nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-o",
+                           str(out), os.path.abspath(source)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(str(out)).fbank_fft_features
+    ours = fbank._fft_kernel()
+    fn.argtypes, fn.restype = ours.argtypes, ours.restype
+    return fn
+
+
+def fft_kernel_with(lib_fn, pcm: torch.Tensor, cfg: F.FeatureConfig, lengths) -> torch.Tensor:
+    """``fbank.fft_audio_features`` launching ``lib_fn`` as its kernel."""
+    saved = fbank._fft_kernel
+    fbank._fft_kernel = lambda: lib_fn
+    try:
+        return fbank.fft_audio_features(pcm, cfg, lengths)
+    finally:
+        fbank._fft_kernel = saved
+
+
+def mixed_kernel_forced(pcm: torch.Tensor, cfg: F.FeatureConfig, lengths) -> torch.Tensor:
+    """The mixed-radix kernel at ``cfg``'s plan, a power of two included,
+    which its wrapper refuses: the wrapper with the dispatch rule set to
+    name it."""
+    saved = fbank.front_end_kernel
+    fbank.front_end_kernel = lambda _: "mixed"
+    try:
+        return fbank.mixed_fft_audio_features(pcm, cfg, lengths)
+    finally:
+        fbank.front_end_kernel = saved
+
+
+def in_turns(fns: dict, order: list) -> tuple[dict, list]:
+    """Each of ``fns`` timed by :func:`time_ms` in ``order``; the mean of
+    each one's runs, and the runs."""
+    runs = [(name, time_ms(fns[name])) for name in order]
+    return {name: sum(t for q, t in runs if q == name) / order.count(name)
+            for name in fns}, runs
+
+
+def k1_against(source: str) -> int:
+    """``--k1-against SOURCE``: see the module docstring."""
+    dev = device_phase()
+    build.build(["fbank_fft_kernel"])
+    ours, other = fbank._fft_kernel(), other_fft_kernel(source)
+    rng = np.random.default_rng(0)
+    cases = ([(c, KERNEL_FRAMES) for c in KERNEL_CONFIGS]
+             + [(c, OTHER_FRAMES) for c in OTHER_CONFIGS])
+    n_cases, differ = 0, []
+    out = {"card": dev["smi"], "source": source}
+    with fp32_math():
+        for (feat_type, kw), frame_counts in cases:
+            cfg = F.FeatureConfig(feat_type=feat_type, normalize=False, **kw)
+            for frames in frame_counts:
+                # phase 3's inputs: one draw a case, on either route
+                n = samples_for_frames(frames, cfg.win_len, cfg.win_shift, cfg.rate)
+                x = torch.from_numpy((rng.standard_normal((4, n)) * 0.1).astype(np.float32)).cuda()
+                if fbank.front_end_kernel(cfg) != "fft":
+                    continue
+                for lengths in (None, ragged_lengths(n)):
+                    n_cases += 1
+                    if not bit_equal(fft_kernel_with(ours, x, cfg, lengths),
+                                     fft_kernel_with(other, x, cfg, lengths)):
+                        differ.append(f"{feat_type} {kw} {frames} frames, lengths "
+                                      f"{lengths is not None}")
+        s = int(SECONDS * RATE)
+        pcm = torch.from_numpy(rng.integers(-8000, 8000, (BATCH, s), dtype=np.int16))
+        pcm = (pcm.cuda().float() / 32768.0).contiguous()
+        lengths = torch.full((BATCH,), s, dtype=torch.int32, device="cuda")
+        mfcc = dataclasses.replace(F.FeatureConfig.from_config(AUDIO_DATA_OPTS), normalize=False)
+        batch = {}
+        for name, cfg in (("mfcc-24", mfcc), ("logfbank-60", F.FeatureConfig(
+                feat_type="logfbank", num_bin=60, normalize=False))):
+            n_cases += 1
+            if not bit_equal(fft_kernel_with(ours, pcm, cfg, lengths),
+                             fft_kernel_with(other, pcm, cfg, lengths)):
+                differ.append(f"{BATCH} x {s}, {name}")
+            ms, runs = in_turns({"this": lambda: fft_kernel_with(ours, pcm, cfg, lengths),
+                                 "other": lambda: fft_kernel_with(other, pcm, cfg, lengths)},
+                                ["this", "other", "other", "this"])
+            batch[name] = {"ms": ms, "runs_ms": runs}
+            log(f"FFT kernel at {BATCH} x {s}, {name}: this checkout {ms['this']:.4f} ms, the "
+                f"other {ms['other']:.4f} ms ({ms['this'] / ms['other'] - 1:+.2%}) [{dev['smi']}]")
+        out.update(cases=n_cases, differ=differ, batch=batch)
+        log(f"FFT kernel against {source}: {n_cases - len(differ)} of {n_cases} cases bit-equal"
+            + (f"; differ: {differ}" if differ else ""))
+
+        mixed, misses = {}, []
+        for n_fft in MIXED_AT_POWERS:
+            cfg = dataclasses.replace(mfcc, n_fft=n_fft)
+            want = audio_features_reference(pcm, cfg, lengths)
+            what = f"mixed-radix kernel forced at n_fft {n_fft}"
+            try:
+                err = compare(mixed_kernel_forced(pcm, cfg, lengths), want, what)
+            except SmokeFailure as e:
+                misses.append(str(e))
+                continue
+            del want
+            ms, runs = in_turns({"fft": lambda: fft_kernel_with(ours, pcm, cfg, lengths),
+                                 "mixed": lambda: mixed_kernel_forced(pcm, cfg, lengths)},
+                                ["fft", "mixed", "mixed", "fft"])
+            mixed[n_fft] = {"ms": ms, "runs_ms": runs, "max_abs_err": err,
+                            "plan": [r for r, _ in fbank.fft_plan(n_fft).passes]}
+            log(f"{what} (plan {mixed[n_fft]['plan']}), mfcc-24 at {BATCH} x {s}: "
+                f"{ms['mixed']:.4f} ms against the FFT kernel's {ms['fft']:.4f} ms "
+                f"({ms['mixed'] / ms['fft'] - 1:+.2%}); max abs err {err:.3e} [{dev['smi']}]")
+        out.update(mixed_at_powers=mixed, mixed_misses=misses)
+    print(json.dumps({"k1_against": out}), flush=True)
+    return 1 if differ or misses else 0
 
 
 # ---------------------------------------------------------------- phase 4
@@ -891,7 +1141,7 @@ def main_path_phase() -> dict:
         counts = fbank_counts()
         launches = {"fused_fbank": counts["fft"], "fused_fbank_dft": counts["dft"]}
 
-    check(counts == {"fft": len(host_batches), "dft": 0},
+    check(counts == {"fft": len(host_batches), "dft": 0, "mixed": 0},
           f"front-end launches {counts} for {len(host_batches)} batches")
     check(len(store) == len(names), f"{len(store)} embeddings for {len(names)} utterances")
     emb = store.matrix(names)
@@ -965,7 +1215,7 @@ def sweep_phase(extractor: AudioExtractor) -> dict:
     scores = sweep()
     launches = fbank_counts()
     n_batches = -(-LOMGRID_UTTS // BATCH)
-    check(launches == {"fft": n_batches, "dft": 0},
+    check(launches == {"fft": n_batches, "dft": 0, "mixed": 0},
           f"front-end launches {launches} for a sweep of {n_batches} batches")
     check(bool(torch.isfinite(scores).all()), "non-finite sweep scores")
     sweep_ms = sorted(time_ms(sweep, iters=1, warmup=0) for _ in range(3))
@@ -992,6 +1242,134 @@ def sweep_phase(extractor: AudioExtractor) -> dict:
         f"{tdnn_ms:.3f} ms")
     return {"trials_per_sec": tps, "sweep_ms": ms, "front_ms": front_ms, "tdnn_ms": tdnn_ms,
             "tdnn_gflop": flops / 1e9, "launches": launches}
+
+
+# ---------------------------------------------------------------- phase 18
+ENTRY_N_FFT = 400                 # torchaudio's default and Whisper's size: the mixed-radix route
+ENTRY_SPEAKERS, ENTRY_UTTS = 8, 8
+
+
+def with_n_fft(data_opts: dict, n_fft: int) -> dict:
+    """A ``python_data_config`` with ``n_fft`` in each of its mel sections."""
+    data = copy.deepcopy(data_opts)
+    for key in ("mfcc", "fbank", "logfbank"):
+        if key in data:
+            data[key]["n_fft"] = n_fft
+    return data
+
+
+def front_end_step_check(trainer: AudioTrainer, pcm: torch.Tensor, labels: torch.Tensor,
+                         what: str) -> dict:
+    """Phase 11's f32 rule for one step of ``trainer`` on float ``pcm``: the
+    step through the front-end kernels against the step through the plain
+    front-end from the same state (loss within 1e-4 relative, gradients no
+    further than 3x what a 1e-6 elementwise nudge of the PCM moves the
+    plain step); the state is put back after each step."""
+    margin, dev = trainer.init_margin, trainer.device
+    params = [(f"model.{n}", p) for n, p in trainer.model.named_parameters()] + [
+        (f"criterion.{n}", p) for n, p in trainer.criterion.named_parameters()]
+    state = (copy.deepcopy(trainer.model.state_dict()),
+             copy.deepcopy(trainer.criterion.state_dict()),
+             copy.deepcopy(trainer.optimizer.state_dict()), trainer.step)
+
+    def step(x):
+        loss = float(trainer.train_step(x, labels, margin)["loss"])
+        grads = {n: p.grad.detach().clone() for n, p in params}
+        trainer.model.load_state_dict(state[0])
+        trainer.criterion.load_state_dict(state[1])
+        trainer.optimizer.load_state_dict(state[2])
+        trainer.step = state[3]
+        return loss, grads
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    nudged = pcm * (1.0 + NUDGE * torch.randn(pcm.shape, generator=gen, device=dev))
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        zero_fbank_counts()
+        loss_k, grads_k = step(pcm)
+        launches = fbank_counts()
+        with plain_front_end():
+            loss_p, grads_p = step(pcm)
+            loss_n, grads_n = step(nudged)
+        check(fbank_counts() == launches, f"{what}: the plain steps launched a kernel")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    d_kp, d_np = grad_distance(grads_k, grads_p), grad_distance(grads_n, grads_p)
+    log(f"{what}: loss {loss_k:.8f} vs plain {loss_p:.8f} ({loss_rel:.2e} relative, bar "
+        f"{AUDIO_STEP_LOSS_RTOL}); gradient distance from the plain step {d_kp:.3e}, the plain "
+        f"step with the PCM nudged by {NUDGE} {d_np:.3e} (ratio {d_kp / d_np:.2f}, bar "
+        f"{NUDGE_FACTOR}); launches {launches}")
+    check(loss_rel <= AUDIO_STEP_LOSS_RTOL, f"{what}: loss {loss_k} vs plain {loss_p}, "
+          f"{loss_rel:.3e} relative, bar {AUDIO_STEP_LOSS_RTOL}")
+    check(d_kp <= NUDGE_FACTOR * d_np, f"{what}: gradients {d_kp:.3e} of the plain norm from "
+          f"the plain step; a {NUDGE} nudge of the PCM moves them {d_np:.3e}; bar "
+          f"{NUDGE_FACTOR} x that")
+    return {"loss_rel": loss_rel, "grad_distance": d_kp, "nudge_distance": d_np,
+            "launches": launches}
+
+
+def mixed_entry_phase(smi: str) -> dict:
+    """Phase 18: the flagship E-TDNN at ``n_fft`` 400 through
+    ``AudioExtractor.extract_embeddings`` and one f32 ``AudioTrainer`` step."""
+    data = with_n_fft(AUDIO_DATA_OPTS, ENTRY_N_FFT)
+    cfg = Config({**flagship_config(batch_size=64).to_dict(),
+                  "data": {"python_data_config": data}})
+    extractor = AudioExtractor(cfg)
+    check(fbank.front_end_kernel(extractor.eval_feat_cfg) == "mixed",
+          f"n_fft {ENTRY_N_FFT} does not take the mixed-radix route")
+    extractor.load_state_dict(seeded_state_dict(extractor.model, seed=0))
+    with tempfile.TemporaryDirectory() as root:
+        names, _ = write_corpus(root, ENTRY_SPEAKERS, ENTRY_UTTS, n_trials=8, seed=2)
+        eval_set = EvalUtteranceSet([EvalUtterance(n, os.path.join(root, n)) for n in names],
+                                    **eval_set_kwargs(extractor.feat_cfg, cfg.test))
+        host_batches = list(eval_set.batches())
+        calibrate_bn(extractor, host_batches[0], seed=1)
+        zero_fbank_counts()
+        store = extractor.extract_embeddings(eval_set)
+        torch.cuda.synchronize()
+        counts = fbank_counts()
+    check(counts == {"fft": 0, "mixed": len(host_batches), "dft": 0},
+          f"n_fft {ENTRY_N_FFT}: front-end launches {counts} for {len(host_batches)} batches")
+    emb = store.matrix(names)
+    check(len(store) == len(names) and bool(torch.isfinite(emb).all()),
+          f"n_fft {ENTRY_N_FFT}: {len(store)} embeddings for {len(names)} utterances, finite "
+          f"{bool(torch.isfinite(emb).all())}")
+    emb_err = 0.0
+    for batch in host_batches:
+        args = [torch.from_numpy(batch[k]).cuda()
+                for k in ("pcm", "feat_lengths", "sample_lengths")]
+        with plain_front_end():
+            e_plain = extractor.embed(*args)
+        e_kernel = torch.stack([store[n] for n in batch["names"]])
+        emb_err = max(emb_err, float((e_plain - e_kernel).abs().max()))
+    log(f"n_fft {ENTRY_N_FFT} through AudioExtractor.extract_embeddings (flagship E-TDNN): "
+        f"{len(names)} utts in {len(host_batches)} batches, launches {counts}; plain "
+        f"front-end re-embed max abs err {emb_err:.3e} (bar {EMB_TOL}) [{smi}]")
+    check(emb_err <= EMB_TOL, f"n_fft {ENTRY_N_FFT}: kernel-path embeddings {emb_err:.3e} "
+          f"from the plain path")
+    del extractor, store, emb
+    torch.cuda.empty_cache()
+
+    train_cfg = load_audio_config(AUDIO_CONFIG_PATH).to_dict()
+    train_cfg["data"]["train_manifest"] = None
+    train_cfg["data"]["python_data_config"] = with_n_fft(
+        train_cfg["data"]["python_data_config"], ENTRY_N_FFT)
+    train_cfg["train"].update(compute_dtype="float32", steps_per_dispatch=1)
+    with tempfile.TemporaryDirectory() as root:
+        trainer = AudioTrainer(Config(train_cfg), n_spk=TRAIN_SPEAKERS,
+                               exp_root=os.path.join(root, "exp"), log_time="n_fft_400")
+        check(fbank.front_end_kernel(trainer.feat_cfg) == "mixed",
+              f"the trainer's n_fft {trainer.feat_cfg.n_fft} is not on the mixed-radix route")
+        pcm16, labels = group_audio_batch(1, 23, trainer.device)
+        step = front_end_step_check(
+            trainer, pcm16[0].float() / 32768.0, labels[0],
+            f"audio f32 step at n_fft {ENTRY_N_FFT}, bs {BATCH} x {GROUP_FRAMES} [{smi}]")
+        del trainer
+    check(step["launches"] == {"fft": 0, "mixed": 1, "dft": 0},
+          f"n_fft {ENTRY_N_FFT}: a train step launched {step['launches']}")
+    release()
+    return {"launches": {"extraction": counts["mixed"], "train_step": step["launches"]["mixed"]},
+            "launches_dft": counts["dft"] + step["launches"]["dft"],
+            "batches": len(host_batches), "emb_err": emb_err, "step": step}
 
 
 # ---------------------------------------------------------------- phase 11
@@ -1270,12 +1648,12 @@ def audio_step_phase(trainer, smi: str, peaks, faults=BF16_FAULTS,
     with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
         zero_fbank_counts()
         loss_k, grads_k = step(pcm, None)
-        check(fbank_counts() == {"fft": 1, "dft": 0},
+        check(fbank_counts() == {"fft": 1, "dft": 0, "mixed": 0},
               f"a kernel step launched {fbank_counts()}: one FFT-kernel launch expected")
         with plain_front_end():
             loss_p, grads_p = step(pcm, None)
             loss_n, grads_n = step(nudged, None)
-        check(fbank_counts() == {"fft": 1, "dft": 0}, "the plain steps launched a kernel")
+        check(fbank_counts() == {"fft": 1, "dft": 0, "mixed": 0}, "the plain steps launched a kernel")
         audit: dict = {}
         with bf16_audit(trainer.model, trainer.criterion, audit):
             loss_b, grads_b = step(pcm, torch.bfloat16)
@@ -1419,7 +1797,7 @@ def audio_train_phase(smi: str, peaks) -> dict:
               and trainer.pipeline._resolve_transport() == "int16",
               "the trainer did not take conf/audio_config.yaml's recipe")
         check(steps == TRAIN_EPOCHS * bpe, f"{steps} steps for {TRAIN_EPOCHS} x {bpe} batches")
-        check(counts == {"fft": steps + n_eval, "dft": 0},
+        check(counts == {"fft": steps + n_eval, "dft": 0, "mixed": 0},
               f"front-end launches {counts} for {steps} train steps and {n_eval} extraction "
               "batches")
         losses = out["losses"]
@@ -2386,7 +2764,7 @@ def microbatch_run(root: str, items: dict, audio_ckpt: str, device=None) -> dict
                       "pad_slots": mb.n_pad_slots, "mean_batch_slots": mb.mean_batch_slots}
         check(not mb._thread.is_alive(), "the collector thread outlived close()")
     fb = fbank_counts()
-    check(fb == {"fft": passes[0], "dft": 0}
+    check(fb == {"fft": passes[0], "dft": 0, "mixed": 0}
           and maxpool.maxpool_forward.launches == 0,
           f"front-end launches {fb} for {passes[0]} extraction passes")
     check(counts["batches"] < counts["requests"], f"no batch formed: {counts}")
@@ -2420,7 +2798,7 @@ def av_serving_phase(device=None) -> dict:
         launches = {"fused_fbank": fb["fft"], "fused_fbank_dft": fb["dft"],
                     "maxpool_fwd": maxpool.maxpool_forward.launches}
         chunks = concat["chunks"] + head["chunks"]
-        check(fb == {"fft": chunks, "dft": 0} and launches["maxpool_fwd"] == chunks > 0,
+        check(fb == {"fft": chunks, "dft": 0, "mixed": 0} and launches["maxpool_fwd"] == chunks > 0,
               f"{launches} for {chunks} extraction chunks")
         check(concat["dim"] == 1024 and head["dim"] == 3 * 512,
               f"fused dims {concat['dim']} (concat) and {head['dim']} (head)")
@@ -2736,7 +3114,7 @@ def fusion_step_phase(trainer, root: str, smi: str, peaks) -> dict:
         zero_video_counts()
         loss_k, grads_k = step(b300, None)
         counts = {**fbank_counts(), **video_counts()}
-        check(counts == {"fft": 1, "dft": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
+        check(counts == {"fft": 1, "dft": 0, "mixed": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
                          "maxpool_fwd": 1, "maxpool_bwd": 0},
               f"a fusion step launched {counts}: one FFT-kernel and one pool-forward launch "
               "expected")
@@ -2910,7 +3288,7 @@ def fusion_train_phase(smi: str, peaks, device=None) -> dict:
         check(steps == FUSION_EPOCHS * bpe and bpe >= 4 and len(losses) == steps
               and all(math.isfinite(v) for v in losses),
               f"{steps} steps for {FUSION_EPOCHS} x {bpe} batches, losses {losses}")
-        want = {"fft": steps + chunks[0], "dft": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
+        want = {"fft": steps + chunks[0], "dft": 0, "mixed": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
                 "maxpool_fwd": steps + chunks[0], "maxpool_bwd": 0}
         check(counts == want, f"launches {counts} for {steps} train steps and {chunks[0]} "
               f"extraction chunks; expected {want}")
@@ -3402,7 +3780,7 @@ def grouped_audio_phase(smi: str, root: str, device=None) -> dict:
     check(all(f["caught_by"] for f in faults.values()),
           f"planted grouped faults passed every bar: {faults}")
     grouped_launch_check(grouped, steps, "grouped f32 audio",
-                         lambda n: {"fft": n, "dft": 0})
+                         lambda n: {"fft": n, "dft": 0, "mixed": 0})
     interop = reference_pth_check(grouped.pop("trainer"), root, smi, device)
     release()
 
@@ -3418,7 +3796,7 @@ def grouped_audio_phase(smi: str, root: str, device=None) -> dict:
         f"run's (bar {BF16_LOSS_BAR}); launches {bf16_grouped['launches']} [{smi}]")
     check(bf16_rel <= BF16_LOSS_BAR, f"grouped bf16 audio losses {bf16_rel:.3e} from single")
     grouped_launch_check(bf16_grouped, bf16_single["steps"], "grouped bf16 audio",
-                         lambda n: {"fft": n, "dft": 0})
+                         lambda n: {"fft": n, "dft": 0, "mixed": 0})
     timing = grouped_audio_timing(bf16_grouped.pop("trainer"), smi)
     release()
     return {"steps": steps, "loss_rel": rel, "distance": d_group, "nudge_distance": d_nudge,
@@ -3930,7 +4308,7 @@ def resnet_phase(root: str, manifest: str, trials: str, smi: str, peaks,
         losses = out["losses"]
         check(type(trainer.model).__name__ == "AudioResNet"
               and trainer.model.fc2.out_features == 256, "the resnet arch was not built")
-        check(counts == {"fft": trainer.step + n_eval, "dft": 0}, f"resnet {dtype}: front-end "
+        check(counts == {"fft": trainer.step + n_eval, "dft": 0, "mixed": 0}, f"resnet {dtype}: front-end "
               f"launches {counts} for {trainer.step} steps and {n_eval} extraction batches")
         check(len(losses) == trainer.step and all(math.isfinite(v) for v in losses),
               f"resnet {dtype} losses {losses}")
@@ -3973,7 +4351,7 @@ def attentive_phase(root: str, smi: str, device=None) -> dict:
         with plain_front_end():
             e_p = ext.embed(*args)
         err = float((e_k - e_p).abs().max())
-        check(launches == {"fft": 1, "dft": 0}, f"{pooling}: an extraction batch launched "
+        check(launches == {"fft": 1, "dft": 0, "mixed": 0}, f"{pooling}: an extraction batch launched "
               f"{launches}")
         check(bool(torch.isfinite(e_k).all()) and err <= EMB_TOL, f"{pooling}: kernel-path "
               f"embeddings {err:.3e} from the plain path, bar {EMB_TOL}")
@@ -4263,7 +4641,7 @@ def stft_phase(smi: str, device=None) -> dict:
     emb = ext.embed(torch.from_numpy(pcm16).to(dev), torch.from_numpy(feat).to(dev), slen)
     launches = fbank_counts()
     check(ext.model.tdnn[0].context_layer.in_channels == 257 and tuple(emb.shape) == (BATCH, 512)
-          and bool(torch.isfinite(emb).all()) and launches == {"fft": 0, "dft": 0},
+          and bool(torch.isfinite(emb).all()) and launches == {"fft": 0, "dft": 0, "mixed": 0},
           f"stft extraction: {tuple(emb.shape)}, launches {launches}")
     log(f"stft front-end (n_fft 512, 257 bins, librosa framing) on a ragged {BATCH} x 1-3 s "
         f"batch: {err:.2e} from float64 (bar {STFT_TOL}); {ms:.4f} ms, K1's MFCC on the same "
@@ -4428,7 +4806,7 @@ def native_loader_epoch(root: str, manifest: str, trials: str, device=None) -> d
     _sync()
     wall = time.perf_counter() - t0
     counts = fbank_counts()
-    check(trainer.step == batches and counts == {"fft": batches, "dft": 0},
+    check(trainer.step == batches and counts == {"fft": batches, "dft": 0, "mixed": 0},
           f"front-end launches {counts} for {trainer.step} native-loader steps")
     check(all(math.isfinite(v) for v in losses), f"native-loader losses {losses}")
     return {"steps": trainer.step, "batches_equal": batches, "launches": counts,
@@ -4472,7 +4850,7 @@ def write_kaldi_features(root: str, manifest: str, feat_cfg, device) -> tuple[st
     check([u for u, _ in back] == list(table)
           and all(np.array_equal(a, table[u]) for u, a in back),
           "the ark's features do not read back bit-equal")
-    check(launches == {"fft": -(-len(items) // 64), "dft": 0},
+    check(launches == {"fft": -(-len(items) // 64), "dft": 0, "mixed": 0},
           f"front-end launches {launches} for the ark's {len(items)} utterances")
     return spk2utt, scp, launches["fft"]
 
@@ -4497,7 +4875,7 @@ def kaldi_train(root: str, spk2utt: str, scp: str, device=None) -> dict:
     wall = time.perf_counter() - t0
     counts = fbank_counts()
     bpe = trainer.pipeline.batches_per_epoch()
-    check(counts == {"fft": 0, "dft": 0}, f"the Kaldi steps launched the front-end: {counts}")
+    check(counts == {"fft": 0, "dft": 0, "mixed": 0}, f"the Kaldi steps launched the front-end: {counts}")
     check(trainer.step == len(losses) == KALDI_EPOCHS * bpe
           and all(math.isfinite(v) for v in losses), f"Kaldi losses {losses}")
     for tag in (f"net_{e}" for e in range(1, KALDI_EPOCHS + 1)):
@@ -5086,7 +5464,7 @@ def group_capture(mesh, root: str, smi: str, device=None) -> dict:
         f"{d_group:.3e} of their norm from theirs, a {NUDGE} nudge moves them {d_nudge:.3e}; K1 launches "
         f"{g['launches']} [{smi}]")
     check(g["graphs"] == 1 and g["replays"] == 1, "the group was not captured and replayed")
-    check(g["launches"] == {"fft": GROUP_AUDIO_K + g["warmups"], "dft": 0},
+    check(g["launches"] == {"fft": GROUP_AUDIO_K + g["warmups"], "dft": 0, "mixed": 0},
           f"the grouped capture launched {g['launches']}")
     check(rel <= GROUPED_LOSS_RTOL, f"grouped losses under the group {rel:.3e} from single")
     check(0 < d_nudge and d_group <= NUDGE_FACTOR * d_nudge,
@@ -5225,39 +5603,50 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
-    dev = device_phase()
+    seconds = {}
+
+    def phase(name: str, fn, *args):
+        """``fn(*args)``, its wall seconds logged and kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    dev = phase("1", device_phase)
     part, peaks = card_peaks(dev["name"])
-    native_build_s = build_phase()
-    pressure = capture_pressure_phase(dev["smi"])
+    native_build_s = phase("2", build_phase)
+    pressure = phase("14b", capture_pressure_phase, dev["smi"])
     # phase 17 runs while the card is clean: its grouped capture needs free
     # device memory for its graph's pool, which the earlier phases' cached
     # and fragmented segments leave too little of by the end of the script
-    group = process_group_phase(dev["smi"], peaks)
+    group = phase("17", process_group_phase, dev["smi"], peaks)
     release()
-    kern = kernel_phase(peaks)
-    main_path = main_path_phase()
-    sweep = sweep_phase(main_path["extractor"])
+    kern = phase("3", kernel_phase, peaks)
+    main_path = phase("4", main_path_phase)
+    sweep = phase("5", sweep_phase, main_path["extractor"])
     del main_path["extractor"]
     torch.cuda.empty_cache()
-    audio_train = audio_train_phase(dev["smi"], peaks)
+    entry = phase("18", mixed_entry_phase, dev["smi"])
+    audio_train = phase("11", audio_train_phase, dev["smi"], peaks)
     torch.cuda.empty_cache()
-    bn = bn_prelu_phase(peaks)
-    pool = maxpool_phase(peaks)
-    video = video_main_path_phase()
-    step = video_step_phase(video.pop("trainer"), video.pop("full_batch"), bn)
+    bn = phase("6", bn_prelu_phase, peaks)
+    pool = phase("9", maxpool_phase, peaks)
+    video = phase("7", video_main_path_phase)
+    step = phase("8", video_step_phase, video.pop("trainer"), video.pop("full_batch"), bn)
     torch.cuda.empty_cache()
-    av = av_serving_phase()
+    av = phase("10", av_serving_phase)
     torch.cuda.empty_cache()
-    fusion = fusion_train_phase(dev["smi"], peaks)
+    fusion = phase("12", fusion_train_phase, dev["smi"], peaks)
     torch.cuda.empty_cache()
-    video_bf16 = video_bf16_phase(bn, dev["smi"])
+    video_bf16 = phase("13", video_bf16_phase, bn, dev["smi"])
     torch.cuda.empty_cache()
-    grouped = grouped_dispatch_phase(dev["smi"])
+    grouped = phase("14", grouped_dispatch_phase, dev["smi"])
     release()
-    variants = variants_phase(dev["smi"], peaks)
+    variants = phase("15", variants_phase, dev["smi"], peaks)
     release()
-    kaldi_io = kaldi_host_io_phase(dev["smi"], main_path.pop("store"), video_bf16["step_ms"],
-                                   native_build_s)
+    kaldi_io = phase("16", kaldi_host_io_phase, dev["smi"], main_path.pop("store"),
+                     video_bf16["step_ms"], native_build_s)
     release()
     launches = {
         "launches": main_path["launches"]["fused_fbank"],
@@ -5297,7 +5686,7 @@ def main() -> int:
                             "batch; audio_train_shapes: K1 at each crop shape of the epochs, "
                             "CMVN after, with its time and the function's bound",
         "audio_train_shapes": audio_train["k1_shapes"],
-        "largest_error": kern["worst"],
+        "largest_error": kern["worst"]["fft"],
         "dc_bin_vs_float64": kern["dc_witness"],
         "ms": kern["ms"]["fft"],
         "plain_ms": kern["ms"]["plain"],
@@ -5324,23 +5713,52 @@ def main() -> int:
         "config": "logfbank, 60 filters",
         **fft_source,
     }, {
-        # both TPU kernels at an n_fft that is not a power of two: the DFT
-        # kernel, which no main path launches
+        # both TPU kernels at an n_fft in [64, 4096] that is no power of two:
+        # the FFT kernel's mixed-radix and Bluestein route, on phase 18's path
+        "name": "fused_fbank_mixed_fft",
+        "replaces": "deeplip_tpu/ops/pallas/fbank_kernel.py:241",
+        "also_replaces": "deeplip_tpu/ops/pallas/fbank_kernel.py:109",
+        "launches": sum(entry["launches"].values()),
+        "launches_n_fft_400_path": entry["launches"],
+        "launches_sweep": sweep["launches"]["mixed"],
+        "launches_audio_train": audio_train["launches"]["mixed"],
+        "max_abs_err": kern["max_abs_err"]["mixed"],
+        "largest_error": kern["worst"]["mixed"],
+        "ill_conditioned": kern["ill_conditioned"],
+        **{key: kern["mixed"][ENTRY_N_FFT]["ms"][k] for key, k in (
+            ("ms", "mixed"), ("plain_ms", "plain"), ("cufft_composite_ms", "cufft"),
+            ("dft_kernel_ms", "dft"))},
+        "bound_ms": kern["mixed"][ENTRY_N_FFT]["bound_ms"],
+        "bound_by": kern["mixed"][ENTRY_N_FFT]["bound_by"],
+        "algorithm_ops_ms": kern["mixed"][ENTRY_N_FFT]["algorithm_ops_ms"]["mixed"],
+        "by_n_fft": {n: {"plan": r["plan"], "bluestein": r["bluestein"], "ms": r["ms"]["mixed"],
+                         "plain_ms": r["ms"]["plain"], "cufft_composite_ms": r["ms"]["cufft"],
+                         "dft_kernel_ms": r["ms"]["dft"], "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"],
+                         "algorithm_ops_ms": r["algorithm_ops_ms"]["mixed"],
+                         "max_abs_err": r["max_abs_err"]["mixed"]}
+                     for n, r in kern["mixed"].items()},
+        "config": f"mfcc-24, n_fft {ENTRY_N_FFT}",
+        **fft_source,
+    }, {
+        # the DFT kernel: n_fft outside [64, 4096] only, which no path
+        # launches; timed forced at 510 and 512
         "name": "fused_fbank_dft",
         "replaces": "deeplip_tpu/ops/pallas/fbank_kernel.py:241",
         "also_replaces": "deeplip_tpu/ops/pallas/fbank_kernel.py:109",
         **dft_launches,
+        "launches_n_fft_400_path": entry["launches_dft"],
         "max_abs_err": kern["max_abs_err"]["dft"],
-        "ms": kern["dft_510"]["kernel_ms"],
-        "plain_ms": kern["dft_510"]["plain_ms"],
-        "bound_ms": kern["dft_510"]["bound_ms"],
-        "bound_by": kern["dft_510"]["bound_by"],
-        "algorithm_ops_ms": kern["dft_510"]["algorithm_ops_ms"],
-        "cufft_composite_ms": kern["dft_510"]["cufft_ms"],
+        "ms": kern["mixed"][510]["ms"]["dft"],
+        "plain_ms": kern["mixed"][510]["ms"]["plain"],
+        "bound_ms": kern["mixed"][510]["bound_ms"],
+        "bound_by": kern["mixed"][510]["bound_by"],
+        "algorithm_ops_ms": kern["mixed"][510]["algorithm_ops_ms"]["dft"],
+        "cufft_composite_ms": kern["mixed"][510]["ms"]["cufft"],
         "ms_n_fft_512": kern["ms"]["dft"],
         "bound_ms_n_fft_512": kern["bound_ms"],
         "algorithm_ops_ms_n_fft_512": kern["algorithm_ops_ms"]["dft"],
-        "config": "mfcc-24, n_fft 510",
+        "config": "mfcc-24, n_fft 510, forced",
         "source": "deeplip_tpu_torch/csrc/fbank_kernel.cu",
         **fbank_common,
     }, bn_entry("bn_prelu_fwd", "fwd", bn, video), bn_entry("bn_prelu_bwd", "bwd", bn, video),
@@ -5349,7 +5767,8 @@ def main() -> int:
     by_name = {e["name"]: e for e in kernels["kernels"]}
     for name in ("fused_fbank", "fused_fbank_v1_configs"):
         by_name[name]["launches_fusion_train"] = fusion["launches"]["fft"]
-    by_name["fused_fbank_dft"]["launches_fusion_train"] = fusion["launches"]["dft"]
+    for name, kernel in (("fused_fbank_mixed_fft", "mixed"), ("fused_fbank_dft", "dft")):
+        by_name[name]["launches_fusion_train"] = fusion["launches"][kernel]
     for name, kind in (("bn_prelu_fwd", "fwd"), ("bn_prelu_bwd", "bwd")):
         by_name[name].update(
             launches_fusion_train=fusion["launches"][name],
@@ -5366,7 +5785,8 @@ def main() -> int:
             "f32": audio_g["launches"]["fft"], "bf16": audio_g["bf16"]["launches"]["fft"],
             "steps": audio_g["steps"], "warmup_steps": {
                 "f32": audio_g["warmups"], "bf16": audio_g["bf16"]["warmups"]}}
-    by_name["fused_fbank_dft"]["launches_grouped_audio"] = audio_g["launches"]["dft"]
+    for name, kernel in (("fused_fbank_mixed_fft", "mixed"), ("fused_fbank_dft", "dft")):
+        by_name[name]["launches_grouped_audio"] = audio_g["launches"][kernel]
     for name, key in (("bn_prelu_fwd", "bn_prelu_fwd"), ("bn_prelu_bwd", "bn_prelu_bwd"),
                       ("maxpool_frontend", "maxpool_fwd")):
         by_name[name]["launches_grouped_video"] = {
@@ -5382,8 +5802,9 @@ def main() -> int:
                             for name, p in fusion["parts_300"].items()})
     # phase 15: the variants' launches, and K3/K4 and P at 24 channels
     resnet_runs, shuffle = variants["resnet"]["runs"], variants["shufflenet"]
-    for name in ("fused_fbank", "fused_fbank_v1_configs", "fused_fbank_dft"):
-        kernel = "dft" if name == "fused_fbank_dft" else "fft"
+    route = {"fused_fbank": "fft", "fused_fbank_v1_configs": "fft",
+             "fused_fbank_mixed_fft": "mixed", "fused_fbank_dft": "dft"}
+    for name, kernel in route.items():
         by_name[name]["launches_variants"] = {
             **{f"resnet_train_{k}": run["launches"][kernel] for k, run in resnet_runs.items()},
             "resnet_steps": {k: run["steps"] for k, run in resnet_runs.items()},
@@ -5406,8 +5827,7 @@ def main() -> int:
         r["dtype"]: {k: v for k, v in r.items() if k not in ("dtype", "what")}
         for r in shuffle["c24"]["maxpool"]}
     # phase 16: the native-loader epoch runs K1 once a step, the Kaldi steps never
-    for name in ("fused_fbank", "fused_fbank_v1_configs", "fused_fbank_dft"):
-        kernel = "dft" if name == "fused_fbank_dft" else "fft"
+    for name, kernel in route.items():
         by_name[name].update(
             launches_native_loader_epoch=kaldi_io["native_loader"]["launches"][kernel],
             launches_kaldi_train=kaldi_io["kaldi_train"]["launches"][kernel],
@@ -5461,6 +5881,7 @@ def main() -> int:
         "av_chunk_split_ms": av["chunk_split_ms"],
         "microbatch": av["microbatch"],
         "audio_train": {k: v for k, v in audio_train.items() if k != "k1_shapes"},
+        "n_fft_400_path": entry,
         "fusion_train": fusion,
         "video_bf16": video_bf16,
         "grouped_dispatch": grouped,
@@ -5468,6 +5889,7 @@ def main() -> int:
         "kaldi_host_io": kaldi_io,
         "process_group": group,
         "capture_pressure": pressure,
+        "phase_seconds": seconds,
     }
     print(json.dumps(summary), flush=True)
     print(json.dumps(kernels), flush=True)
@@ -5480,4 +5902,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--capture-pressure"]:
         sys.exit(capture_pressure_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--k1-against"]:
+        sys.exit(k1_against(sys.argv[2]))
     sys.exit(main())

@@ -6,10 +6,10 @@
 //
 // Replaces deeplip_tpu/ops/pallas/fbank_kernel.py: _feature_kernel_v2 (the
 // residue-class TPU kernel) and _feature_kernel (its hop-blocked v1
-// fallback) at an n_fft that is not a power of two (a 510-point FFT, say).
-// The JAX kernels take any n_fft; no config of the repository uses such a
-// size, and every power of two from 64 to 4096 goes to the FFT kernel in
-// fbank_fft_kernel.cu instead (ops/cuda/fbank.py: uses_fft_kernel). Both
+// fallback) at an n_fft outside [64, 4096]. The JAX kernels take any n_fft;
+// no config of the repository uses such a size, and every n_fft from 64 to
+// 4096 goes to the FFT kernel in fbank_fft_kernel.cu instead
+// (ops/cuda/fbank.py: front_end_kernel). Both
 // TPU kernels exist to fit the 128-lane MXU tiling: v2 folds the Nyquist
 // bin into the zero sin column so 257 bins become 256 lanes, which is exact
 // only for filterbanks whose edge rows are zero, and v1 serves the configs

@@ -79,7 +79,8 @@ from deeplip_tpu_torch.ops.cuda import bn_prelu, fbank, maxpool
 
 # (object, attribute) of every kernel launch count a train step can move
 KERNEL_COUNTERS = (
-    (fbank.fft_audio_features, "launches"), (fbank.dft_audio_features, "launches"),
+    (fbank.fft_audio_features, "launches"), (fbank.mixed_fft_audio_features, "launches"),
+    (fbank.dft_audio_features, "launches"),
     (bn_prelu.bn_prelu_forward, "launches"), (bn_prelu.bn_prelu_backward, "launches"),
     (bn_prelu.bn_prelu_forward, "totals_launches"),
     (bn_prelu.bn_prelu_backward, "totals_launches"),

@@ -1,11 +1,11 @@
 """What Python computes around the FFT front-end kernel, on the CPU.
 
 The kernel (``csrc/fbank_fft_kernel.cu``) runs only on the card. Here: its
-constants (the mel filterbank by filter, the twiddle table), a torch
-emulation of its radix plan and untangle against ``np.fft.rfft`` and the
-JAX package's ``dft='fft'`` power spectrum, the rule that picks between the
-FFT and the DFT kernel, and the wrapper's plain path with pre-emphasis and
-``sample_lengths`` against the sequence it replaced.
+constants (the mel filterbank by filter, the twiddle table), its radix plan
+and untangle in torch (``fbank.rdft_by_plan``) against ``np.fft.rfft`` and
+the JAX package's ``dft='fft'`` power spectrum, the rule that picks between
+the FFT and the DFT kernel, and the wrapper's plain path with pre-emphasis
+and ``sample_lengths`` against the sequence it replaced.
 """
 
 import dataclasses
@@ -23,46 +23,7 @@ from deeplip_tpu_torch.ops.cuda import fbank
 torch.set_num_threads(1)
 
 
-# --------------------------------------- the kernel's arithmetic, emulated
-def _cmul(ar, ai, wr, wi):
-    return ar * wr - ai * wi, ar * wi + ai * wr
-
-
-def _small_dft(vr: list, vi: list) -> tuple[list, list]:
-    """The kernel's in-register DFT of ``len(vr)`` points (``SmallDft`` in
-    the ``.cu``), with the 16th roots rounded once to f32."""
-    w16 = fbank.twiddles(16)
-    radix = len(vr)
-    for p, ns in fbank._small_plan(radix):
-        q = radix // p
-        outr, outi = [None] * radix, [None] * radix
-        for j in range(q):
-            ur, ui = [], []
-            for r in range(p):
-                k, a, b = fbank._w16_index(j, r, p, ns), vr[j + r * q], vi[j + r * q]
-                if k % 4:
-                    a, b = _cmul(a, b, float(w16[k, 0]), float(w16[k, 1]))
-                else:   # 1, -i, -1, i: exact
-                    a, b = [(a, b), (b, -a), (-a, -b), (-b, a)][k // 4]
-                ur.append(a)
-                ui.append(b)
-            if p == 4:
-                a0r, a0i = ur[0] + ur[2], ui[0] + ui[2]
-                a1r, a1i = ur[0] - ur[2], ui[0] - ui[2]
-                a2r, a2i = ur[1] + ur[3], ui[1] + ui[3]
-                a3r, a3i = ui[1] - ui[3], ur[3] - ur[1]          # -i (u1 - u3)
-                ur = [a0r + a2r, a1r + a3r, a0r - a2r, a1r - a3r]
-                ui = [a0i + a2i, a1i + a3i, a0i - a2i, a1i - a3i]
-            else:
-                ur = [ur[0] + ur[1], ur[0] - ur[1]]
-                ui = [ui[0] + ui[1], ui[0] - ui[1]]
-            d = (j // ns) * ns * p + j % ns
-            for r in range(p):
-                outr[d + r * ns], outi[d + r * ns] = ur[r], ui[r]
-        vr, vi = outr, outi
-    return vr, vi
-
-
+# ------------------------------------------------ the kernel's plan, emulated
 def sample_order_sum(frames: torch.Tensor) -> torch.Tensor:
     """Each frame's sum in sample order, one f32 addition at a time: the
     kernel's DC bin."""
@@ -74,43 +35,15 @@ def sample_order_sum(frames: torch.Tensor) -> torch.Tensor:
 
 def rfft_emulation(frames: torch.Tensor, n_fft: int,
                    dc_in_sample_order: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """The FFT kernel's arithmetic in torch: ``(..., L)`` frames (``L <=
-    n_fft``) -> ``(re, im)`` of their ``n_fft``-point real DFT, ``(...,
-    n_fft//2+1)`` each, by the kernel's radix plan (``fbank.fft_plan``),
-    packing ``z[n] = e[2n] + i e[2n+1]`` and untangling bins ``k`` and
-    ``N-k`` as the kernel does, in the frames' dtype. The DC bin is the
-    frame's sum in sample order, as the kernel takes it, unless
-    ``dc_in_sample_order`` is false: then it is the packed FFT's
-    ``Z[0].re + Z[0].im``."""
-    n = n_fft // 2
-    e = torch.nn.functional.pad(frames, (0, n_fft - frames.shape[-1]))
-    zr, zi = e[..., 0::2], e[..., 1::2]
-    tw = torch.from_numpy(fbank.twiddles(n_fft)).to(frames.device, frames.dtype)
-    wr, wi = tw[:, 0], tw[:, 1]
-    for i, (radix, ns) in enumerate(fbank.fft_plan(n_fft)):
-        q = n // radix
-        j = torch.arange(q, device=frames.device)
-        m = (j % ns) * (n_fft // (ns * radix))
-        vr = [zr[..., j + r * q] for r in range(radix)]
-        vi = [zi[..., j + r * q] for r in range(radix)]
-        for r in range(1, radix if i else 1):
-            vr[r], vi[r] = _cmul(vr[r], vi[r], wr[r * m], wi[r * m])
-        yr, yi = _small_dft(vr, vi)
-        d = (j // ns) * ns * radix + j % ns
-        zr, zi = torch.empty_like(zr), torch.empty_like(zi)
-        for r in range(radix):
-            zr[..., d + r * ns] = yr[r]
-            zi[..., d + r * ns] = yi[r]
-    k = torch.arange(n + 1, device=frames.device)
-    ar, ai = zr[..., k % n], zi[..., k % n]
-    br, bi = zr[..., (n - k) % n], zi[..., (n - k) % n]
-    er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
-    o_r, o_i = 0.5 * (ai + bi), -0.5 * (ar - br)
-    xr, xi = _cmul(o_r, o_i, wr[k], wi[k])
-    xr, xi = er + xr, ei + xi
-    if dc_in_sample_order:
-        xr[..., 0], xi[..., 0] = sample_order_sum(frames), 0.0
-    return xr, xi
+    """``(re, im)`` of the FFT route's transform by its plan's plain version
+    (``fbank.rdft_by_plan``: the packing, the kernel's radix plan and f32
+    twiddles, the untangle), ``(..., n_fft//2+1)`` each, for ``(..., L)``
+    f32 frames (``L <= n_fft``). The DC bin is the frame's sum in sample
+    order, as the kernel takes it, unless ``dc_in_sample_order`` is false:
+    then it is the packed FFT's ``Z[0].re + Z[0].im``."""
+    x = fbank.rdft_by_plan(frames, n_fft, dc_in_sample_order)
+    return x.real, x.imag
+
 
 FILTERBANKS = [
     (26, 512, 16000),
@@ -209,12 +142,17 @@ def test_emulated_power_matches_jax_fft_power_spectrum():
 
 
 @pytest.mark.parametrize("n_fft,fft", [(64, True), (256, True), (512, True), (1024, True),
-                                       (2048, True), (4096, True), (510, False),
-                                       (32, False), (8192, False), (400, False)])
+                                       (2048, True), (4096, True), (510, True),
+                                       (32, False), (8192, False), (400, True)])
 def test_dispatch_rule(n_fft, fft):
+    """Every n_fft in [64, 4096] takes the FFT route: a power of two its
+    compile-time plan, any other size its mixed-radix plan; the rest the
+    DFT kernel."""
     cfg = TF.FeatureConfig(n_fft=n_fft, win_len=min(0.025, n_fft / 16000))
-    assert fbank.uses_fft_kernel(cfg) is fft
-    if not fft:
+    power_of_two = n_fft & (n_fft - 1) == 0
+    assert fbank.front_end_kernel(cfg) == (
+        "dft" if not fft else "fft" if power_of_two else "mixed")
+    if not (fft and power_of_two):
         with pytest.raises(ValueError, match="power-of-two"):
             fbank.fft_audio_features(torch.zeros(1, 4000), cfg)
 
@@ -259,6 +197,8 @@ def test_only_a_cpu_tensor_reaches_the_plain_version():
     for kernel in (fbank.fft_audio_features, fbank.dft_audio_features):
         with pytest.raises(ValueError, match="runs on cuda"):
             kernel(torch.zeros(2, 4000), cfg)
-    launches = (fbank.fft_audio_features.launches, fbank.dft_audio_features.launches)
+    kernels = (fbank.fft_audio_features, fbank.mixed_fft_audio_features,
+               fbank.dft_audio_features)
+    launches = [k.launches for k in kernels]
     fbank.audio_features(torch.zeros(2, 4000), cfg)
-    assert launches == (fbank.fft_audio_features.launches, fbank.dft_audio_features.launches)
+    assert launches == [k.launches for k in kernels]
