@@ -168,22 +168,23 @@ without the package, it exits non-zero and prints no result. Phases:
 14. Grouped train-step dispatch (``steps_per_dispatch: K > 1``): K steps
    captured as one CUDA graph and replayed, K1, K3/K4 and P inside it.
    Audio: phase 11's corpus and ``conf/audio_config.yaml`` with K = 4,
-   7 epochs, the rate decayed after epoch 2 and the LMCL margin 0.2 -> 0.35
-   after epoch 5; in f32 (TF32 off, cuDNN deterministic) at one crop length
-   of 300 frames, so one graph lives through the decay and the margin
-   switch: grouped against single steps from one state, each step's loss
+   6 epochs, the rate decayed after epoch 2 and the LMCL margin 0.2 -> 0.35
+   after epoch 5 (the trainer's own switch); in f32 (TF32 off, cuDNN
+   deterministic) at one crop length of 300 frames, so one graph lives
+   through the decay and the margin switch: grouped against single steps from one state, each step's loss
    within 1e-5 relative, the final parameters within 3x what a 1e-6 nudge
    of the PCM moves the single run; the rate and the margin frozen at
-   capture (planted) are each caught; then the config's bf16 recipe (11
-   crop lengths, a graph each) within phase 11's bf16 bar. K1 launches
+   capture (planted) are each caught; then the config's bf16 recipe for 3
+   epochs (its 11 crop lengths drawn in runs of K, a graph for each length
+   drawn) within phase 11's bf16 bar. K1 launches
    once per step, counted over the replays (and once for each of the K
    eager steps that precede a capture). ms per step single and grouped at bs 256 x 300
    in bf16, peak memory both ways, one profiled group's idle share. The
    f32 run's last checkpoint, exported by ``cli/export_torch.py
    --dp-prefix`` as a reference ``.pth``, enrolls through ``cli/verify.py
    --checkpoint`` to the profile the port's own checkpoint gives. Video: a
-   32-speaker x 16-clip corpus of 29 frames through ``cli/train_video.py
-   --steps-per-dispatch 2`` for 2 epochs at bs 128, f32 and bf16, against
+   32-speaker x 8-clip corpus of 29 frames through ``cli/train_video.py
+   --steps-per-dispatch 2`` for 1 epoch at bs 128 (2 steps, one group), f32 and bf16, against
    single steps from the same seed (TCN dropout 0.2: the replayed masks
    are the eager ones), with the same bars (bf16: phase 13's); K3/K4 27 +
    27 and P 1 + 1 per step over the replays; ms per step both ways, peak
@@ -287,8 +288,29 @@ without the package, it exits non-zero and prints no result. Phases:
    (bs 256 x 300, TF32 off, cuDNN deterministic) against one through the
    plain front-end from the same state, by phase 11's rule.
 
-The phases run in the order 1, 2, 14b, 17, 3-5, 18, 11, 6, 9, 7, 8, 10, 12,
-13, 14, 15, 16; each one's wall seconds are logged and kept in the
+19. The repo's verification scripts, the port's own, each in a process of
+   its own on the card (``python -m``; a nonzero exit fails the phase):
+   ``cli/parity_check.py --full`` (the 20,000-trial protocol: 400
+   utterances through K1 and the E-TDNN at full width, embedding 512,
+   against the numpy MFCC and the torch replica on the CPU; embeddings
+   within 1e-4, the EER bit-equal, K1 launched); ``--train-parity`` (the
+   CrossEntropy f32 and LMCL f64 recipes to a final drift of 1e-5, the
+   port's steps on the card); ``--train-parity-video --dtype float32``
+   (through K3/K4 and P) and ``--train-parity-fusion --dtype float32``
+   (from raw PCM and clips, through K1 and P), each held to the f32 step
+   rule against three nudged runs of the replica, each kernel launched;
+   ``examples/full_pipeline_demo.py`` (audio, video and fusion training,
+   the fusion head on the encoders the first two saved, five EERs, each
+   stage's seconds, K1, K3/K4 and P launched); ``examples/verify_demo.py``
+   (the serving API, its config written as YAML and read back by the
+   port's reader; K1 launched); ``cli/prepare_data.py audio --resample
+   16000`` on a 44.1 kHz mono and stereo wav tree the phase writes (the
+   manifest lists each wav once at 16 kHz, each output
+   ``resampled_length`` samples long). Each kernel's launches by script go
+   into the ``kernels`` record.
+
+The phases run in the order 1, 2, 14b, 19, 17, 3-5, 18, 11, 6, 9, 7, 8, 10,
+12, 13, 14, 15, 16; each one's wall seconds are logged and kept in the
 summary's ``phase_seconds``. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the ``kernels``
 JSON record.
@@ -342,7 +364,8 @@ from deeplip_tpu_torch.cli import verify as verify_cli  # noqa: E402
 from deeplip_tpu_torch.cli.train_fusion import build_video_map, make_trainer  # noqa: E402
 from deeplip_tpu_torch.core.config import (AUDIO_DATA_OPTS, ETDNN_MODEL_OPTS, Config,  # noqa: E402
                                            load_audio_config, load_fusion_config)
-from deeplip_tpu_torch.data.audio_io import read_wav, read_wav_int16, write_wav  # noqa: E402
+from deeplip_tpu_torch.data.audio_io import (read_wav, read_wav_int16,  # noqa: E402
+                                             resampled_length, write_wav)
 from deeplip_tpu_torch.data.fusion_pipeline import AVTrainPipeline  # noqa: E402
 from deeplip_tpu_torch.data.audio_pipeline import (EvalUtterance,  # noqa: E402
                                                    EvalUtteranceSet,
@@ -3607,13 +3630,17 @@ def video_bf16_step_phase(trainer: VideoTrainer, batch: dict, bn: dict, smi: str
 
 
 # ---------------------------------------------------------------- phase 14
-GROUPED_EPOCHS = 7                # the rate decays after epoch 2, the margin after epoch 5
+GROUPED_EPOCHS = 6                # the rate decays after epoch 2; the trainer switches the
+                                  # margin after epoch 5, so epoch 6 replays it
+GROUPED_BF16_EPOCHS = 3           # bf16: a graph for each crop length the 3 epochs draw
 GROUPED_DECAY, GROUPED_MARGIN = [2], [0.2, 0.35]
 GROUPED_K_AUDIO, GROUPED_K_VIDEO = 4, 2
-GROUPED_FRAMES = 300              # f32: one crop length, so one graph lives through all 7 epochs
+GROUPED_FRAMES = 300              # f32: one crop length, so one graph lives through all epochs
+                                  # (4 steps, one group, an epoch of phase 11's corpus)
 GROUPED_LOSS_RTOL = 1e-5          # each step's loss, grouped vs single, f32
 GROUPED_FAULTS = ("rate", "margin")
-GROUPED_VIDEO_CLIPS, GROUPED_VIDEO_FRAMES, GROUPED_VIDEO_EPOCHS = 16, 29, 2
+# 32 speakers x 8 clips at bs 128, one epoch: 2 steps, one group
+GROUPED_VIDEO_CLIPS, GROUPED_VIDEO_FRAMES, GROUPED_VIDEO_EPOCHS = 8, 29, 1
 
 
 def floating_state(*modules) -> dict:
@@ -3670,14 +3697,14 @@ class NudgedAudio:
 
 
 def grouped_audio_config(root: str, manifest: str, trials: str, dtype: str,
-                         frames: int | None) -> dict:
-    """``conf/audio_config.yaml`` for phase 14: K = 4, 7 epochs, the rate
-    decayed after epoch 2 and the margin switched after epoch 5."""
+                         frames: int | None, epochs: int = GROUPED_EPOCHS) -> dict:
+    """``conf/audio_config.yaml`` for phase 14: K = 4, ``epochs`` epochs, the
+    rate decayed after epoch 2 and the margin switched after epoch 5."""
     cfg = load_audio_config(AUDIO_CONFIG_PATH).to_dict()
     cfg["data"].update(train_manifest=manifest, test_root=root, trial_grid=trials)
     if frames:
         cfg["data"]["frames"] = [frames, frames]
-    cfg["train"].update(epoch=GROUPED_EPOCHS, lr_decay_step=GROUPED_DECAY,
+    cfg["train"].update(epoch=epochs, lr_decay_step=GROUPED_DECAY,
                         margin=GROUPED_MARGIN, steps_per_dispatch=GROUPED_K_AUDIO,
                         compute_dtype=dtype)
     return cfg
@@ -3784,7 +3811,7 @@ def grouped_audio_phase(smi: str, root: str, device=None) -> dict:
     interop = reference_pth_check(grouped.pop("trainer"), root, smi, device)
     release()
 
-    bf16 = grouped_audio_config(root, manifest, trials, "bf16", None)
+    bf16 = grouped_audio_config(root, manifest, trials, "bf16", None, GROUPED_BF16_EPOCHS)
     bf16_single = grouped_audio_run(bf16, root, "bf16_single", grouped=False, device=device)
     bf16_grouped = grouped_audio_run(bf16, root, "bf16_grouped", grouped=True, device=device,
                                      keep=True)
@@ -3916,7 +3943,8 @@ def reference_pth_check(trainer: AudioTrainer, root: str, smi: str, device=None)
 
 
 def write_grouped_clip_corpus(root: str, seed: int = 1) -> None:
-    """32 speakers x 16 clips of 29 frames (:func:`speaker_clip`)."""
+    """32 speakers x ``GROUPED_VIDEO_CLIPS`` clips of 29 frames
+    (:func:`speaker_clip`)."""
     rng = np.random.default_rng(seed)
     for spk in range(VIDEO_SPEAKERS):
         os.makedirs(os.path.join(root, f"s{spk:02d}"), exist_ok=True)
@@ -3972,7 +4000,7 @@ def grouped_video_run(data: str, root: str, tag: str, dtype: str, k: int,
 
 def grouped_video_phase(smi: str, root: str, device=None) -> dict:
     """Phase 14, video: cli/train_video.py --steps-per-dispatch 2 against
-    single steps, f32 and bf16, 2 epochs; step times and one profiled
+    single steps, f32 and bf16, one epoch; step times and one profiled
     group."""
     data = os.path.join(root, "clips")
     write_grouped_clip_corpus(data)
@@ -5489,6 +5517,209 @@ def process_group_phase(smi: str, peaks) -> dict:
     return {"totals": totals, "steps": steps, "grouped_capture": capture, "wall_s": wall}
 
 
+# ---------------------------------------------------------------- phase 19
+TOOL_TIMEOUT_S = 600            # each verification subprocess's whole run
+PREP_SPEAKERS, PREP_UTTS, PREP_RATE = 4, 3, 44100   # the 44.1 kHz tree prepare_data resamples
+
+
+# CPU threads of each verification process: the protocol's, and each of the two
+# lanes that run beside it, share the card machine's 8 cores
+FULL_THREADS, LANE_THREADS = 4, 2
+
+
+def start_tool(module: str, args: list, root: str, tag: str,
+                 threads: int = LANE_THREADS) -> dict:
+    """Start ``python -m deeplip_tpu_torch.<module> ARGS`` in a process of
+    its own, on the card (no ``--device``), with ``threads`` CPU threads,
+    its output into files under ``root``."""
+    out, err = (open(os.path.join(root, f"{tag}.{k}"), "w+") for k in ("out", "err"))
+    env = {**os.environ, "OMP_NUM_THREADS": str(threads)}
+    proc = subprocess.Popen([sys.executable, "-m", f"deeplip_tpu_torch.{module}", *args],
+                            cwd=REPO, stdout=out, stderr=err, text=True, env=env)
+    return {"proc": proc, "out": out, "err": err, "t0": time.perf_counter()}
+
+
+def finish_tool(run: dict, what: str, report: str | None = None) -> dict:
+    """Wait for a :func:`start_tool` process. A nonzero exit fails the
+    phase. Returns its JSON report (the ``--report`` file, else the last
+    line of its output) with its wall seconds under ``"process_s"``."""
+    try:
+        rc = run["proc"].wait(timeout=TOOL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        run["proc"].kill()
+        run["proc"].wait()
+        raise
+    seconds = time.perf_counter() - run["t0"]
+    stdout, stderr = (run[k].seek(0) or run[k].read() for k in ("out", "err"))
+    run["out"].close()
+    run["err"].close()
+    for line in stderr.splitlines()[-6:]:
+        log(f"  {what}: {line}")
+    check(rc == 0, f"{what} exited {rc}: {stdout[-1500:]} {stderr[-1500:]}")
+    if report is not None:
+        with open(report) as fh:
+            out = json.load(fh)
+    else:
+        out = json.loads(stdout.strip().splitlines()[-1])
+    out["process_s"] = seconds
+    return out
+
+
+def run_tool(module: str, args: list, what: str, root: str,
+               report: str | None = None) -> dict:
+    """:func:`start_tool`, then :func:`finish_tool`."""
+    return finish_tool(start_tool(module, args, root, module.split(".")[-1]), what, report)
+
+
+def write_prep_tree(root: str, seed: int = 0) -> dict:
+    """A 44.1 kHz PCM16 wav tree (``<spk>/[take2/]u<i>.wav``, mono and
+    stereo) for ``prepare_data audio``; returns each wav's samples by its
+    path under ``root``."""
+    rng = np.random.default_rng(seed)
+    lengths = {}
+    for spk in range(PREP_SPEAKERS):
+        for u in range(PREP_UTTS):
+            rel = os.path.join(f"s{spk:02d}", "take2" if u == 2 else "", f"u{u}.wav")
+            path = os.path.join(root, rel)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            n = int(rng.integers(PREP_RATE, 2 * PREP_RATE))
+            y = 0.3 * rng.standard_normal((n, 2) if u == 1 else n)
+            write_wav(path, y.astype(np.float32), PREP_RATE)
+            lengths[os.path.normpath(rel)] = n
+    return lengths
+
+
+def prepare_data_check(root: str) -> dict:
+    """``prepare_data audio --resample 16000`` on :func:`write_prep_tree`:
+    the manifest lists every wav once, by speaker, at 16 kHz, and each
+    output has ``resampled_length`` samples."""
+    src, dst = os.path.join(root, "wav44k"), os.path.join(root, "wav16k")
+    lengths = write_prep_tree(src)
+    manifest = os.path.join(root, "manifest", "train.csv")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deeplip_tpu_torch.cli.prepare_data", "audio",
+                           "--root", src, "--out", manifest, "--resample", "16000",
+                           "--resampled-root", dst], cwd=REPO, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, timeout=TOOL_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"prepare_data exited {proc.returncode}: {proc.stderr[-1500:]}")
+    rows = SpeakerManifest.load(manifest)
+    got = {}
+    for sid, utt in rows.all_utterances():
+        rel = os.path.relpath(utt.path, dst)
+        y, rate = read_wav(utt.path)
+        want = resampled_length(lengths[rel], PREP_RATE, 16000)
+        check(rate == 16000 == utt.rate and len(y) == want
+              and abs(utt.duration - want / 16000) < 1e-9 and rel.startswith(f"s{sid:02d}"),
+              f"prepare_data: {rel} has {len(y)} samples at {rate} Hz, the manifest "
+              f"{utt.duration} s at {utt.rate} Hz; {want} samples expected")
+        got[rel] = len(y)
+    check(sorted(got) == sorted(lengths), f"prepare_data listed {sorted(got)}, the tree holds "
+          f"{sorted(lengths)}")
+    log(f"prepare_data audio --resample 16000: {len(got)} wavs of {PREP_SPEAKERS} speakers, "
+        f"44.1 kHz mono and stereo -> 16 kHz, every length resampled_length's; {seconds:.1f} s")
+    return {"wavs": len(got), "speakers": rows.n_spk, "process_s": seconds,
+            "stdout": proc.stdout.strip()}
+
+
+def parity_tools(root: str, smi: str, out: dict) -> None:
+    """Phase 19's train-parity modes, one after another, their reports into
+    ``out``."""
+    report = lambda name: os.path.join(root, name + ".json")  # noqa: E731
+    audio = run_tool("cli.parity_check", ["--train-parity", "--report", report("tp")],
+                       "parity_check --train-parity", root, report("tp"))
+    for case in ("CrossEntropy_float32", "LMCL_float64", "LMCL_float32"):
+        r = audio[case]
+        log(f"parity_check --train-parity {case} ({'held' if r['enforced'] else 'reported'}; "
+            f"the port on {r['device']}): final parameter drift "
+            f"{r['final_param_max_drift']:.3e}, BN statistics "
+            f"{r['final_batch_stats_max_drift']:.3e}, losses within "
+            f"{r['max_loss_abs_diff']:.3e} (bar 1e-5 where held)")
+        check(not r["enforced"] or r["param_drift_bar_1e-5"], f"{case}: {r}")
+    out["train_parity"] = audio
+
+    for kind, kernels in (("video", ("bn_prelu_fwd", "bn_prelu_bwd", "maxpool_fwd",
+                                     "maxpool_bwd")),
+                          ("fusion", ("fft", "maxpool_fwd"))):
+        r = run_tool("cli.parity_check", [f"--train-parity-{kind}", "--dtype", "float32",
+                                            "--report", report(kind)],
+                       f"parity_check --train-parity-{kind}", root, report(kind))
+        log(f"parity_check --train-parity-{kind} --dtype float32 (the port on the card, "
+            f"{r['steps']} steps): losses within {r['max_loss_rel_diff']:.3e} relative "
+            f"(bar {r['loss_rel_bar']:.3e}; the nudged replicas "
+            f"{', '.join(f'{v:.2e}' for v in r['nudge_max_loss_rel_diffs'])}), final "
+            f"parameters {r['final_param_distance']:.3e} of their norm from the replica's "
+            f"(bar {r['param_distance_bar']:.3e}; nudged "
+            f"{', '.join(f'{v:.2e}' for v in r['nudge_param_distances'])}); launches "
+            f"{ {k: r['launches'][k] for k in kernels} } [{smi}]")
+        check(r["f32_step_rule"] and all(r["launches"][k] > 0 for k in kernels),
+              f"parity_check --train-parity-{kind} --dtype float32: {r}")
+        out[f"train_parity_{kind}"] = r
+
+
+def demo_tools(root: str, smi: str, out: dict) -> None:
+    """Phase 19's demos and data preparation, one after another, their
+    reports into ``out``."""
+    demo = run_tool("examples.full_pipeline_demo", ["--workdir", os.path.join(root, "demo")],
+                      "full_pipeline_demo", root)
+    kernels = ("fft", "bn_prelu_fwd", "bn_prelu_bwd", "maxpool_fwd", "maxpool_bwd")
+    log("full_pipeline_demo on the card: EERs " + ", ".join(
+        f"{k} {v:.4f}" for k, v in demo["eers"].items()) + "; seconds " + ", ".join(
+        f"{k} {v:.1f}" for k, v in demo["seconds"].items())
+        + f"; launches { {k: demo['launches'][k] for k in kernels} } [{smi}]")
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in demo["eers"].values())
+          and len(demo["eers"]) == 5 and all(demo["launches"][k] > 0 for k in kernels),
+          f"full_pipeline_demo: {demo}")
+    out["full_pipeline_demo"] = demo
+
+    serve = run_tool("examples.verify_demo", [], "verify_demo", root)
+    log(f"verify_demo on the card: EER {serve['eer']:.4f}, threshold "
+        f"{serve['threshold']:.4f}, {serve['enrolled']} enrolled, identify "
+        f"{serve['identify']}; K1 launches {serve['launches']['fft']} [{smi}]")
+    check(serve["enrolled"] == 4 and serve["launches"]["fft"] > 0, f"verify_demo: {serve}")
+    out["verify_demo"] = serve
+    out["prepare_data"] = prepare_data_check(root)
+
+
+def tools_phase(smi: str) -> dict:
+    """Phase 19: the repo's verification scripts, the port's own, each in a
+    process of its own on the card, in three lanes at once: ``--full``
+    (whose reference pipeline runs on the CPU), the train-parity modes, and
+    the demos with the data preparation."""
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "full.json")
+        full_run = start_tool("cli.parity_check", ["--full", "--report", path], root, "full",
+                                FULL_THREADS)
+        try:
+            with ThreadPoolExecutor(2) as lanes:
+                for lane in [lanes.submit(f, root, smi, out)
+                             for f in (parity_tools, demo_tools)]:
+                    lane.result()
+            full = finish_tool(full_run, "parity_check --full", path)
+        finally:   # a failed script stops the protocol's process too
+            if full_run["proc"].poll() is None:
+                full_run["proc"].kill()
+                full_run["proc"].wait()
+    log(f"parity_check --full (the port on the card, K1 then the E-TDNN at full width, "
+        f"embedding 512, against the numpy MFCC and the torch replica on the CPU): "
+        f"{full['n_utterances']} utterances, {full['n_trials']} trials; largest embedding "
+        f"difference {full['max_embedding_abs_diff']:.3e} (bar 1e-4), largest score "
+        f"difference {full['max_trial_score_abs_diff']:.3e}; EER reference "
+        f"{full['eer_reference_torch']!r}, port {full['eer_deeplip_tpu']!r} (bit-equal "
+        f"{full['eer_bit_equal']}), {full['order_flips']['count']} target/non-target orders "
+        f"flipped; K1 launches {full['launches']['fft']}; {full['process_s']:.1f} s [{smi}]")
+    check(full["embedding_parity_bar_1e-4"] and full["eer_bit_equal"]
+          and full["launches"]["fft"] > 0, f"parity_check --full: {full}")
+    out["full"] = full
+    out["launches"] = {name: dict(out[key]["launches"]) for name, key in (
+        ("parity_full", "full"), ("train_parity", "train_parity"),
+        ("train_parity_video", "train_parity_video"),
+        ("train_parity_fusion", "train_parity_fusion"),
+        ("full_pipeline_demo", "full_pipeline_demo"), ("verify_demo", "verify_demo"))}
+    return out
+
+
 BN_REPLACES = {"fwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:56",
                        "deeplip_tpu/ops/pallas/bn_prelu_kernel.py:70"),
                "bwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:80",
@@ -5617,6 +5848,8 @@ def main() -> int:
     part, peaks = card_peaks(dev["name"])
     native_build_s = phase("2", build_phase)
     pressure = phase("14b", capture_pressure_phase, dev["smi"])
+    # the verification scripts run in processes of their own while the card is clean
+    tools = phase("19", tools_phase, dev["smi"])
     # phase 17 runs while the card is clean: its grouped capture needs free
     # device memory for its graph's pool, which the earlier phases' cached
     # and fragmented segments leave too little of by the end of the script
@@ -5842,6 +6075,15 @@ def main() -> int:
             "audio_step": group["steps"]["audio"]["launches"]["group"]["fft"],
             "fusion_step": group["steps"]["fusion"]["launches"]["group"]["fft"],
             "grouped_capture": group["grouped_capture"]["launches"]["fft"]}
+    # phase 19: the verification scripts' processes, each kernel's launches by script
+    drv = tools["launches"]
+    for name, kernel in (("fused_fbank", "fft"), ("fused_fbank_v1_configs", "fft"),
+                         ("fused_fbank_mixed_fft", "mixed"), ("fused_fbank_dft", "dft"),
+                         ("bn_prelu_fwd", "bn_prelu_fwd"), ("bn_prelu_bwd", "bn_prelu_bwd"),
+                         ("maxpool_frontend", "maxpool_fwd")):
+        by_name[name]["launches_verification"] = {d: c.get(kernel, 0) for d, c in drv.items()}
+    by_name["maxpool_frontend"]["launches_verification_bwd"] = {
+        d: c.get("maxpool_bwd", 0) for d, c in drv.items()}
     summary = {
         "card": dev["smi"],
         "peaks_part": part,
@@ -5889,6 +6131,7 @@ def main() -> int:
         "kaldi_host_io": kaldi_io,
         "process_group": group,
         "capture_pressure": pressure,
+        "verification": tools,
         "phase_seconds": seconds,
     }
     print(json.dumps(summary), flush=True)

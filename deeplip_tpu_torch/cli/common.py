@@ -15,14 +15,14 @@ from deeplip_tpu_torch.data.audio_pipeline import EvalUtterance
 from deeplip_tpu_torch.eval.scoring import TrialList
 
 
-def utterances_from_names(names, root: str) -> list[EvalUtterance]:
+def utterances_from_trials_list(names, root: str) -> list[EvalUtterance]:
     """Utterance names resolved against a wav root directory."""
     return [EvalUtterance(n, os.path.join(root, n)) for n in names]
 
 
 def utterances_from_trials(trial_path: str, root: str) -> list[EvalUtterance]:
     """The unique utterances of a trial list, resolved against ``root``."""
-    return utterances_from_names(TrialList.load(trial_path).unique_utts, root)
+    return utterances_from_trials_list(TrialList.load(trial_path).unique_utts, root)
 
 
 def labels_from_speaker_prefix(names: list[str]) -> list[int]:

@@ -34,7 +34,7 @@ import sys
 import numpy as np
 
 from deeplip_tpu_torch.cli.common import (labels_from_speaker_prefix, launcher_mesh,
-                                          utterances_from_names, utterances_from_trials)
+                                          utterances_from_trials, utterances_from_trials_list)
 from deeplip_tpu_torch.core.config import load_audio_config
 from deeplip_tpu_torch.data.audio_pipeline import EvalUtteranceSet, eval_set_kwargs
 from deeplip_tpu_torch.eval.plda import PLDA, plda_eer
@@ -86,7 +86,8 @@ def run_mode(trainer: AudioTrainer, cfg, mode: str) -> dict:
         if test.get("train_plda") and data.get("plda_dev_list"):
             dev_names = [line.strip() for line in open(data["plda_dev_list"]) if line.strip()]
             dev_store = trainer.extract_embeddings(
-                _eval_set(trainer, utterances_from_names(dev_names, data.get("dev_root", "."))))
+                _eval_set(trainer, utterances_from_trials_list(dev_names,
+                                                               data.get("dev_root", "."))))
             x = np.stack([dev_store[n].detach().cpu().numpy() for n in dev_names])
             labels = np.asarray(labels_from_speaker_prefix(dev_names))
             plda_model = PLDA().fit(x, labels, n_principal_components=20)

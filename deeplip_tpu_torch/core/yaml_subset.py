@@ -20,8 +20,9 @@ raises :class:`YAMLSubsetError` naming the file and the line.
 
 from __future__ import annotations
 
+import json
 import re
-from typing import Any
+from typing import Any, Mapping
 
 _NULL = {"", "~", "null", "Null", "NULL"}
 _BOOL = {**{s: True for s in ("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON")},
@@ -336,3 +337,39 @@ def load_yaml(path: str) -> Any:
     """Read a YAML file of the subset: the value ``yaml.safe_load`` gives."""
     with open(path, "r") as fh:
         return loads_yaml(fh.read(), path)
+
+
+def _scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        text = repr(value)
+        if "e" in text and "." not in text.split("e")[0]:
+            text = text.replace("e", ".0e", 1)   # PyYAML's 1.0e-05, not the string 1e-05
+        return {"inf": ".inf", "-inf": "-.inf", "nan": ".nan"}.get(text, text)
+    if isinstance(value, str):
+        return json.dumps(value)   # a double-quoted YAML scalar
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_scalar(v) for v in value) + "]"
+    raise TypeError(f"no YAML subset form for {type(value).__name__}")
+
+
+def dumps_yaml(tree: Mapping[str, Any], indent: int = 0) -> str:
+    """Write a nested mapping as YAML of the subset :func:`loads_yaml` reads
+    (block maps, flow lists, quoted strings), which reads back to the same
+    value here and in ``yaml.safe_load``, except an empty map: it is
+    written as an empty value (None), which the config loaders read as an
+    empty section."""
+    lines = []
+    for key, value in tree.items():
+        if isinstance(value, Mapping) and value:
+            lines.append(" " * indent + f"{key}:")
+            lines.append(dumps_yaml(value, indent + 2).rstrip("\n"))
+        else:
+            lines.append(" " * indent + (f"{key}:" if isinstance(value, Mapping)
+                                         else f"{key}: {_scalar(value)}"))
+    return "\n".join(lines) + "\n"

@@ -189,11 +189,23 @@ def write_wav(path: str, data: np.ndarray, rate: int) -> None:
         w.writeframes(pcm.tobytes())
 
 
-def resample(data: np.ndarray, orig_rate: int, target_rate: int) -> np.ndarray:
-    """Resample 1-D audio with resampy's ``kaiser_best`` filter, fixed to
-    exactly :func:`resampled_length` samples as librosa does."""
+def resample(data: np.ndarray, orig_rate: int, target_rate: int,
+             method: str = "kaiser_best") -> np.ndarray:
+    """Resample 1-D audio. ``kaiser_best`` (the default, the reference's
+    librosa/resampy filter) gives exactly :func:`resampled_length` samples,
+    as librosa fixes them; ``polyphase`` is scipy's ``resample_poly`` by the
+    reduced rate ratio (another FIR design)."""
     if orig_rate == target_rate:
         return data
+    if method == "polyphase":
+        from math import gcd
+
+        from scipy.signal import resample_poly
+
+        g = gcd(orig_rate, target_rate)
+        return resample_poly(data, target_rate // g, orig_rate // g).astype(np.float32)
+    if method != "kaiser_best":
+        raise ValueError(f"unknown resample method {method!r}")
     y = _resample_sinc(np.asarray(data, np.float64), orig_rate, target_rate)
     n_out = resampled_length(len(data), orig_rate, target_rate)
     if len(y) > n_out:

@@ -6,8 +6,9 @@ package imports, builds and starts nothing.
 
 The JAX ``import_speaker_embnet_state_dict`` turns a reference state dict
 into Flax parameters; the port's modules take the reference layout itself,
-and ``clean_state_dict`` (the DataParallel prefix and ``fc3*`` taken off)
-stands in its place.
+so the port's converter of that name cleans the container (the DataParallel
+prefix and ``fc3*`` taken off, as ``clean_state_dict`` does) and keeps the
+keys the JAX converter reads.
 """
 
 from importlib import import_module
@@ -18,6 +19,7 @@ _EXPORTS = {
     "write_ark_scp": "kaldi",
     "KaldiHelper": "kaldi",
     "clean_state_dict": "torch_import",
+    "import_speaker_embnet_state_dict": "torch_import",
     "load_reference_audio_checkpoint": "torch_import",
 }
 

@@ -30,6 +30,8 @@ from typing import Any, Mapping
 
 import torch
 
+from deeplip_tpu_torch.interop.torch_import import shufflenet_last
+
 
 def _cpu(sd: Mapping[str, torch.Tensor], data_parallel_prefix: bool = False) -> dict:
     prefix = "module." if data_parallel_prefix else ""
@@ -105,3 +107,59 @@ def save_reference_fusion_checkpoint(path: str, head_state_dict: Mapping[str, to
     head = {k: head_state_dict[k] for k in ("U", "V")}
     torch.save(_container(_cpu(head, data_parallel_prefix), epoch, criterion_state_dict),
                path)
+
+
+# ---------------------------------------------------------------------------
+# per-module converters: a port module's state dict -> the reference layout
+# (the JAX exporters' names and arguments), as CPU copies
+
+
+def export_speaker_embnet_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                     pooling: str | None = "attentive_statistic",
+                                     data_parallel_prefix: bool = False) -> dict:
+    """A port ``SpeakerEmbNet`` state dict in the reference layout, an
+    attentive pooling in the ``pooling`` layout."""
+    if not any(k.startswith("tdnn.") for k in state_dict):
+        raise ValueError("not a TDNN/E-TDNN state dict: the reference defines no checkpoint "
+                         "layout for the other audio archs")
+    return _cpu(pooling_to_reference(state_dict, pooling), data_parallel_prefix)
+
+
+def export_lmcl_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The LMCL criterion's ``weights``."""
+    return _cpu({"weights": state_dict["weights"]})
+
+
+def export_criterion_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict | None:
+    """A criterion's weights in the reference layout: CrossEntropy's
+    ``fc.weight``/``fc.bias`` or LMCL's ``weights``; None for another."""
+    if "fc.weight" in state_dict:
+        return _cpu({k: state_dict[k] for k in ("fc.weight", "fc.bias") if k in state_dict})
+    if "weights" in state_dict:
+        return export_lmcl_state_dict(state_dict)
+    return None
+
+
+def export_lowfer_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """LowFER's ``U`` and ``V``."""
+    return _cpu({k: state_dict[k] for k in ("U", "V")})
+
+
+def export_shufflenet_trunk_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                       prefix: str = "trunk.0.") -> dict:
+    """A port ``ShuffleNetV2Trunk`` state dict (``0.*`` the units, ``1.*``
+    the last conv) under the reference's names: the units under ``prefix``,
+    the last conv under its ``conv_last``."""
+    last = shufflenet_last(prefix)
+    out = {}
+    for key, value in state_dict.items():
+        part, rest = key.split(".", 1)
+        out[(prefix if part == "0" else last) + rest] = value
+    return _cpu(out)
+
+
+def export_lipreading_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                 data_parallel_prefix: bool = False) -> dict:
+    """A port ``Lipreading`` state dict in the reference layout, which is
+    its own."""
+    return _cpu(state_dict, data_parallel_prefix)

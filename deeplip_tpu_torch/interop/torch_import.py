@@ -34,6 +34,7 @@ import pickle
 import types
 from typing import Any, Mapping
 
+import numpy as np
 import torch
 
 # the tensor machinery a checkpoint pickle needs; everything else is stubbed
@@ -42,18 +43,30 @@ _SAFE_GLOBALS = {("collections", "OrderedDict"), ("copyreg", "_reconstructor"),
 CLASSIFIER_PREFIX = "tcn.tcn_output."
 
 
-def clean_state_dict(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+def float_type(float_dtype) -> torch.dtype:
+    """A torch float type from a torch or numpy one (``np.float64`` as the
+    JAX converters take it)."""
+    if isinstance(float_dtype, torch.dtype):
+        return float_dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(float_dtype))).dtype
+
+
+def clean_state_dict(state_dict: Mapping[str, Any],
+                     float_dtype=torch.float32) -> dict[str, torch.Tensor]:
     """A reference state dict in the port's terms: ``module.`` stripped,
-    ``fc3*`` dropped, floats as float32, a ``num_batches_tracked`` for every
-    BatchNorm."""
+    ``fc3*`` dropped, floats as ``float_dtype`` (float32, the port's
+    parameter type, unless asked), a ``num_batches_tracked`` for every
+    BatchNorm. The tensors are copies."""
+    dtype = float_type(float_dtype)
     out = {}
     for key, value in state_dict.items():
         if key.startswith("module."):
             key = key[len("module."):]
         if key.startswith("fc3"):
             continue
-        value = torch.as_tensor(value).detach().cpu()
-        out[key] = value.to(torch.float32) if value.is_floating_point() else value.clone()
+        value = (value.detach().cpu() if torch.is_tensor(value)
+                 else torch.from_numpy(np.array(value)))
+        out[key] = value.to(dtype, copy=True) if value.is_floating_point() else value.clone()
     for key in [k for k in out if k.endswith(".running_mean")]:
         counter = key[:-len("running_mean")] + "num_batches_tracked"
         out.setdefault(counter, torch.tensor(0, dtype=torch.long))
@@ -169,22 +182,111 @@ def load_reference_video_checkpoint(path: str, initial: Mapping[str, torch.Tenso
     return {**{k: v.detach().cpu() for k, v in initial.items()}, **loaded}
 
 
-def load_reference_fusion_checkpoint(path: str) -> tuple[dict, dict | None]:
+def load_reference_fusion_checkpoint(path: str, float_dtype=torch.float32
+                                     ) -> tuple[dict, dict | None]:
     """``(head, criterion)`` of a reference fusion ``net_*.pth``: LowFER's
     ``U`` and ``V``, and the criterion's parameters from the file's
     ``criterion_state_dict`` (as the exporters write it) or from its
-    pickled ``criterion`` module, or None where neither is there."""
+    pickled ``criterion`` module, or None where neither is there (or the
+    module's weights are of no criterion the port knows). Floats come as
+    ``float_dtype``."""
     tree = read_checkpoint(path)
-    sd = clean_state_dict(_state_dict_of(tree))
-    missing = [k for k in ("U", "V") if k not in sd]
-    if missing:
-        raise KeyError(f"{path}: no LowFER {missing} in the fusion checkpoint")
-    head = {"U": sd["U"], "V": sd["V"]}
+    head = import_lowfer_state_dict(_state_dict_of(tree), float_dtype)
     if not isinstance(tree, Mapping):
         return head, None
     if tree.get("criterion_state_dict") is not None:
-        return head, clean_state_dict(tree["criterion_state_dict"])
+        return head, import_criterion_state_dict(tree["criterion_state_dict"], float_dtype)
     if tree.get("criterion") is not None:
         crit = criterion_state_from_object(tree["criterion"])
-        return head, clean_state_dict(crit) if crit else None
+        return head, import_criterion_state_dict(crit, float_dtype) if crit else None
     return head, None
+
+
+# ---------------------------------------------------------------------------
+# per-module converters: a reference state dict -> the state dict the port's
+# module loads with strict=True (the JAX converters' names and arguments)
+
+_EMBNET_HEAD = ("fc1.", "fc2.", "bn1.", "bn2.", "pooling.")
+
+
+def import_speaker_embnet_state_dict(state_dict: Mapping[str, Any], n_blocks: int | None = None,
+                                     float_dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """A reference ``SpeakerEmbNet`` state dict for the port's
+    ``SpeakerEmbNet``: its first ``n_blocks`` TDNN blocks (all where None),
+    ``fc1``/``bn1``/``fc2``/``bn2`` and an attentive pooling in the port's
+    shapes; other keys are left out, as the JAX converter leaves them."""
+    sd = clean_state_dict(state_dict, float_dtype)
+
+    def kept(key: str) -> bool:
+        if key.startswith("tdnn."):
+            return n_blocks is None or int(key.split(".")[1]) < n_blocks
+        return key.startswith(_EMBNET_HEAD)
+
+    return pooling_from_reference({k: v for k, v in sd.items() if kept(k)})
+
+
+def import_lmcl_state_dict(state_dict: Mapping[str, Any],
+                           float_dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """The LMCL criterion's ``weights``."""
+    return {"weights": clean_state_dict(state_dict, float_dtype)["weights"]}
+
+
+def import_lipreading_state_dict(state_dict: Mapping[str, Any], layers=(2, 2, 2, 2),
+                                 float_dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """A reference ResNet ``Lipreading`` state dict, as far as the JAX
+    converter reads it: the frontend, the trunk's first ``layers[s]``
+    blocks of each stage and the TCN head (with the classifier where the
+    file has it). Merge it over the receiving network's state dict
+    (:func:`load_reference_video_checkpoint`) for the keys it lacks."""
+    sd = clean_state_dict(state_dict, float_dtype)
+
+    def kept(key: str) -> bool:
+        if key.startswith("trunk.layer"):
+            stage, block = key.split(".")[1:3]
+            return int(block) < layers[int(stage[len("layer"):]) - 1]
+        return key.startswith(("frontend3D.", "tcn."))
+
+    return {k: v for k, v in sd.items() if kept(k)}
+
+
+def shufflenet_last(prefix: str) -> str:
+    """The reference's ``conv_last`` prefix beside the units' ``prefix``."""
+    return prefix.rsplit(".", 2)[0] + ".1." if prefix.endswith("0.") else "conv_last."
+
+
+def import_shufflenet_trunk_state_dict(sd_or_raw: Mapping[str, Any], prefix: str = "trunk.0.",
+                                       float_dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """The reference ShuffleNetV2 trunk (units under ``prefix``, the last
+    1x1 conv + BN under its ``conv_last``) as the state dict of the port's
+    ``ShuffleNetV2Trunk`` (``0.*`` the units, ``1.*`` the last conv)."""
+    sd = clean_state_dict(sd_or_raw, float_dtype)
+    last = shufflenet_last(prefix)
+    out = {}
+    for key, value in sd.items():
+        if key.startswith(prefix):
+            out["0." + key[len(prefix):]] = value
+        elif key.startswith(last):
+            out["1." + key[len(last):]] = value
+    return out
+
+
+def import_lowfer_state_dict(state_dict: Mapping[str, Any],
+                             float_dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """LowFER's ``U`` and ``V``."""
+    sd = clean_state_dict(state_dict, float_dtype)
+    missing = [k for k in ("U", "V") if k not in sd]
+    if missing:
+        raise KeyError(f"no LowFER {missing} in the state dict")
+    return {"U": sd["U"], "V": sd["V"]}
+
+
+def import_criterion_state_dict(state_dict: Mapping[str, Any], float_dtype=torch.float32
+                                ) -> dict[str, torch.Tensor] | None:
+    """A reference criterion's weights: CrossEntropy's ``fc.weight`` (and
+    ``fc.bias``) or LMCL's ``weights``; None for any other state dict."""
+    sd = clean_state_dict(state_dict, float_dtype)
+    if "fc.weight" in sd:
+        return {k: sd[k] for k in ("fc.weight", "fc.bias") if k in sd}
+    if "weights" in sd:
+        return {"weights": sd["weights"]}
+    return None

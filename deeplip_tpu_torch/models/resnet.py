@@ -123,18 +123,21 @@ class BasicBlock(nn.Module):
 
 
 class ResNetTrunk(nn.Module):
-    """Stemless ResNet: ``(N, H, W, 64) -> (N, 512)``."""
+    """Stemless ResNet: ``(N, H, W, 64) -> (N, 512)``; ``avg_pool_downsample``
+    gives every downsampling block the avg-pool residual."""
 
     planes = (64, 128, 256, 512)
     strides = (1, 2, 2, 2)
 
-    def __init__(self, layers=(2, 2, 2, 2), relu_type: str = "prelu"):
+    def __init__(self, layers=(2, 2, 2, 2), relu_type: str = "prelu",
+                 avg_pool_downsample: bool = False):
         super().__init__()
         inplanes = 64
         for stage, (p, s, n) in enumerate(zip(self.planes, self.strides, layers), start=1):
             blocks = []
             for i in range(n):
-                blocks.append(BasicBlock(inplanes, p, s if i == 0 else 1, relu_type))
+                blocks.append(BasicBlock(inplanes, p, s if i == 0 else 1, relu_type,
+                                         avg_pool_downsample))
                 inplanes = p
             setattr(self, f"layer{stage}", nn.Sequential(*blocks))
 

@@ -1,0 +1,18 @@
+"""The hand-written CUDA kernels' wrappers (``fbank``, ``bn_prelu``,
+``maxpool``), their build (``build``), and :func:`launch_counts`."""
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count in this process, by kernel: the
+    front-end's FFT, mixed-radix and DFT kernels, K3 and K4 (the fused
+    BN+PReLU forward and backward), and the max-pool's forward and
+    backward."""
+    from deeplip_tpu_torch.ops.cuda import bn_prelu, fbank, maxpool
+
+    return {"fft": fbank.fft_audio_features.launches,
+            "mixed": fbank.mixed_fft_audio_features.launches,
+            "dft": fbank.dft_audio_features.launches,
+            "bn_prelu_fwd": bn_prelu.bn_prelu_forward.launches,
+            "bn_prelu_bwd": bn_prelu.bn_prelu_backward.launches,
+            "maxpool_fwd": maxpool.maxpool_forward.launches,
+            "maxpool_bwd": maxpool.maxpool_backward.launches}

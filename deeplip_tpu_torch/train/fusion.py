@@ -101,7 +101,7 @@ class FusionTrainer:
                  video_trunk_layers=(2, 2, 2, 2), fusion_head: str = "lowfer",
                  loss: str = "CrossEntropy", exp_root: str = "exp",
                  log_time: str | None = None, seed: int = 0, compute_dtype: str = "float32",
-                 mesh: Mesh | None = None):
+                 mesh: Mesh | None = None, scale: float = 30.0, margin: float = 0.2):
         self.mesh = mesh if mesh is not None else local_mesh()
         if fusion_head not in FUSION_HEADS:
             raise NotImplementedError(f"fusion head {fusion_head!r}")
@@ -116,6 +116,7 @@ class FusionTrainer:
         self.raw_feat_cfg = dataclasses.replace(self.feat_cfg, normalize=False, delta=False)
         self.fusion_head_name = fusion_head
         self.loss_name = loss
+        self._criterion_opts = dict(scale=float(scale), margin=float(margin))
         self._audio_model_opts = audio_model_opts
         self._video_model_cfg = video_model_cfg
         self._video_kw = dict(hidden_dim=video_hidden_dim,
@@ -158,9 +159,9 @@ class FusionTrainer:
             with torch.no_grad():
                 fused_dim = self._head_apply(torch.zeros(2, emb_dim),
                                              torch.zeros(2, video_dim)).shape[-1]
-            # margin criteria at the reference's scale 30 and margin 0.2
+            # margin criteria at ``scale`` and ``margin`` (the reference's 30, 0.2)
             self.criterion = build_criterion(self.loss_name, max(int(self.n_spk), 1),
-                                             fused_dim)
+                                             fused_dim, **self._criterion_opts)
         for module in (self.audio_model, self.video_model):
             module.to(self.device).eval().requires_grad_(False)
         # the head trains in eval mode: LinearFusion's BN keeps its running

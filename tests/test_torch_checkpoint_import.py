@@ -16,7 +16,13 @@ read. The port's loaders and the JAX package's read each file:
   ``cli/verify.py`` and the fusion config's ``resume`` keys, which raised
   before the port had these loaders;
 - the port's exporter (and ``cli/export_torch.py``) back into the JAX
-  package's importer, bit-equal.
+  package's importer, bit-equal;
+- each per-module converter against its JAX twin (E-TDNN with each pooling
+  layout, LMCL, the criteria, LowFER, Lipreading, the ShuffleNetV2 trunk):
+  the JAX export of seeded Flax parameters through the port's import gives
+  the JAX module's outputs, and the port's export through the JAX import
+  gives back the same parameters bit for bit; and
+  ``load_reference_fusion_checkpoint(float_dtype)``.
 """
 
 import json
@@ -379,3 +385,148 @@ def test_export_cli_writes_what_the_jax_import_reads(tmp_path, capsys):
     again = cli_export.main(["audio", "--checkpoint", ckpt, "--out", str(tmp_path / "p.pth"),
                              "--pooling", "attentive_statistic"])
     _assert_sd_equal(sd, _jax_audio_sd(again))
+
+
+# -- the per-module converters against their JAX twins ------------------------
+
+def _tree_equal(got, want, what=""):
+    if isinstance(want, dict):
+        # Flax keeps an empty collection for a module without statistics
+        got, want = ({k: v for k, v in t.items() if not (isinstance(v, dict) and not v)}
+                     for t in (got, want))
+        assert set(got) == set(want), what
+        for k in want:
+            _tree_equal(got[k], want[k], f"{what}/{k}")
+        return
+    g, w = np.asarray(got), np.asarray(want)
+    assert g.dtype == w.dtype and g.shape == w.shape, what
+    np.testing.assert_array_equal(g, w, err_msg=what)
+
+
+@pytest.mark.parametrize("pooling,layout", [("statistic", "attentive_statistic"),
+                                            ("attentive_statistic", "attentive_statistic"),
+                                            ("mono_head_attention", "mono_head_attention")])
+def test_speaker_embnet_converters_round_trip_with_jax(pooling, layout):
+    from deeplip_tpu_torch.models.tdnn import SpeakerEmbNet
+
+    model, params, stats = _jax_net(pooling=pooling, seed=5)
+    ref = JE.export_speaker_embnet_state_dict(params, stats, pooling=layout)
+    ref["fc3.weight"] = np.ones((3, 2), np.float32)   # the reference's stray layer
+    sd = PI.import_speaker_embnet_state_dict(ref, n_blocks=len(CONTEXTS))
+    net = SpeakerEmbNet(CONTEXTS, HIDDEN, input_dim=24, embedding_dim=EMB,
+                        pooling=pooling).eval()
+    net.load_state_dict(sd, strict=True)
+    x = np.random.default_rng(2).standard_normal((3, 70, 24)).astype(np.float32)
+    want, _ = model.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                          method=model.extract_embedding)
+    with torch.no_grad():
+        got, _ = net.extract_embedding(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    back_p, back_s = JI.import_speaker_embnet_state_dict(
+        PE.export_speaker_embnet_state_dict(net.state_dict(), pooling=layout),
+        n_blocks=len(CONTEXTS))
+    _tree_equal(back_p, params)
+    _tree_equal(back_s, stats)
+    # the first n blocks only, as the JAX converter reads them
+    assert not any(k.startswith("tdnn.2.") for k in PI.import_speaker_embnet_state_dict(
+        ref, n_blocks=2))
+
+
+def test_criterion_converters_round_trip_with_jax():
+    from deeplip_tpu.losses.softmax import CrossEntropyHead as JaxCE, LMCL as JaxLMCL
+    from deeplip_tpu_torch.losses.softmax import CrossEntropyHead, LMCL
+
+    rng = np.random.default_rng(3)
+    emb = rng.standard_normal((4, 16)).astype(np.float32)
+    labels = rng.integers(0, 6, 4)
+    for jax_head, port_head in ((JaxLMCL(num_classes=6), LMCL(6, 16)),
+                                (JaxCE(num_classes=6), CrossEntropyHead(6, 16))):
+        v = jax_head.init(jax.random.PRNGKey(1), jnp.asarray(emb), jnp.asarray(labels))
+        params = jax.tree_util.tree_map(np.asarray, v["params"])
+        ref = JE.export_criterion_state_dict(params)
+        port_head.load_state_dict(PI.import_criterion_state_dict(ref), strict=True)
+        jl, jlogits = jax_head.apply({"params": params}, jnp.asarray(emb), jnp.asarray(labels))
+        pl, plogits = port_head(torch.from_numpy(emb), torch.from_numpy(labels))
+        np.testing.assert_allclose(plogits.detach().numpy(), np.asarray(jlogits), atol=1e-5)
+        np.testing.assert_allclose(float(pl.detach()), float(jl), rtol=1e-5)
+        _tree_equal(JI.import_criterion_state_dict(
+            PE.export_criterion_state_dict(port_head.state_dict())), params)
+        if "weights" in params:   # LMCL's own pair
+            assert set(PI.import_lmcl_state_dict(JE.export_lmcl_state_dict(params))) == {
+                "weights"}
+            _tree_equal(JI.import_lmcl_state_dict(PE.export_lmcl_state_dict(
+                port_head.state_dict())), params)
+    assert PI.import_criterion_state_dict({"other": torch.zeros(2)}) is None
+    assert PE.export_criterion_state_dict({"other": torch.zeros(2)}) is None
+
+
+def test_lowfer_converters_round_trip_with_jax():
+    rng = np.random.default_rng(4)
+    head = {"U": rng.uniform(-1, 1, (EMB, 30 * EMB)).astype(np.float32),
+            "V": rng.uniform(-1, 1, (24, 30 * EMB)).astype(np.float32)}
+    sd = PI.import_lowfer_state_dict({"module." + k: v for k, v in
+                                      JE.export_lowfer_state_dict(head).items()})
+    port = LowFER(input_dims=(EMB, 24), output_dim=EMB)
+    port.load_state_dict({**port.state_dict(), **sd}, strict=True)
+    _tree_equal(JI.import_lowfer_state_dict(PE.export_lowfer_state_dict(port.state_dict())),
+                head)
+
+
+def test_lipreading_converters_round_trip_with_jax():
+    params, stats = _jax_video_weights()
+    ref = JE.export_lipreading_state_dict(params, stats)
+    port = Lipreading.from_config(VIDEO_CFG, NC, **VIDEO_KW).eval()
+    port.load_state_dict({**port.state_dict(),
+                          **PI.import_lipreading_state_dict(ref, layers=(1, 1, 1, 1))},
+                         strict=True)
+    want = Lipreading.from_config(VIDEO_CFG, NC, **VIDEO_KW).eval()
+    want.load_state_dict(lipreading_state_dict(params, stats))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 3, 24, 24, 1)).astype(np.float32))
+    with torch.no_grad():
+        assert torch.equal(port.frame_features(x), want.frame_features(x))
+    back_p, back_s = JI.import_lipreading_state_dict(
+        PE.export_lipreading_state_dict(port.state_dict()), layers=(1, 1, 1, 1))
+    _tree_equal(back_p, params)
+    _tree_equal(back_s, stats)
+
+
+def test_shufflenet_trunk_converters_round_trip_with_jax():
+    from deeplip_tpu.models.shufflenetv2 import ShuffleNetV2Trunk as JaxTrunk
+    from deeplip_tpu_torch.models.shufflenetv2 import ShuffleNetV2Trunk
+
+    jtrunk = JaxTrunk(width_mult=0.5)
+    x = np.random.default_rng(6).standard_normal((2, 16, 16, 24)).astype(np.float32)
+    v = jtrunk.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    rng = np.random.default_rng(7)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rng.normal(0, 0.05, a.shape).astype(np.float32), v["params"])
+    stats = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rng.uniform(0, 0.5, a.shape).astype(np.float32),
+        v["batch_stats"])
+    want = np.asarray(jtrunk.apply({"params": params, "batch_stats": stats}, jnp.asarray(x)))
+    port = ShuffleNetV2Trunk(0.5).eval()
+    port.load_state_dict(PI.import_shufflenet_trunk_state_dict(
+        JE.export_shufflenet_trunk_state_dict(params, stats)), strict=True)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    back_p, back_s = JI.import_shufflenet_trunk_state_dict(
+        PE.export_shufflenet_trunk_state_dict(port.state_dict()))
+    _tree_equal(back_p, params)
+    _tree_equal(back_s, stats)
+
+
+@pytest.mark.parametrize("float_dtype", [np.float32, np.float64])
+def test_fusion_loader_takes_a_float_dtype_like_jax(tmp_path, float_dtype):
+    path = str(tmp_path / "net_2.pth")
+    _fusion_file(path)
+    got_head, got_crit = PI.load_reference_fusion_checkpoint(path, float_dtype=float_dtype)
+    want_head, want_crit = JI.load_reference_fusion_checkpoint(path, float_dtype=float_dtype)
+    _tree_equal({k: v.numpy() for k, v in got_head.items()}, want_head)
+    assert got_crit["fc.weight"].numpy().dtype == float_dtype
+    np.testing.assert_array_equal(got_crit["fc.weight"].numpy(),
+                                  want_crit["fc"]["kernel"].T)
+    np.testing.assert_array_equal(got_crit["fc.bias"].numpy(), want_crit["fc"]["bias"])
+    torch_head, _ = PI.load_reference_fusion_checkpoint(path, float_dtype=torch.float64)
+    assert torch_head["U"].dtype == torch.float64

@@ -62,6 +62,15 @@ _PROBE = textwrap.dedent("""
     assert set(kaldi_and_host_io) <= set(names), sorted(set(kaldi_and_host_io) - set(names))
     multi_gpu = ["deeplip_tpu_torch.core.mesh", "deeplip_tpu_torch.core.distributed"]
     assert set(multi_gpu) <= set(names), sorted(set(multi_gpu) - set(names))
+    verification = [
+        "deeplip_tpu_torch.cli.parity_check", "deeplip_tpu_torch.cli.prepare_data",
+        "deeplip_tpu_torch.examples.full_pipeline_demo",
+        "deeplip_tpu_torch.examples.verify_demo"]
+    assert set(verification) <= set(names), sorted(set(verification) - set(names))
+    # they keep their own copies of what they need from the repo's scripts
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("scripts", "benchmarks", "examples"))
+    assert not foreign, foreign
     # importing builds nothing: the native library is built at its first call
     native = sys.modules["deeplip_tpu_torch.native"]
     assert native._lib is None and native._error is None
