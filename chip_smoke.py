@@ -183,10 +183,12 @@ without the package, it exits non-zero and prints no result. Phases:
    f32 run's last checkpoint, exported by ``cli/export_torch.py
    --dp-prefix`` as a reference ``.pth``, enrolls through ``cli/verify.py
    --checkpoint`` to the profile the port's own checkpoint gives. Video: a
-   32-speaker x 8-clip corpus of 29 frames through ``cli/train_video.py
-   --steps-per-dispatch 2`` for 1 epoch at bs 128 (2 steps, one group), f32 and bf16, against
-   single steps from the same seed (TCN dropout 0.2: the replayed masks
-   are the eager ones), with the same bars (bf16: phase 13's); K3/K4 27 +
+   32-speaker x 16-clip corpus of 29 frames through ``cli/train_video.py
+   --steps-per-dispatch 2`` for 1 epoch at bs 128 (4 steps, two groups on
+   one graph, so one replay runs on clips the capture never saw), f32 and
+   bf16, against single steps from the same seed (TCN dropout 0.2: the
+   replayed masks are the eager ones), with the same bars (bf16: phase
+   13's); K3/K4 27 +
    27 and P 1 + 1 per step over the replays; ms per step both ways, peak
    memory, one profiled group. Last, a step that cannot be captured
    raises, no eager step runs in its place, and the card's random-number
@@ -295,10 +297,12 @@ without the package, it exits non-zero and prints no result. Phases:
    against the numpy MFCC and the torch replica on the CPU; embeddings
    within 1e-4, the EER bit-equal, K1 launched); ``--train-parity`` (the
    CrossEntropy f32 and LMCL f64 recipes to a final drift of 1e-5, the
-   port's steps on the card); ``--train-parity-video --dtype float32``
-   (through K3/K4 and P) and ``--train-parity-fusion --dtype float32``
-   (from raw PCM and clips, through K1 and P), each held to the f32 step
+   port's steps on the card); ``--train-parity-video`` (float32 on the
+   card, through K3/K4 and P) and ``--train-parity-fusion`` (float32,
+   from raw PCM and clips, through K1 and P), each held to the f32 step
    rule against three nudged runs of the replica, each kernel launched;
+   the video rule run again in this process with K4's dx scaled by 1.01
+   (planted), which it must fail by its first-step gradients;
    ``examples/full_pipeline_demo.py`` (audio, video and fusion training,
    the fusion head on the encoders the first two saved, five EERs, each
    stage's seconds, K1, K3/K4 and P launched); ``examples/verify_demo.py``
@@ -356,6 +360,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from deeplip_tpu_torch import native  # noqa: E402
 from deeplip_tpu_torch.cli import export_torch as export_torch_cli  # noqa: E402
 from deeplip_tpu_torch.cli import kaldi_xv as kaldi_xv_cli  # noqa: E402
+from deeplip_tpu_torch.cli import parity_check as parity_check_cli  # noqa: E402
 from deeplip_tpu_torch.cli import train_audio as train_audio_cli  # noqa: E402
 from deeplip_tpu_torch.cli.common import utterances_from_trials  # noqa: E402
 from deeplip_tpu_torch.cli import train_fusion as train_fusion_cli  # noqa: E402
@@ -3639,8 +3644,10 @@ GROUPED_FRAMES = 300              # f32: one crop length, so one graph lives thr
                                   # (4 steps, one group, an epoch of phase 11's corpus)
 GROUPED_LOSS_RTOL = 1e-5          # each step's loss, grouped vs single, f32
 GROUPED_FAULTS = ("rate", "margin")
-# 32 speakers x 8 clips at bs 128, one epoch: 2 steps, one group
-GROUPED_VIDEO_CLIPS, GROUPED_VIDEO_FRAMES, GROUPED_VIDEO_EPOCHS = 8, 29, 1
+# 32 speakers x 16 clips at bs 128, one epoch: 4 steps, two groups on one graph, so
+# one replay after the first fills the graph's buffers with new clips
+GROUPED_VIDEO_CLIPS, GROUPED_VIDEO_FRAMES, GROUPED_VIDEO_EPOCHS = 16, 29, 1
+PRESSURE_VIDEO_CLIPS = 8          # phase 14b: 2 steps, one group (its first capture is the case)
 
 
 def floating_state(*modules) -> dict:
@@ -3942,13 +3949,13 @@ def reference_pth_check(trainer: AudioTrainer, root: str, smi: str, device=None)
     return {"keys": len(keys), "profile_equal": equal}
 
 
-def write_grouped_clip_corpus(root: str, seed: int = 1) -> None:
-    """32 speakers x ``GROUPED_VIDEO_CLIPS`` clips of 29 frames
-    (:func:`speaker_clip`)."""
+def write_grouped_clip_corpus(root: str, clips: int = GROUPED_VIDEO_CLIPS,
+                              seed: int = 1) -> None:
+    """32 speakers x ``clips`` clips of 29 frames (:func:`speaker_clip`)."""
     rng = np.random.default_rng(seed)
     for spk in range(VIDEO_SPEAKERS):
         os.makedirs(os.path.join(root, f"s{spk:02d}"), exist_ok=True)
-        for c in range(GROUPED_VIDEO_CLIPS):
+        for c in range(clips):
             np.savez(os.path.join(root, f"s{spk:02d}", f"c{c:02d}.npz"),
                      data=speaker_clip(rng, spk, GROUPED_VIDEO_FRAMES))
 
@@ -3988,7 +3995,7 @@ def grouped_video_run(data: str, root: str, tag: str, dtype: str, k: int,
     wall = time.perf_counter() - t0
     run = {"losses": out["losses"], "wall_s": wall, "launches": video_counts(),
            "state": floating_state(trainer.model), "steps": trainer.step,
-           "warmups": trainer.grouped.warmup_steps,
+           "warmups": trainer.grouped.warmup_steps, "graphs": len(trainer.grouped.graphs),
            "replays": sum(e.replays for e in trainer.grouped.graphs.values())}
     if keep:
         run["trainer"] = trainer
@@ -4040,7 +4047,9 @@ def grouped_video_phase(smi: str, root: str, device=None) -> dict:
         else:
             check(rel <= VIDEO_BF16_LOSS_RTOL, f"grouped bf16 video losses {rel:.3e}")
         groups = GROUPED_VIDEO_EPOCHS * (steps // GROUPED_VIDEO_EPOCHS // GROUPED_K_VIDEO)
-        check(grouped["replays"] == groups, f"{grouped['replays']} replays for {groups} groups")
+        # a replay after the first one holds the graph on new clips against single steps
+        check(grouped["graphs"] == 1 and grouped["replays"] == groups >= 2,
+              f"{grouped['graphs']} graphs and {grouped['replays']} replays for {groups} groups")
         grouped_launch_check(grouped, steps, f"grouped {dtype} video", per_step)
         row.update(grouped_video_timing(grouped.pop("trainer"), smi))
         out[dtype] = row
@@ -4163,7 +4172,7 @@ def capture_pressure_child(smi: str) -> int:
     on a fresh card, its result printed after ``PRESSURE_MARK``."""
     with tempfile.TemporaryDirectory() as root:
         data = os.path.join(root, "clips")
-        write_grouped_clip_corpus(data)
+        write_grouped_clip_corpus(data, PRESSURE_VIDEO_CLIPS)
         t0 = time.perf_counter()
         with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                         allow_tf32=False):
@@ -5641,20 +5650,56 @@ def parity_tools(root: str, smi: str, out: dict) -> None:
     for kind, kernels in (("video", ("bn_prelu_fwd", "bn_prelu_bwd", "maxpool_fwd",
                                      "maxpool_bwd")),
                           ("fusion", ("fft", "maxpool_fwd"))):
-        r = run_tool("cli.parity_check", [f"--train-parity-{kind}", "--dtype", "float32",
-                                            "--report", report(kind)],
+        r = run_tool("cli.parity_check", [f"--train-parity-{kind}", "--report", report(kind)],
                        f"parity_check --train-parity-{kind}", root, report(kind))
-        log(f"parity_check --train-parity-{kind} --dtype float32 (the port on the card, "
-            f"{r['steps']} steps): losses within {r['max_loss_rel_diff']:.3e} relative "
-            f"(bar {r['loss_rel_bar']:.3e}; the nudged replicas "
-            f"{', '.join(f'{v:.2e}' for v in r['nudge_max_loss_rel_diffs'])}), final "
-            f"parameters {r['final_param_distance']:.3e} of their norm from the replica's "
-            f"(bar {r['param_distance_bar']:.3e}; nudged "
-            f"{', '.join(f'{v:.2e}' for v in r['nudge_param_distances'])}); launches "
-            f"{ {k: r['launches'][k] for k in kernels} } [{smi}]")
+        log(f"parity_check --train-parity-{kind} (float32, the port on the card, "
+            f"{r['steps']} steps): " + step_rule_text(r)
+            + f"; launches { {k: r['launches'][k] for k in kernels} } [{smi}]")
         check(r["f32_step_rule"] and all(r["launches"][k] > 0 for k in kernels),
-              f"parity_check --train-parity-{kind} --dtype float32: {r}")
+              f"parity_check --train-parity-{kind}: {r}")
         out[f"train_parity_{kind}"] = r
+    out["train_parity_video_planted_k4"] = planted_k4_parity(smi)
+
+
+def step_rule_text(r: dict) -> str:
+    """The f32 step rule's numbers in a report of ``cli/parity_check.py``."""
+    nums = lambda key: ", ".join(f"{v:.2e}" for v in r[key])  # noqa: E731
+    grads = (f", first-step gradients {r['first_grad_distance']:.3e} of their norm from the "
+             f"replica's (bar {r['grad_distance_bar']:.3e}; nudged "
+             f"{nums('nudge_grad_distances')})" if "first_grad_distance" in r else "")
+    return (f"first loss {r['first_loss_rel_diff']:.2e} relative (bar 1e-5), every loss within "
+            f"{r['max_loss_rel_diff']:.3e} (bar {r['loss_rel_bar']:.3e}; the nudged replicas "
+            f"{nums('nudge_max_loss_rel_diffs')})" + grads + f", final parameters "
+            f"{r['final_param_distance']:.3e} of their norm from the replica's (bar "
+            f"{r['param_distance_bar']:.3e}; nudged {nums('nudge_param_distances')})")
+
+
+def planted_k4_parity(smi: str) -> dict:
+    """The video train parity of ``cli/parity_check.py`` on the card, as
+    ``--train-parity-video`` runs it, with a planted fault: K4's dx scaled
+    by 1.01 (the kernel still launches). Adam is nearly blind to it in the
+    losses and the parameters, so the f32 step rule must fail it by the
+    first-step gradients."""
+    k4 = bn_prelu.bn_prelu_backward
+
+    def faulty(*args, **kwargs):
+        dx, *rest = k4(*args, **kwargs)
+        return (dx * 1.01, *rest)
+    faulty.launches = 0   # the kernel's wrapper counts under the module's name
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(LANE_THREADS)   # the replica's CPU runs share the lane's cores
+    try:
+        with plain_bn_prelu(forward=None, backward=faulty):
+            r = parity_check_cli.run_video_train_parity(
+                dtype="float32", device="cuda", seed=parity_check_cli.VIDEO_F32_SEED)
+    finally:
+        torch.set_num_threads(threads)
+    log(f"parity_check's video f32 step rule with K4's dx scaled by 1.01 (planted): "
+        + step_rule_text(r) + f"; {'passed' if r['f32_step_rule'] else 'failed'} [{smi}]")
+    check(not r["f32_step_rule"] and r["first_grad_distance"] > r["grad_distance_bar"],
+          f"the f32 step rule passed a planted K4 fault: {r}")
+    return r
 
 
 def demo_tools(root: str, smi: str, out: dict) -> None:
@@ -6077,11 +6122,14 @@ def main() -> int:
             "grouped_capture": group["grouped_capture"]["launches"]["fft"]}
     # phase 19: the verification scripts' processes, each kernel's launches by script
     drv = tools["launches"]
-    for name, kernel in (("fused_fbank", "fft"), ("fused_fbank_v1_configs", "fft"),
-                         ("fused_fbank_mixed_fft", "mixed"), ("fused_fbank_dft", "dft"),
-                         ("bn_prelu_fwd", "bn_prelu_fwd"), ("bn_prelu_bwd", "bn_prelu_bwd"),
-                         ("maxpool_frontend", "maxpool_fwd")):
+    for name, kernel in (("fused_fbank", "fft"), ("fused_fbank_mixed_fft", "mixed"),
+                         ("fused_fbank_dft", "dft"), ("bn_prelu_fwd", "bn_prelu_fwd"),
+                         ("bn_prelu_bwd", "bn_prelu_bwd"), ("maxpool_frontend", "maxpool_fwd")):
         by_name[name]["launches_verification"] = {d: c.get(kernel, 0) for d, c in drv.items()}
+    # K2's counts share K1's counter; the scripts run MFCC-24, no hop-blocked config
+    by_name["fused_fbank_v1_configs"]["launches_verification"] = {d: 0 for d in drv}
+    by_name["fused_fbank_v1_configs"]["launches_verification_note"] = (
+        "the verification scripts run MFCC-24 only, through K1")
     by_name["maxpool_frontend"]["launches_verification_bwd"] = {
         d: c.get("maxpool_bwd", 0) for d, c in drv.items()}
     summary = {

@@ -26,15 +26,22 @@ from deeplip_tpu_torch.ops.cuda import launch_counts
 from deeplip_tpu_torch.serve import SpeakerVerifier
 
 
-def main(argv=None) -> dict:
+def main(argv=None, workdir: str | None = None) -> dict:
+    """Run the demo in ``workdir``, kept; by default in a directory removed
+    at the end."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--device", default=None, choices=[None, "cpu"],
                    help="run on the CPU (default: the card)")
     p.add_argument("--checkpoint", default=None)
     args = p.parse_args(argv)
+    if workdir is not None:
+        return _demo(args, workdir)
+    with tempfile.TemporaryDirectory(prefix="deeplip_verify_demo_") as root:
+        return _demo(args, root)
 
-    root = tempfile.mkdtemp(prefix="deeplip_verify_demo_")
+
+def _demo(args, root: str) -> dict:
     make_audio_corpus(root, n_spk=4, utts_per_spk=3, duration=1.5)
     manifest = SpeakerManifest.load(os.path.join(root, "manifest.csv"))
     trial_path = os.path.join(root, "trials.txt")

@@ -294,6 +294,11 @@ class GroupedSteps:
         """``(graph, outputs)``: ``fn`` captured into a CUDA graph on this
         runner's pool. A capture that fails raises, and leaves the card's
         random-number generator as it found it."""
+        if self.captures and not self.graphs:
+            # a pool whose graphs were all dropped takes no new capture (the
+            # caching allocator asserts that it is still in use while its
+            # blocks live on, e.g. as gradients): begin a fresh one
+            self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         try:
             # thread_local: the loader threads may touch the CUDA runtime

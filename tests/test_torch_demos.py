@@ -65,8 +65,8 @@ def test_the_fusion_stage_takes_the_saved_encoders(tmp_path):
     assert all(0.0 <= e <= 1.0 for e in (eer_a, eer_v))
 
 
-def test_verify_demo_on_the_cpu(capsys):
-    summary = verify_demo.main(["--device", "cpu"])
+def test_verify_demo_on_the_cpu(capsys, tmp_path):
+    summary = verify_demo.main(["--device", "cpu"], workdir=str(tmp_path))
     assert 0.0 <= summary["eer"] <= 1.0 and summary["enrolled"] == 4
     assert summary["identify"][0][0] == "spk0" or len(summary["identify"]) == 2
     assert os.path.exists(os.path.join(summary["profiles"], "spk0.npy"))

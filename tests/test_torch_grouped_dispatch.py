@@ -398,6 +398,32 @@ def test_a_failed_capture_ends_the_generators_capture(monkeypatch):
     assert events == ["begin", "end"]
 
 
+def test_a_runner_whose_graphs_were_dropped_captures_into_a_fresh_pool(monkeypatch):
+    """The caching allocator refuses a capture into a pool that no graph
+    uses any more while its blocks live on: once a runner's graphs are
+    all gone, its next capture takes a fresh pool; while one lives, the
+    captures share its pool. The CUDA capture is a recording stand-in."""
+    handles, pools = iter(range(10)), []
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, **kwargs):
+        pools.append(pool)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: next(handles))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    runner = dispatch.GroupedSteps(lambda i, inputs, scalars: {}, lambda: [],
+                                   torch.device("cpu"))
+    runner.captures = True
+    runner._graph_capture(lambda: {})       # no graph yet: a fresh pool
+    runner.graphs["a"] = object()
+    runner._graph_capture(lambda: {})       # shares the live graph's pool
+    runner.graphs.clear()
+    runner._graph_capture(lambda: {})       # all dropped: a fresh pool
+    assert pools == [0, 0, 1]
+
+
 def test_the_trainers_hand_the_runner_their_whole_state():
     tr = AudioTrainer(Config(A._cfg("LMCL", steps_per_dispatch=2)), device="cpu",
                       n_spk=A.N_SPK)

@@ -12,7 +12,8 @@ against ``scripts/parity_check.py``, and its bars on the CPU.
   width) meet the embedding bar (1e-4) and the EER bar (bit-equal);
 - the four enforced train-parity cases at the JAX harness's defaults
   (CrossEntropy in f32, LMCL, video and fusion in f64) each drift at most
-  1e-5, and the f32 video and fusion modes meet the f32 step rule;
+  1e-5, and the f32 video and fusion modes meet the f32 step rule, which
+  a planted fault in K4's backward (dx scaled by 1.01) fails;
 - the torch side of ``run_train_parity('LMCL', dtype='float64')`` is the
   JAX harness's, loss for loss, bit for bit;
 - the float64 modes refuse a CUDA device; the exit codes.
@@ -144,13 +145,34 @@ def test_fusion_train_parity_in_float64():
 
 @pytest.mark.parametrize("run", ["video", "fusion"])
 def test_the_f32_step_rule_on_the_cpu(run):
-    fn = PC.run_video_train_parity if run == "video" else PC.run_fusion_train_parity
-    r = fn(steps=10, dtype="float32")
+    if run == "video":   # the input the card runs
+        r = PC.run_video_train_parity(steps=10, dtype="float32", seed=PC.VIDEO_F32_SEED)
+        assert r["first_grad_distance"] <= r["grad_distance_bar"] == PC.NUDGE_FACTOR * float(
+            np.median(r["nudge_grad_distances"]))
+    else:
+        r = PC.run_fusion_train_parity(steps=10, dtype="float32")
     assert r["f32_step_rule"], r
     assert len(r["nudge_param_distances"]) == PC.NUDGES
     assert r["param_distance_bar"] == PC.NUDGE_FACTOR * float(
         np.median(r["nudge_param_distances"]))
     assert r["loss_rel_bar"] >= PC.STEP_LOSS_RTOL
+    assert r["first_loss_rel_diff"] <= PC.STEP_LOSS_RTOL
+
+
+def test_the_f32_step_rule_fails_a_planted_k4_fault(monkeypatch):
+    """K4's dx scaled by 1.01: Adam is nearly blind to it in the losses and
+    the parameters, the first-step gradients are not."""
+    from deeplip_tpu_torch.ops.cuda import bn_prelu
+    k4 = bn_prelu.bn_prelu_backward
+
+    def faulty(*args, **kwargs):
+        dx, *rest = k4(*args, **kwargs)
+        return (dx * 1.01, *rest)
+
+    monkeypatch.setattr(bn_prelu, "bn_prelu_backward", faulty)
+    r = PC.run_video_train_parity(steps=10, dtype="float32", seed=PC.VIDEO_F32_SEED)
+    assert not r["f32_step_rule"], r
+    assert r["first_grad_distance"] > 100 * r["grad_distance_bar"], r
 
 
 def test_the_cli_runs_the_train_parity_modes(tmp_path, capsys):
@@ -165,7 +187,7 @@ def test_the_cli_runs_the_train_parity_modes(tmp_path, capsys):
 
 
 def test_float64_refuses_the_card_and_a_missed_bar_exits_3(monkeypatch):
-    with pytest.raises(SystemExit, match="runs with --device cpu"):
+    with pytest.raises(ValueError, match="runs on the CPU"):
         PC._require_f64_on_cpu("float64", torch.device("cuda"), "the video train parity")
     PC._require_f64_on_cpu("float32", torch.device("cuda"), "the video train parity")
     monkeypatch.setattr(PC, "DRIFT_BAR", 0.0)
