@@ -313,11 +313,44 @@ without the package, it exits non-zero and prints no result. Phases:
    ``resampled_length`` samples long). Each kernel's launches by script go
    into the ``kernels`` record.
 
-The phases run in the order 1, 2, 14b, 19, 17, 3-5, 18, 11, 6, 9, 7, 8, 10,
-12, 13, 14, 15, 16; each one's wall seconds are logged and kept in the
-summary's ``phase_seconds``. The last line is
+20. The research drivers, the port's own, all four at once, each in a
+   process of its own on the card (a nonzero exit fails the phase):
+   ``cli/convergence_study.py`` (audio, 10 epochs), ``cli/
+   convergence_video_study.py`` (14 epochs) and ``cli/
+   convergence_fusion_study.py`` (the JAX study's r05 corpus, 16 epochs),
+   each with ``--arch flagship --nudges 3``: every curve finite and as
+   long as its epochs, the port held to ``parity_check.convergence_rule``
+   against the three nudged replica runs, every kernel's launches exactly
+   those that the study's epochs, steps and batches make (K1 once an
+   extraction batch in the audio study; K3/K4 27 a step, the max-pool's
+   backward once a step and its forward once a step and twice an
+   evaluation in the video study; K1 and the max-pool's forward once a
+   step and once an evaluation in the fusion study; none else); and
+   ``cli/resample_study.py`` at its defaults: the PCM delta of
+   kaiser_best against polyphase within 1e-6 of
+   ``docs/resample_r04.json``'s (host arithmetic on the same seeds), the
+   loss falling over its 30 steps (its fixed probe's loss after them at
+   most ``resample_study.LEARNED_RATIO``, 0.7, of its loss at init), K1
+   launched once a step, a probe batch
+   and an extraction batch. Each study's curves, gaps,
+   bars and seconds are logged, its report kept under ``exp/studies/``,
+   and each kernel's launches by study go into
+   the ``kernels`` record.
+
+The phases run in the order 1, 2, 14b, 19, 20, 17, 3-5, 18, 11, 6, 9, 7, 8,
+10, 12, 13, 14, 15, 16; each one's wall seconds are logged and kept in the
+summary's ``phase_seconds``, and phase 14's by part (corpora, grouped runs,
+timing captures, profiled groups, the reference ``.pth``, the failed
+capture) in ``phase_14_parts_seconds``. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the ``kernels``
 JSON record.
+
+    python3 chip_smoke.py --study-faults
+
+runs the video and fusion convergence studies of phase 20, at its size and
+flags, once for each planted fault of :data:`STUDY_FAULTS` (K4's dx scaled
+by 1.01; the port's learning rate scaled), and prints whether
+``convergence_rule`` failed each, with its gaps and bars, as one JSON line.
 
     python3 chip_smoke.py --k1-against OTHER/deeplip_tpu_torch/csrc/fbank_fft_kernel.cu
 
@@ -344,6 +377,7 @@ import json
 import math
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -358,6 +392,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from deeplip_tpu_torch import native  # noqa: E402
+from deeplip_tpu_torch.cli import convergence_fusion_study, convergence_video_study  # noqa: E402,E501
 from deeplip_tpu_torch.cli import export_torch as export_torch_cli  # noqa: E402
 from deeplip_tpu_torch.cli import kaldi_xv as kaldi_xv_cli  # noqa: E402
 from deeplip_tpu_torch.cli import parity_check as parity_check_cli  # noqa: E402
@@ -3726,6 +3761,17 @@ def release() -> None:
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def timed_part(parts: dict | None, name: str):
+    """Add the block's wall seconds to ``parts[name]`` (phase 14's split)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if parts is not None:
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+
+
 def grouped_audio_run(cfg: dict, root: str, tag: str, grouped: bool, nudged: bool = False,
                       device=None, keep: bool = False) -> dict:
     """Train ``cfg`` from the seeded init; ``grouped=False`` runs the same
@@ -3765,13 +3811,16 @@ def grouped_launch_check(run: dict, steps: int, what: str, want) -> None:
           f"steps and {run['warmups']} warm-up steps, expected {want(runs)}")
 
 
-def grouped_audio_phase(smi: str, root: str, device=None) -> dict:
+def grouped_audio_phase(smi: str, root: str, device=None, parts: dict | None = None) -> dict:
     """Phase 14, audio: grouped against single in f32 across the rate decay
     and the margin switch, the planted faults, the bf16 recipe, step times
-    and one profiled group; then a reference .pth through cli/verify.py."""
-    manifest, trials = write_train_corpus(os.path.join(root, "audio"))
+    and one profiled group; then a reference .pth through cli/verify.py.
+    ``parts`` takes the seconds of its parts (:func:`timed_part`)."""
+    with timed_part(parts, "corpus"):
+        manifest, trials = write_train_corpus(os.path.join(root, "audio"))
     cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False), \
+            timed_part(parts, "grouped_runs"):
         f32 = grouped_audio_config(root, manifest, trials, "float32", GROUPED_FRAMES)
         single = grouped_audio_run(f32, root, "single", grouped=False, device=device)
         grouped = grouped_audio_run(f32, root, "grouped", grouped=True, device=device,
@@ -3815,13 +3864,16 @@ def grouped_audio_phase(smi: str, root: str, device=None) -> dict:
           f"planted grouped faults passed every bar: {faults}")
     grouped_launch_check(grouped, steps, "grouped f32 audio",
                          lambda n: {"fft": n, "dft": 0, "mixed": 0})
-    interop = reference_pth_check(grouped.pop("trainer"), root, smi, device)
-    release()
+    with timed_part(parts, "reference_pth"):
+        interop = reference_pth_check(grouped.pop("trainer"), root, smi, device)
+        release()
 
     bf16 = grouped_audio_config(root, manifest, trials, "bf16", None, GROUPED_BF16_EPOCHS)
-    bf16_single = grouped_audio_run(bf16, root, "bf16_single", grouped=False, device=device)
-    bf16_grouped = grouped_audio_run(bf16, root, "bf16_grouped", grouped=True, device=device,
-                                     keep=True)
+    with timed_part(parts, "grouped_runs"):
+        bf16_single = grouped_audio_run(bf16, root, "bf16_single", grouped=False,
+                                        device=device)
+        bf16_grouped = grouped_audio_run(bf16, root, "bf16_grouped", grouped=True,
+                                         device=device, keep=True)
     bf16_rel = loss_rel(bf16_grouped["losses"], bf16_single["losses"])
     lengths = bf16_grouped["crop_lengths"]
     log(f"grouped bf16 audio training (the config's recipe, crop lengths {lengths}): "
@@ -3831,7 +3883,7 @@ def grouped_audio_phase(smi: str, root: str, device=None) -> dict:
     check(bf16_rel <= BF16_LOSS_BAR, f"grouped bf16 audio losses {bf16_rel:.3e} from single")
     grouped_launch_check(bf16_grouped, bf16_single["steps"], "grouped bf16 audio",
                          lambda n: {"fft": n, "dft": 0, "mixed": 0})
-    timing = grouped_audio_timing(bf16_grouped.pop("trainer"), smi)
+    timing = grouped_audio_timing(bf16_grouped.pop("trainer"), smi, parts)
     release()
     return {"steps": steps, "loss_rel": rel, "distance": d_group, "nudge_distance": d_nudge,
             "faults": faults, "graphs": grouped["graphs"], "replays": grouped["replays"],
@@ -3889,7 +3941,7 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def grouped_audio_timing(trainer: AudioTrainer, smi: str) -> dict:
+def grouped_audio_timing(trainer: AudioTrainer, smi: str, parts: dict | None = None) -> dict:
     """bf16 at bs 256 x 300: ms per step of 4 single steps against one
     group of 4, peak memory both ways, and one profiled group and one
     profiled run of 4 single steps with their idle shares."""
@@ -3907,9 +3959,11 @@ def grouped_audio_timing(trainer: AudioTrainer, smi: str) -> dict:
     def group():
         trainer.train_group(pcm, labels, margin)
 
-    times = group_timing(singles, group, k, _sync)
-    prof = {"grouped": profiled_idle(group, _sync, AUDIO_KINDS),
-            "single": profiled_idle(singles, _sync, AUDIO_KINDS)}
+    with timed_part(parts, "timing_captures"):
+        times = group_timing(singles, group, k, _sync)
+    with timed_part(parts, "profiled_group"):
+        prof = {"grouped": profiled_idle(group, _sync, AUDIO_KINDS),
+                "single": profiled_idle(singles, _sync, AUDIO_KINDS)}
     log(f"audio bf16 at bs {BATCH} x {GROUPED_FRAMES}: {times['ms']['single']:.2f} ms a single "
         f"step, {times['ms']['grouped']:.2f} ms a step in a group of {k} (median of 3 each, in "
         f"turns); peak {times['peak_gb']} GB; profiled: " + "; ".join(
@@ -4005,18 +4059,20 @@ def grouped_video_run(data: str, root: str, tag: str, dtype: str, k: int,
     return run
 
 
-def grouped_video_phase(smi: str, root: str, device=None) -> dict:
+def grouped_video_phase(smi: str, root: str, device=None, parts: dict | None = None) -> dict:
     """Phase 14, video: cli/train_video.py --steps-per-dispatch 2 against
     single steps, f32 and bf16, one epoch; step times and one profiled
-    group."""
+    group. ``parts`` takes the seconds of its parts (:func:`timed_part`)."""
     data = os.path.join(root, "clips")
-    write_grouped_clip_corpus(data)
+    with timed_part(parts, "corpus"):
+        write_grouped_clip_corpus(data)
     per_step = lambda n: {"bn_prelu_fwd": 27 * n, "bn_prelu_bwd": 27 * n,  # noqa: E731
                           "maxpool_fwd": n, "maxpool_bwd": n}
     out = {}
     cudnn = torch.backends.cudnn
     for dtype in ("float32", "bf16"):
-        with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False), \
+                timed_part(parts, "grouped_runs"):
             single = grouped_video_run(data, root, f"{dtype}_single", dtype, 1, device)
             grouped = grouped_video_run(data, root, f"{dtype}_grouped", dtype, GROUPED_K_VIDEO,
                                         device, keep=True)
@@ -4051,7 +4107,7 @@ def grouped_video_phase(smi: str, root: str, device=None) -> dict:
         check(grouped["graphs"] == 1 and grouped["replays"] == groups >= 2,
               f"{grouped['graphs']} graphs and {grouped['replays']} replays for {groups} groups")
         grouped_launch_check(grouped, steps, f"grouped {dtype} video", per_step)
-        row.update(grouped_video_timing(grouped.pop("trainer"), smi))
+        row.update(grouped_video_timing(grouped.pop("trainer"), smi, parts))
         out[dtype] = row
         del single, grouped, nudged
         release()
@@ -4204,7 +4260,7 @@ def capture_pressure_phase(smi: str) -> dict:
     return result
 
 
-def grouped_video_timing(trainer: VideoTrainer, smi: str) -> dict:
+def grouped_video_timing(trainer: VideoTrainer, smi: str, parts: dict | None = None) -> dict:
     """ms per step of two single steps against one group of two at bs 128 x
     29, peak memory both ways, and one profiled group's idle share."""
     k, dev = GROUPED_K_VIDEO, trainer.device
@@ -4229,9 +4285,11 @@ def grouped_video_timing(trainer: VideoTrainer, smi: str) -> dict:
     def group():
         trainer.train_group(clips, lengths, labels, draws)
 
-    times = group_timing(singles, group, k, _sync)
-    prof = {"grouped": profiled_idle(group, _sync, KERNEL_KINDS),
-            "single": profiled_idle(singles, _sync, KERNEL_KINDS)}
+    with timed_part(parts, "timing_captures"):
+        times = group_timing(singles, group, k, _sync)
+    with timed_part(parts, "profiled_group"):
+        prof = {"grouped": profiled_idle(group, _sync, KERNEL_KINDS),
+                "single": profiled_idle(singles, _sync, KERNEL_KINDS)}
     dtype = "bf16" if trainer.compute_dtype is torch.bfloat16 else "f32"
     log(f"video {dtype} at bs {VIDEO_BATCH} x {GROUPED_VIDEO_FRAMES}: "
         f"{times['ms']['single']:.1f} ms a single step, {times['ms']['grouped']:.1f} ms a step "
@@ -4275,15 +4333,23 @@ def failed_capture_check() -> dict:
 
 
 def grouped_dispatch_phase(smi: str) -> dict:
+    """Phase 14, its parts timed: the corpora's writing, the grouped and
+    single runs, the timing captures, the profiled groups, the reference
+    .pth check and the failed capture (``parts_s``)."""
+    parts = {}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        audio = grouped_audio_phase(smi, root)
+        audio = grouped_audio_phase(smi, root, parts=parts)
         torch.cuda.empty_cache()
-        video = grouped_video_phase(smi, root)
-        failed = failed_capture_check()
+        video = grouped_video_phase(smi, root, parts=parts)
+        with timed_part(parts, "failed_capture"):
+            failed = failed_capture_check()
         wall = time.perf_counter() - t0
-    log(f"phase 14: {wall:.1f} s")
-    return {"audio": audio, "video": video, "failed_capture": failed, "wall_s": wall}
+    parts["rest"] = wall - sum(parts.values())
+    log(f"phase 14: {wall:.1f} s; by part: " + ", ".join(f"{k} {v:.1f} s"
+                                                          for k, v in parts.items()))
+    return {"audio": audio, "video": video, "failed_capture": failed, "wall_s": wall,
+            "parts_s": parts}
 
 
 # ---------------------------------------------------------------- phase 15
@@ -5674,23 +5740,28 @@ def step_rule_text(r: dict) -> str:
             f"{r['param_distance_bar']:.3e}; nudged {nums('nudge_param_distances')})")
 
 
+def k4_dx_scaled(factor: float):
+    """K4 with its dx scaled by ``factor``, a planted fault (the kernel still
+    launches; its wrapper counts under the module's name)."""
+    k4 = bn_prelu.bn_prelu_backward
+
+    def faulty(*args, **kwargs):
+        dx, *rest = k4(*args, **kwargs)
+        return (dx * factor, *rest)
+    faulty.launches = 0
+    return faulty
+
+
 def planted_k4_parity(smi: str) -> dict:
     """The video train parity of ``cli/parity_check.py`` on the card, as
     ``--train-parity-video`` runs it, with a planted fault: K4's dx scaled
     by 1.01 (the kernel still launches). Adam is nearly blind to it in the
     losses and the parameters, so the f32 step rule must fail it by the
     first-step gradients."""
-    k4 = bn_prelu.bn_prelu_backward
-
-    def faulty(*args, **kwargs):
-        dx, *rest = k4(*args, **kwargs)
-        return (dx * 1.01, *rest)
-    faulty.launches = 0   # the kernel's wrapper counts under the module's name
-
     threads = torch.get_num_threads()
     torch.set_num_threads(LANE_THREADS)   # the replica's CPU runs share the lane's cores
     try:
-        with plain_bn_prelu(forward=None, backward=faulty):
+        with plain_bn_prelu(forward=None, backward=k4_dx_scaled(1.01)):
             r = parity_check_cli.run_video_train_parity(
                 dtype="float32", device="cuda", seed=parity_check_cli.VIDEO_F32_SEED)
     finally:
@@ -5763,6 +5834,211 @@ def tools_phase(smi: str) -> dict:
         ("train_parity_fusion", "train_parity_fusion"),
         ("full_pipeline_demo", "full_pipeline_demo"), ("verify_demo", "verify_demo"))}
     return out
+
+
+# ---------------------------------------------------------------- phase 20
+STUDY_NUDGES = 3                 # nudged replica runs each convergence study holds the port to
+FUSION_R05 = ["--n-spk", "24", "--separation", "0.03", "--video-band", "0.4",
+              "--video-noise", "0.5"]
+# study: (module, arguments, epochs)
+STUDIES = {
+    "audio": ("cli.convergence_study", [], 10),
+    "video": ("cli.convergence_video_study", [], 14),
+    "fusion": ("cli.convergence_fusion_study", FUSION_R05, 16),
+}
+# K3 and K4 each launch three kernels (partial, finalize, apply) at each of
+# the flagship trunk's nine BN+PReLU sites in a train step
+VIDEO_BN_LAUNCHES_PER_STEP = 3 * 9
+RESAMPLE_REFERENCE = os.path.join(REPO, "docs", "resample_r04.json")
+RESAMPLE_PCM_TOL = 1e-6          # the PCM delta is host arithmetic on the JAX script's seeds
+STUDY_OUT = os.path.join(REPO, "exp", "studies")   # the reports, kept after the run
+
+
+def study_launches(name: str, epochs: int, report: dict) -> dict:
+    """Every kernel's launches that a study's port side must make, from its
+    epochs, its module's ``STEPS_PER_EPOCH`` and (audio) its extraction
+    batches: the audio study launches K1 once an extraction batch (its steps
+    take the shared features); the video study K3/K4 at every site of every
+    step, P's backward once a step and its forward once a step and twice an
+    evaluation (logits, trunk features); the fusion study K1 and P's
+    forward once a step and once an evaluation."""
+    want = dict.fromkeys(report["launches"], 0)
+    if name == "audio":
+        want["fft"] = epochs * report["eval_batches"]
+    elif name == "video":
+        steps = epochs * convergence_video_study.STEPS_PER_EPOCH
+        want.update(bn_prelu_fwd=VIDEO_BN_LAUNCHES_PER_STEP * steps,
+                    bn_prelu_bwd=VIDEO_BN_LAUNCHES_PER_STEP * steps,
+                    maxpool_fwd=steps + 2 * epochs, maxpool_bwd=steps)
+    else:
+        steps = epochs * convergence_fusion_study.STEPS_PER_EPOCH
+        want.update(fft=steps + epochs, maxpool_fwd=steps + epochs)
+    return want
+
+
+def study_text(name: str, r: dict) -> str:
+    """A convergence study's curves, gaps and bars in one line."""
+    curves = "; ".join(f"{side} " + ", ".join(f"{k} [" + " ".join(f"{v:.4g}" for v in c[k])
+                                                     + "]" for k in c)
+                       for side, c in (("replica", r["torch"]),
+                                       ("port", r["deeplip_tpu_torch"])))
+    bars = r["convergence_bars"]
+    return (f"{curves}; loss gap {bars['max_epoch_loss_gap']:.4g} (bar "
+            f"{bars['loss_gap_bar']:.4g}, nudged " + ", ".join(
+                f"{n['max_epoch_loss_gap']:.4g}" for n in r["nudged"]) + "); " + "; ".join(
+                f"{m} {b['gap']:.4g} (bar {b['bar']:.4g}, quantum {b['quantum']:.4g}, "
+                f"reach {b['reach']:.4g}" + ("" if b["informative"] else ": could not fail")
+                + ")" for m, b in bars["metrics"].items())
+            + f"; rule {'held' if r['convergence_rule'] else 'FAILED'}")
+
+
+def studies_phase(smi: str) -> dict:
+    """Phase 20: the research drivers of the port on the card, each in a
+    process of its own, all four at once: the audio, video and fusion
+    convergence studies at the shipped widths (``--arch flagship``) with
+    nudged replica runs, and the resample study at its defaults. Their
+    reports are kept under ``exp/studies``."""
+    out, runs = {}, {}
+    os.makedirs(STUDY_OUT, exist_ok=True)
+    with open(RESAMPLE_REFERENCE) as fh:
+        reference = json.load(fh)
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            for name, (module, extra, epochs) in STUDIES.items():
+                prefix = os.path.join(root, name)
+                args = ["--arch", "flagship", "--nudges", str(STUDY_NUDGES), "--epochs",
+                        str(epochs), "--out", prefix] + extra
+                runs[name] = (start_tool(module, args, root, name), prefix + ".json")
+            resample_path = os.path.join(root, "resample.json")
+            runs["resample"] = (start_tool("cli.resample_study", ["--out", resample_path],
+                                           root, "resample"), resample_path)
+            # waited for side by side, so that each one's process_s is its own
+            with ThreadPoolExecutor(len(runs)) as pool:
+                done = {name: pool.submit(finish_tool, run, f"phase 20 {name} study", report)
+                        for name, (run, report) in runs.items()}
+                out.update((name, f.result()) for name, f in done.items())
+        finally:   # a failed study stops the others too
+            for run, _ in runs.values():
+                if run["proc"].poll() is None:
+                    run["proc"].kill()
+                    run["proc"].wait()
+        for name in STUDIES:
+            for ext in (".json", ".md"):
+                shutil.copy(os.path.join(root, name + ext),
+                            os.path.join(STUDY_OUT, f"torch_convergence_{name}{ext}"))
+        shutil.copy(resample_path, os.path.join(STUDY_OUT, "torch_resample.json"))
+
+    for name, (module, _, epochs) in STUDIES.items():
+        r = out[name]
+        want = study_launches(name, epochs, r)
+        log(f"phase 20 {module} --arch flagship --nudges {STUDY_NUDGES}, {epochs} epochs: "
+            + study_text(name, r) + f"; launches {r['launches']} (expected {want}); "
+            f"{r['seconds']:.1f} s in the study (" + ", ".join(
+                f"{k} {v:.1f}" for k, v in r["seconds_parts"].items())
+            + f"), {r['process_s']:.1f} s the process [{smi}]")
+        curves = [c for side in ("torch", "deeplip_tpu_torch") for c in r[side].values()]
+        check(all(len(c) == epochs and all(math.isfinite(v) for v in c) for c in curves),
+              f"{name} study: a curve not finite or not {epochs} epochs long: {r}")
+        check(r["convergence_rule"], f"{name} study: the convergence rule failed: "
+              f"{r['convergence_bars']}")
+        check(r["launches"] == want, f"{name} study: launches {r['launches']}, expected "
+              f"{want}")
+    res = out["resample"]
+    delta = abs(res["pcm_max_abs_delta"] - reference["pcm_max_abs_delta"])
+    probe_before, probe_after = res["probe_loss_before_after"]
+    res_want = dict.fromkeys(res["launches"], 0)
+    # K1 once a step, once a probe batch before and after, once an
+    # extraction batch of each resampler
+    res_want["fft"] = (res["steps_trained"] + 2 * res["probe_batches"]
+                       + 2 * res["eval_batches"])
+    log(f"phase 20 resample study ({res['steps_trained']} steps, {res['n_utts']} utterances): "
+        f"probe loss {probe_before:.4f} -> {probe_after:.4f} (ratio "
+        f"{probe_after / probe_before:.4f}, bar {res['probe_ratio_bar']}; "
+        f"{res['probe_batches']} batches); steps' loss {res['loss_first_last'][0]:.4f} -> "
+        f"{res['loss_first_last'][1]:.4f} (every step: "
+        + " ".join(f"{v:.3f}" for v in res["losses"]) + f"); PCM delta "
+        f"{res['pcm_max_abs_delta']!r} ({delta:.2e} from the JAX study's, bar "
+        f"{RESAMPLE_PCM_TOL}); embeddings {res['embedding_max_abs_delta']:.3e} max, "
+        f"{res['embedding_p50_abs_delta']:.3e} median (the JAX study's "
+        f"{reference['embedding_max_abs_delta']:.3e}, {reference['embedding_p50_abs_delta']:.3e}); "
+        f"trial scores {res['trial_score_max_abs_delta']:.3e} max; K1 launches "
+        f"{res['launches']['fft']} (expected {res_want['fft']}); {res['seconds']:.1f} s "
+        f"[{smi}]")
+    check(delta <= RESAMPLE_PCM_TOL, f"resample study: PCM delta {res['pcm_max_abs_delta']!r}, "
+          f"the JAX study's {reference['pcm_max_abs_delta']!r}")
+    check(res["learned"] and probe_after <= res["probe_ratio_bar"] * probe_before,
+          f"resample study: the loss did not fall: the probe's {probe_before:.4f} at init, "
+          f"{probe_after:.4f} after {res['steps_trained']} steps")
+    check(res["launches"] == res_want, f"resample study: launches {res['launches']}, "
+          f"expected {res_want}")
+    out["launches"] = {name: dict(r["launches"]) for name, r in out.items()}
+    return out
+
+
+@contextlib.contextmanager
+def port_lr_scaled(module, name: str, factor: float):
+    """A planted fault in a convergence study: the port's trainer class
+    (``module.<name>``) built with its learning rate scaled by ``factor``;
+    the replica keeps the recipe's."""
+    cls = getattr(module, name)
+
+    def build(*args, lr, **kwargs):
+        return cls(*args, lr=lr * factor, **kwargs)
+    setattr(module, name, build)
+    try:
+        yield
+    finally:
+        setattr(module, name, cls)
+
+
+# study: {fault: a context that plants it}, each run at phase 20's size and flags
+STUDY_FAULTS = {
+    "video": {
+        "k4_dx_x1.01": lambda: plain_bn_prelu(forward=None, backward=k4_dx_scaled(1.01)),
+        "lr_x1.25": lambda: port_lr_scaled(convergence_video_study, "VideoTrainer", 1.25),
+    },
+    "fusion": {
+        "lr_x1.1": lambda: port_lr_scaled(convergence_fusion_study, "FusionTrainer", 1.1),
+        "lr_x1.25": lambda: port_lr_scaled(convergence_fusion_study, "FusionTrainer", 1.25),
+    },
+}
+
+
+def study_faults() -> int:
+    """``--study-faults``: phase 20's video and fusion studies in this
+    process, once for each fault of :data:`STUDY_FAULTS`; logs and prints
+    whether ``convergence_rule`` failed each. Exit code 0 when every run
+    ended (a failed rule is the finding, not an error)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    smi = device_phase()["smi"]
+    modules = {"video": convergence_video_study, "fusion": convergence_fusion_study}
+    out = {"card": smi}
+    with tempfile.TemporaryDirectory() as root:
+        for name, faults in STUDY_FAULTS.items():
+            _, extra, epochs = STUDIES[name]
+            for fault, plant in faults.items():
+                prefix = os.path.join(root, f"{name}_{fault}")
+                args = ["--arch", "flagship", "--nudges", str(STUDY_NUDGES), "--epochs",
+                        str(epochs), "--out", prefix] + extra
+                t0 = time.perf_counter()
+                with plant():
+                    try:
+                        modules[name].main(args)
+                    except SystemExit as exc:
+                        check(exc.code == 3, f"{name} study with {fault}: exit {exc.code}")
+                with open(prefix + ".json") as fh:
+                    r = json.load(fh)
+                log(f"{name} study, planted {fault}: " + study_text(name, r)
+                    + f"; {time.perf_counter() - t0:.1f} s [{smi}]")
+                out[f"{name}_{fault}"] = {
+                    "failed": not r["convergence_rule"], "bars": r["convergence_bars"],
+                    "port": r["deeplip_tpu_torch"], "replica": r["torch"],
+                    "launches": r["launches"], "seconds": r["seconds"]}
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 BN_REPLACES = {"fwd": ("deeplip_tpu/ops/pallas/bn_prelu_kernel.py:56",
@@ -5895,6 +6171,7 @@ def main() -> int:
     pressure = phase("14b", capture_pressure_phase, dev["smi"])
     # the verification scripts run in processes of their own while the card is clean
     tools = phase("19", tools_phase, dev["smi"])
+    studies = phase("20", studies_phase, dev["smi"])
     # phase 17 runs while the card is clean: its grouped capture needs free
     # device memory for its graph's pool, which the earlier phases' cached
     # and fragmented segments leave too little of by the end of the script
@@ -6132,6 +6409,16 @@ def main() -> int:
         "the verification scripts run MFCC-24 only, through K1")
     by_name["maxpool_frontend"]["launches_verification_bwd"] = {
         d: c.get("maxpool_bwd", 0) for d, c in drv.items()}
+    # phase 20: the research drivers' processes, each kernel's launches by study
+    for name, kernel in (("fused_fbank", "fft"), ("fused_fbank_mixed_fft", "mixed"),
+                         ("fused_fbank_dft", "dft"), ("bn_prelu_fwd", "bn_prelu_fwd"),
+                         ("bn_prelu_bwd", "bn_prelu_bwd"), ("maxpool_frontend", "maxpool_fwd")):
+        by_name[name]["launches_studies"] = {d: c[kernel] for d, c in studies["launches"].items()}
+    by_name["fused_fbank_v1_configs"]["launches_studies"] = {d: 0 for d in studies["launches"]}
+    by_name["fused_fbank_v1_configs"]["launches_studies_note"] = (
+        "the research drivers run MFCC-24 only, through K1")
+    by_name["maxpool_frontend"]["launches_studies_bwd"] = {
+        d: c["maxpool_bwd"] for d, c in studies["launches"].items()}
     summary = {
         "card": dev["smi"],
         "peaks_part": part,
@@ -6180,7 +6467,9 @@ def main() -> int:
         "process_group": group,
         "capture_pressure": pressure,
         "verification": tools,
+        "studies": studies,
         "phase_seconds": seconds,
+        "phase_14_parts_seconds": grouped["parts_s"],
     }
     print(json.dumps(summary), flush=True)
     print(json.dumps(kernels), flush=True)
@@ -6193,6 +6482,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--capture-pressure"]:
         sys.exit(capture_pressure_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--study-faults"]:
+        sys.exit(study_faults())
     if sys.argv[1:2] == ["--k1-against"]:
         sys.exit(k1_against(sys.argv[2]))
     sys.exit(main())

@@ -69,10 +69,12 @@ missed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -81,6 +83,7 @@ import numpy as np
 import torch
 
 from deeplip_tpu_torch.core.config import Config
+from deeplip_tpu_torch.core.device import fp32_math
 from deeplip_tpu_torch.data.audio_io import read_wav
 from deeplip_tpu_torch.data.audio_pipeline import EvalUtterance, EvalUtteranceSet
 from deeplip_tpu_torch.data.manifest import SpeakerManifest
@@ -508,6 +511,155 @@ def _step_rule(torch_losses: list, ours_losses: list, dist: float, nudged: list,
         held = held and grad_dist <= grad_bar
     out["f32_step_rule"] = bool(held)
     return out
+
+
+def convergence_rule(loss_gap: float, metric_gaps: dict, nudged: list, quanta: dict,
+                     reaches: dict) -> dict:
+    """The convergence studies' rule against the recipe's own chaos
+    (``cli/convergence_*study.py --nudges N``). Two f32 trainings of
+    hundreds of steps drift apart by what the recipe amplifies, so the
+    port's curve is held to the replica's own runs on its input nudged by
+    :data:`NUDGE`: the port's largest per-epoch mean-loss gap to the replica
+    within :data:`NUDGE_FACTOR` times the largest nudged run's, and each
+    final-metric gap within :data:`NUDGE_FACTOR` times the largest nudged
+    run's or one eval quantum (one clip's share of an accuracy, one trial's
+    step of an EER), whichever is larger. The JAX package's studies state
+    no bar, so this loosens none. ``nudged`` holds each nudged run's
+    ``max_epoch_loss_gap`` and its ``final_gaps`` by metric name.
+
+    ``reaches`` gives, by metric, the largest gap the metric can take from
+    the replica's final value (for an accuracy of ``a``, ``max(a, 1 - a)``).
+    A metric whose bar reaches that far cannot fail: it is reported as
+    ``informative: false``, listed under ``could_not_fail``, and counts
+    neither way; ``held`` is the verdict of the loss gap and the metrics
+    that could fail."""
+    loss_bar = NUDGE_FACTOR * max(n["max_epoch_loss_gap"] for n in nudged)
+    out = {"max_epoch_loss_gap": loss_gap, "loss_gap_bar": loss_bar, "metrics": {},
+           "could_not_fail": []}
+    held = loss_gap <= loss_bar
+    for name, gap in metric_gaps.items():
+        bar = max(NUDGE_FACTOR * max(n["final_gaps"][name] for n in nudged), quanta[name])
+        informative = bar < reaches[name]
+        out["metrics"][name] = {"gap": gap, "bar": bar, "quantum": quanta[name],
+                                "reach": reaches[name], "informative": informative}
+        if informative:
+            held = held and gap <= bar
+        else:
+            out["could_not_fail"].append(name)
+    out["held"] = bool(held)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# what the convergence studies share
+
+def metric_reach(value: float, top: float) -> float:
+    """The largest gap a metric in ``[0, top]`` can take from ``value``: an
+    accuracy's top is 1, an EER's one half (past it a scorer is turned
+    round)."""
+    return max(value, top - value)
+
+
+def study_parser(doc: str, epochs: int, name: str) -> argparse.ArgumentParser:
+    """The flags every convergence study takes."""
+    p = argparse.ArgumentParser(description=doc,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--device", default=None, choices=[None, "cpu"],
+                   help="run on the CPU (default: the card)")
+    p.add_argument("--epochs", type=int, default=epochs)
+    p.add_argument("--out", default=os.path.join("exp", f"torch_convergence_{name}"),
+                   help="write OUT.json and OUT.md")
+    p.add_argument("--arch", default="study", choices=["study", "flagship"],
+                   help="study: the JAX script's widths; flagship: the shipped configs'")
+    p.add_argument("--nudges", type=int, default=0,
+                   help="replica runs on nudged input that the port is held against")
+    return p
+
+
+@contextlib.contextmanager
+def replica_math():
+    """FP32 with TF32 off and cuDNN deterministic, as the replica computes."""
+    with fp32_math(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                 deterministic=True, allow_tf32=False):
+        yield
+
+
+def nudge_rng(i: int) -> np.random.Generator:
+    """The generator of the ``i``-th nudged run's input."""
+    return np.random.default_rng(1 + i)
+
+
+def nudge_array(x: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """``x`` nudged elementwise by :data:`NUDGE` relative, in its type."""
+    return (x * (1.0 + NUDGE * rng.standard_normal(x.shape))).astype(x.dtype)
+
+
+def epoch_loss_gap(a: dict, b: dict) -> float:
+    """The largest per-epoch mean-loss gap between two curves."""
+    return max(abs(x - y) for x, y in zip(a["loss"], b["loss"]))
+
+
+def nudged_entry(replica: dict, run: dict, metrics: dict) -> dict:
+    """A nudged replica run's gaps to the replica: the loss curve's and each
+    final metric's (``metrics`` maps a report's gap name to its curve key)."""
+    return {"curve": run, "max_epoch_loss_gap": epoch_loss_gap(replica, run),
+            "final_gaps": {name: abs(replica[key][-1] - run[key][-1])
+                           for name, key in metrics.items()}}
+
+
+def card_of(device: torch.device) -> str | None:
+    """The card's name and power limit as ``nvidia-smi`` gives them; None
+    off the card."""
+    if device.type != "cuda":
+        return None
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return "not measured"
+    return out.strip().splitlines()[0] if out.strip() else "not measured"
+
+
+def finish_study(report: dict, args, device: torch.device, t0: float, metric_gaps: dict,
+                 quanta: dict, reaches: dict, md_lines: list, last_line: dict) -> dict:
+    """Add the device, the card, the launches and the seconds to ``report``,
+    and with nudged runs :func:`convergence_rule` over ``metric_gaps`` (the
+    port's final gaps by name, each nudged run's under the same names);
+    write ``OUT.json`` and ``OUT.md``, print the last JSON line. Exit code 3
+    where the rule is held and fails."""
+    report["device"] = str(device)
+    report["card"] = card_of(device)
+    report["launches"] = launch_counts()
+    report["seconds"] = time.perf_counter() - t0
+    if report.get("nudged"):
+        bars = convergence_rule(report["max_epoch_loss_gap"], metric_gaps, report["nudged"],
+                                quanta, reaches)
+        report["convergence_bars"] = bars
+        report["convergence_rule"] = bars["held"]
+        last_line["convergence_rule"] = bars["held"]
+        md_lines += ["", f"Convergence rule ({len(report['nudged'])} replica runs on input "
+                     f"nudged by {NUDGE:g} relative): the loss gap "
+                     f"{bars['max_epoch_loss_gap']:.4g} against a bar of "
+                     f"{bars['loss_gap_bar']:.4g}; " + "; ".join(
+                         f"{n} {m['gap']:.4g} against {m['bar']:.4g}" + (
+                             "" if m["informative"] else
+                             f" (could not fail: the gap reaches {m['reach']:.4g} at most)")
+                         for n, m in bars["metrics"].items())
+                     + f": **{'held' if bars['held'] else 'failed'}**."]
+    md_lines += ["", f"Device: {report['device']}"
+                 + (f" ({report['card']})" if report["card"] else "")
+                 + f"; {report['seconds']:.1f} s in all; kernel launches "
+                 f"{report['launches']}."]
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out + ".json", "w") as fjson:
+        json.dump(report, fjson, indent=2)
+    with open(args.out + ".md", "w") as fmd:
+        fmd.write("\n".join(md_lines) + "\n")
+    print(json.dumps(last_line), flush=True)
+    if report.get("nudged") and not report["convergence_rule"]:
+        raise SystemExit(3)
+    return report
 
 
 def _require_f64_on_cpu(dtype: str, device: torch.device, what: str) -> None:

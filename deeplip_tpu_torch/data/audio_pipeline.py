@@ -271,6 +271,7 @@ class EvalUtteranceSet:
         self.transport = transport
         # "auto" resolves during the header scan in batches()
         self._resolved_transport = None if transport == "auto" else transport
+        self.n_batches = None   # set by the header scan in batches()
         self.frame_len, self.frame_step = frame_len_step(win_len, win_shift, rate)
 
     def _load(self, utt: EvalUtterance) -> tuple[str, np.ndarray]:
@@ -346,7 +347,8 @@ class EvalUtteranceSet:
     def batches(self) -> Iterator[dict]:
         """Yields ``{names, pcm (B, S), feat_lengths (B,), sample_lengths
         (B,)}`` per bucket chunk: a header scan buckets the utterances, then
-        prefetch threads decode batches on demand (memory stays O(batch))."""
+        prefetch threads decode batches on demand (memory stays O(batch)).
+        The chunks' count is kept as ``n_batches`` once the scan is done."""
         sized = list(ThreadedPrefetcher(self.utts, self._utt_samples,
                                         num_workers=self.num_workers))
         if self.transport == "auto":
@@ -368,6 +370,7 @@ class EvalUtteranceSet:
             chunk = [it for it in items[i: i + self.batch_size] if it[2] == bucket_t]
             i += len(chunk)
             chunks.append(chunk)
+        self.n_batches = len(chunks)
         yield from ThreadedPrefetcher(
             [(c,) for c in chunks], self._assemble, num_workers=self.num_workers,
             lookahead=4)

@@ -45,6 +45,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from deeplip_tpu_torch.models.initializers import lecun_normal_
+
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           reduction: str = "mean") -> torch.Tensor:
@@ -72,13 +74,15 @@ def _target(labels: torch.Tensor, n: int) -> torch.Tensor:
 
 class _CosineHead(nn.Module):
     """Class ``weights`` of shape ``(num_classes, d)``, kaiming-normal as the
-    reference initialises them."""
+    JAX package draws them: Flax's ``variance_scaling(2.0, 'fan_in')`` reads
+    the fan-in from the shape's first axis, the class count, which is
+    torch's fan-out."""
 
     def __init__(self, num_classes: int, embedding_dim: int):
         super().__init__()
         self.num_classes = num_classes
         self.weights = nn.Parameter(torch.empty(num_classes, embedding_dim))
-        nn.init.kaiming_normal_(self.weights)
+        nn.init.kaiming_normal_(self.weights, mode="fan_out")
 
     def cosines(self, embeddings: torch.Tensor) -> torch.Tensor:
         return _promoted_matmul(_unit(embeddings), _unit(self.weights).T)
@@ -90,7 +94,7 @@ class CrossEntropyHead(nn.Module):
     def __init__(self, num_classes: int, embedding_dim: int):
         super().__init__()
         self.num_classes = num_classes
-        self.fc = nn.Linear(embedding_dim, num_classes)
+        self.fc = lecun_normal_(nn.Linear(embedding_dim, num_classes))
 
     def class_logits(self, embeddings: torch.Tensor, target: torch.Tensor = None):
         logits = self.fc(embeddings.to(torch.promote_types(embeddings.dtype,

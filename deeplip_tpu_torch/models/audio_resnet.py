@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deeplip_tpu_torch.models.initializers import lecun_normal_
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.models.resnet import BasicBlock, conv_nhwc
 from deeplip_tpu_torch.ops.masked import length_mask
@@ -64,7 +65,7 @@ class AudioResNet(nn.Module):
     def __init__(self, stage_widths=(64, 128, 256), stage_blocks=(3, 3, 3),
                  embedding_dim: int = 256):
         super().__init__()
-        self.stem = nn.Conv2d(1, stage_widths[0], 3, 1, 1, bias=False)
+        self.stem = lecun_normal_(nn.Conv2d(1, stage_widths[0], 3, 1, 1, bias=False))
         self.stem_bn = TorchBatchNorm(stage_widths[0])
         self.block_names = []
         inplanes = stage_widths[0]
@@ -76,9 +77,9 @@ class AudioResNet(nn.Module):
                 self.block_names.append(name)
                 inplanes = w
         self.pooling = MaskedGlobalMean()
-        self.fc1 = nn.Linear(inplanes, embedding_dim)
+        self.fc1 = lecun_normal_(nn.Linear(inplanes, embedding_dim))
         self.bn1 = TorchBatchNorm(embedding_dim)
-        self.fc2 = nn.Linear(embedding_dim, embedding_dim)
+        self.fc2 = lecun_normal_(nn.Linear(embedding_dim, embedding_dim))
         self.bn2 = TorchBatchNorm(embedding_dim)
 
     @classmethod

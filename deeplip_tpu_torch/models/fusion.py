@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deeplip_tpu_torch.models.initializers import lecun_normal_
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 
 
@@ -43,7 +44,7 @@ class LowFER(nn.Module):
         self.U = nn.Parameter(torch.empty(d1, k * output_dim).uniform_(-1.0, 1.0))
         self.V = nn.Parameter(torch.empty(d2, k * output_dim).uniform_(-1.0, 1.0))
         if d1 != d2:
-            self.gate_proj = nn.Linear(d2, d1)
+            self.gate_proj = lecun_normal_(nn.Linear(d2, d1))
 
     def mfb(self, e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
         """The low-rank bilinear branch: ``(B, o)``, L2-normalised."""
@@ -66,9 +67,9 @@ class LinearFusion(nn.Module):
     def __init__(self, in_dim: int, hidden_size: int = 512, extract_feats: bool = False):
         super().__init__()
         self.extract_feats = extract_feats
-        self.fc1 = nn.Linear(in_dim, hidden_size)
+        self.fc1 = lecun_normal_(nn.Linear(in_dim, hidden_size))
         self.bn1 = TorchBatchNorm(hidden_size)
-        self.fc2 = nn.Linear(hidden_size, hidden_size)
+        self.fc2 = lecun_normal_(nn.Linear(hidden_size, hidden_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.leaky_relu(self.bn1(self.fc1(_promoted(x, self.fc1.weight))), 0.2)

@@ -47,6 +47,7 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from deeplip_tpu_torch.models.initializers import lecun_normal_
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.models.resnet import ResNetTrunk, bn_act, conv_nhwc, make_act
 from deeplip_tpu_torch.models.shufflenetv2 import ShuffleNetV2Trunk
@@ -67,7 +68,7 @@ class TCNHead(nn.Module):
         else:
             self.mb_ms_tcn = MultibranchTemporalConvNet(n_inputs, num_channels,
                                                         kernel_sizes, dropout, relu_type, dwpw)
-        self.tcn_output = nn.Linear(num_channels[-1], num_classes)
+        self.tcn_output = lecun_normal_(nn.Linear(num_channels[-1], num_classes))
 
     def temporal(self, x: torch.Tensor) -> torch.Tensor:
         net = self.tcn_trunk if hasattr(self, "tcn_trunk") else self.mb_ms_tcn
@@ -86,7 +87,8 @@ class Lipreading(nn.Module):
             raise ValueError(f"backbone {backbone_type!r}")
         frontend_nout = 64 if backbone_type == "resnet" else 24
         self.frontend3D = nn.Sequential(
-            nn.Conv3d(1, frontend_nout, (5, 7, 7), (1, 2, 2), (2, 3, 3), bias=False),
+            lecun_normal_(nn.Conv3d(1, frontend_nout, (5, 7, 7), (1, 2, 2), (2, 3, 3),
+                                    bias=False)),
             TorchBatchNorm(frontend_nout),
             make_act(relu_type, frontend_nout))
         if backbone_type == "resnet":

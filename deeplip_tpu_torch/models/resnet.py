@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deeplip_tpu_torch.core.mesh import batch_group, global_rows
+from deeplip_tpu_torch.models.initializers import lecun_normal_
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.ops.cuda import bn_prelu as K
 
@@ -93,10 +94,10 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.stride = stride
         self.avg_pool_downsample = avg_pool_downsample
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.conv1 = lecun_normal_(nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False))
         self.bn1 = TorchBatchNorm(planes)
         self.relu1 = make_act(relu_type, planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = lecun_normal_(nn.Conv2d(planes, planes, 3, 1, 1, bias=False))
         self.bn2 = TorchBatchNorm(planes)
         self.relu2 = make_act(relu_type, planes)
         self.downsample = None
@@ -104,7 +105,7 @@ class BasicBlock(nn.Module):
             # the avg-pool variant pools first and then convolves at stride 1
             conv_stride = 1 if avg_pool_downsample else stride
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes, 1, conv_stride, bias=False),
+                lecun_normal_(nn.Conv2d(inplanes, planes, 1, conv_stride, bias=False)),
                 TorchBatchNorm(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from deeplip_tpu_torch.models.initializers import lecun_normal_
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.models.resnet import conv_nhwc
 
@@ -53,7 +54,8 @@ def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, groups=groups, bias=False)
+    return lecun_normal_(nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, groups=groups,
+                                   bias=False))
 
 
 def _run(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:

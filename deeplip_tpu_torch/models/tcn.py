@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deeplip_tpu_torch.models.initializers import lecun_normal_
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.models.resnet import make_act
 
@@ -56,7 +57,7 @@ class ConvBatchRelu(nn.Module):
     def __init__(self, n_inputs: int, features: int, kernel_size: int,
                  dilation: int, relu_type: str = "prelu"):
         super().__init__()
-        self.conv = nn.Conv1d(n_inputs, features, kernel_size, dilation=dilation)
+        self.conv = lecun_normal_(nn.Conv1d(n_inputs, features, kernel_size, dilation=dilation))
         self.batchnorm = TorchBatchNorm(features)
         self.non_lin = make_act(relu_type, features)
 
@@ -71,11 +72,12 @@ class DepthwiseSeparableConv(nn.Module):
     def __init__(self, n_inputs: int, features: int, kernel_size: int,
                  dilation: int, relu_type: str = "prelu"):
         super().__init__()
-        self.dw_conv = nn.Conv1d(n_inputs, n_inputs, kernel_size, dilation=dilation,
-                                 groups=n_inputs, bias=False)
+        self.dw_conv = lecun_normal_(nn.Conv1d(n_inputs, n_inputs, kernel_size,
+                                               dilation=dilation, groups=n_inputs,
+                                               bias=False))
         self.dw_bn = TorchBatchNorm(n_inputs)
         self.dw_act = make_act(relu_type, n_inputs)
-        self.pw_conv = nn.Conv1d(n_inputs, features, 1, bias=False)
+        self.pw_conv = lecun_normal_(nn.Conv1d(n_inputs, features, 1, bias=False))
         self.pw_bn = TorchBatchNorm(features)
         self.pw_act = make_act(relu_type, features)
 
@@ -100,7 +102,7 @@ class MultibranchTemporalBlock(nn.Module):
             setattr(self, f"cbcr1_{i}", unit(features, branch_f, k, dilation, relu_type))
         self.dropout0 = nn.Dropout(dropout)
         self.dropout1 = nn.Dropout(dropout)
-        self.downsample = (nn.Conv1d(n_inputs, features, 1)
+        self.downsample = (lecun_normal_(nn.Conv1d(n_inputs, features, 1))
                            if n_inputs // num_k != features else None)
         self.relu_final = make_act(relu_type, features)
 
@@ -127,15 +129,17 @@ class TemporalBlock(nn.Module):
             self.conv2 = DepthwiseSeparableConv(features, features, kernel_size, dilation,
                                                 relu_type)
         else:
-            self.conv1 = nn.Conv1d(n_inputs, features, kernel_size, dilation=dilation)
+            self.conv1 = lecun_normal_(nn.Conv1d(n_inputs, features, kernel_size,
+                                                 dilation=dilation))
             self.batchnorm1 = TorchBatchNorm(features)
             self.relu1 = make_act(relu_type, features)
-            self.conv2 = nn.Conv1d(features, features, kernel_size, dilation=dilation)
+            self.conv2 = lecun_normal_(nn.Conv1d(features, features, kernel_size,
+                                                 dilation=dilation))
             self.batchnorm2 = TorchBatchNorm(features)
             self.relu2 = make_act(relu_type, features)
         self.dropout1 = nn.Dropout(dropout)
         self.dropout2 = nn.Dropout(dropout)
-        self.downsample = (nn.Conv1d(n_inputs, features, 1)
+        self.downsample = (lecun_normal_(nn.Conv1d(n_inputs, features, 1))
                            if n_inputs != features else None)
         self.relu = make_act(relu_type, features)
 

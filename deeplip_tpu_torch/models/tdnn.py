@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deeplip_tpu_torch.models.initializers import lecun_normal_
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.models.pooling import POOLED_WIDTH, pooling_from_name
 
@@ -65,8 +66,8 @@ class TDNNBlock(nn.Module):
                  bn_first: bool = True):
         super().__init__()
         kernel_size, dilation = context_to_kernel(context)
-        self.context_layer = nn.Conv1d(in_dim, out_dim, kernel_size,
-                                       dilation=dilation)
+        self.context_layer = lecun_normal_(nn.Conv1d(in_dim, out_dim, kernel_size,
+                                                     dilation=dilation))
         self.bn = TorchBatchNorm(out_dim)
         self.bn_first = bn_first
 
@@ -101,9 +102,10 @@ class SpeakerEmbNet(nn.Module):
             TDNNBlock(dims[i], dims[i + 1], ctx, bn_first)
             for i, ctx in enumerate(self.contexts))
         self.pooling = pooling_from_name(pooling, hidden_dims[-1], attention_hidden_size)
-        self.fc1 = nn.Linear(hidden_dims[-1] * POOLED_WIDTH[pooling], embedding_dim)
+        self.fc1 = lecun_normal_(nn.Linear(hidden_dims[-1] * POOLED_WIDTH[pooling],
+                                           embedding_dim))
         self.bn1 = TorchBatchNorm(embedding_dim)
-        self.fc2 = nn.Linear(embedding_dim, embedding_dim)
+        self.fc2 = lecun_normal_(nn.Linear(embedding_dim, embedding_dim))
         self.bn2 = TorchBatchNorm(embedding_dim)
 
     @classmethod

@@ -67,9 +67,16 @@ _PROBE = textwrap.dedent("""
         "deeplip_tpu_torch.examples.full_pipeline_demo",
         "deeplip_tpu_torch.examples.verify_demo"]
     assert set(verification) <= set(names), sorted(set(verification) - set(names))
+    research = [
+        "deeplip_tpu_torch.cli.convergence_study",
+        "deeplip_tpu_torch.cli.convergence_video_study",
+        "deeplip_tpu_torch.cli.convergence_fusion_study",
+        "deeplip_tpu_torch.cli.resample_study"]
+    assert set(research) <= set(names), sorted(set(research) - set(names))
     # they keep their own copies of what they need from the repo's scripts
-    foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("scripts", "benchmarks", "examples"))
+    # and from __graft_entry__
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "scripts", "benchmarks", "examples", "__graft_entry__"))
     assert not foreign, foreign
     # importing builds nothing: the native library is built at its first call
     native = sys.modules["deeplip_tpu_torch.native"]
@@ -255,3 +262,31 @@ def test_variant_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
         assert build(device="cpu") is not None
+
+
+class _Started(Exception):
+    """Raised where a study starts its work, past its device check."""
+
+
+@pytest.mark.parametrize("name,first", [
+    ("convergence_study", "make_hard_audio_corpus"),
+    ("convergence_video_study", "shared_data"),
+    ("convergence_fusion_study", "shared_data"),
+    ("resample_study", "make_audio_corpus")])
+def test_research_drivers_raise_without_a_card(monkeypatch, tmp_path, name, first):
+    """The four research drivers run on the card unless given ``--device
+    cpu``: without it they raise before any work, with it they start."""
+    import importlib
+
+    module = importlib.import_module(f"deeplip_tpu_torch.cli.{name}")
+    _no_card(monkeypatch)
+
+    def started(*args, **kwargs):
+        raise _Started
+
+    monkeypatch.setattr(module, first, started)
+    out = ["--out", str(tmp_path / "report")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(out)
+    with pytest.raises(_Started):
+        module.main(out + ["--device", "cpu"])
