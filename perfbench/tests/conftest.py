@@ -1,0 +1,27 @@
+"""Settings of the benchmark's own tests (``python -m pytest perfbench/tests``).
+
+``card`` marks a test that needs a CUDA card; the ``card`` fixture skips it
+elsewhere, deciding when the test runs, never while a module is imported.
+"""
+
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card (skipped without one)")
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
