@@ -70,6 +70,7 @@ import torch
 from deeplip_tpu_torch.core.config import Config
 from deeplip_tpu_torch.core.device import fp32_math, resolve_device
 from deeplip_tpu_torch.core.mesh import Mesh, local_mesh, param_sharding, replicate
+from deeplip_tpu_torch.core.spans import span
 from deeplip_tpu_torch.data.audio_io import read_wav
 from deeplip_tpu_torch import native
 from deeplip_tpu_torch.data.audio_pipeline import AudioTrainPipeline, EvalUtteranceSet
@@ -236,25 +237,27 @@ class AudioExtractor:
               sample_lengths: torch.Tensor) -> torch.Tensor:
         """One padded batch on ``self.device`` -> ``(B, E)`` embeddings."""
         self.model.eval()
-        with fp32_math():
-            if pcm.dtype == torch.int16:
-                # exact power-of-two rescale: PCM16 sources give the same
-                # float32 samples as the float32 transport
-                pcm = pcm.to(torch.float32) / 32768.0
-            feats = F.extract_features(pcm, self.eval_feat_cfg,
-                                       sample_lengths=sample_lengths)
-            feat_lengths = valid_feature_lengths(feats, feat_lengths, sample_lengths,
-                                                 self.feat_cfg)
-            if self.feat_cfg.normalize:
-                feats = masked_cmvn(feats, feat_lengths)
-            if self.feat_cfg.delta:
-                feats = F.add_deltas(feats, order=2)
-            xv, x_a = self.model.extract_embedding(feats, lengths=feat_lengths)
-            if self.loss_name == "CrossEntropy":
-                # CE systems embed with the fc1 pre-activation
-                return x_a
-            return xv / torch.linalg.vector_norm(
-                xv, dim=-1, keepdim=True).clamp(min=1e-12)
+        with span("deeplip.embed", self.device), fp32_math():
+            with span("deeplip.input", self.device):
+                if pcm.dtype == torch.int16:
+                    # exact power-of-two rescale: PCM16 sources give the same
+                    # float32 samples as the float32 transport
+                    pcm = pcm.to(torch.float32) / 32768.0
+                feats = F.extract_features(pcm, self.eval_feat_cfg,
+                                           sample_lengths=sample_lengths)
+                feat_lengths = valid_feature_lengths(feats, feat_lengths, sample_lengths,
+                                                     self.feat_cfg)
+                if self.feat_cfg.normalize:
+                    feats = masked_cmvn(feats, feat_lengths)
+                if self.feat_cfg.delta:
+                    feats = F.add_deltas(feats, order=2)
+            with span("deeplip.forward", self.device):
+                xv, x_a = self.model.extract_embedding(feats, lengths=feat_lengths)
+                if self.loss_name == "CrossEntropy":
+                    # CE systems embed with the fc1 pre-activation
+                    return x_a
+                return xv / torch.linalg.vector_norm(
+                    xv, dim=-1, keepdim=True).clamp(min=1e-12)
 
     def _stage(self, batch: dict):
         """Start the host→device copies of one batch (:func:`stage_arrays`):
@@ -519,7 +522,7 @@ class AudioTrainer:
         """One optimizer step from a ``(B, S)`` PCM batch on the device
         (int16 or float32); ``margin`` a float or a 0-d tensor. Returns the
         step's ``loss`` and ``acc`` as tensors on the device."""
-        with fp32_math():
+        with span("deeplip.step", self.device), fp32_math():
             metrics = self._pcm_step(pcm, labels, *self._scalars(margin))
         self.step += 1
         return metrics
@@ -528,7 +531,7 @@ class AudioTrainer:
         """One optimizer step from precomputed ``(B, T, D)`` features (a
         Kaldi batch): no front-end and no CMVN, the rest as
         :meth:`train_step`, ``train.compute_dtype`` included."""
-        with fp32_math():
+        with span("deeplip.step", self.device), fp32_math():
             metrics = self._step_on_features(feats, labels, *self._scalars(margin))
         self.step += 1
         return metrics
@@ -552,11 +555,12 @@ class AudioTrainer:
                               scalars["margin"][0])
 
     def _pcm_step(self, pcm, labels, rate, margin) -> dict:
-        if pcm.dtype == torch.int16:
-            # exact power-of-two rescale: PCM16 crops give the float32
-            # transport's samples bit for bit
-            pcm = pcm.to(torch.float32) / 32768.0
-        feats = F.extract_features(pcm, self.feat_cfg)
+        with span("deeplip.input", self.device):
+            if pcm.dtype == torch.int16:
+                # exact power-of-two rescale: PCM16 crops give the float32
+                # transport's samples bit for bit
+                pcm = pcm.to(torch.float32) / 32768.0
+            feats = F.extract_features(pcm, self.feat_cfg)
         return self._step_on_features(feats, labels, rate, margin)
 
     def _step_on_features(self, feats, labels, rate, margin) -> dict:
@@ -565,13 +569,16 @@ class AudioTrainer:
         can capture it."""
         self.model.train()
         mesh = self.mesh
-        with mesh.batch_stats():
-            emb = self.model(feats, compute_dtype=self.compute_dtype)
-        loss, hits = self._criterion_apply(emb, labels, margin)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        mesh.reduce_gradients(self._replicated_params(), self._sharded_params())
-        self.optimizer.step(rate)
+        with span("deeplip.forward", self.device):
+            with mesh.batch_stats():
+                emb = self.model(feats, compute_dtype=self.compute_dtype)
+            loss, hits = self._criterion_apply(emb, labels, margin)
+        with span("deeplip.backward", self.device):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            mesh.reduce_gradients(self._replicated_params(), self._sharded_params())
+        with span("deeplip.optimizer", self.device):
+            self.optimizer.step(rate)
         # the triplet loss is the whole batch's on every rank
         share = mesh.local_share(loss.detach()) if self.loss_name == "Triplet" else loss.detach()
         return mesh.report(loss=share, acc=mesh.local_share(hits.mean()))

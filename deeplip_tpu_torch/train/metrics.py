@@ -6,7 +6,8 @@ one JSON record per call (step, loss, accuracy, lr, steps/s, examples/s) to
 event file under ``<exp_dir>/tb/`` (``train.tb_events``), and prints every
 ``print_every`` steps; :class:`NanGuard` raises after ``patience``
 non-finite losses in a row; :func:`profile_trace` wraps a region in a
-``torch.profiler`` trace written as a Chrome trace.
+``torch.profiler`` trace written as a Chrome trace, with the totals of the
+port's spans (``core.spans``) beside it.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import time
 
 import torch
 
+from deeplip_tpu_torch.core import spans
 from deeplip_tpu_torch.train.tb_events import TBEventWriter
 
 
@@ -95,7 +97,11 @@ class NanGuard:
 def profile_trace(logdir: str | None):
     """A ``torch.profiler`` trace of the region (host, and the card's kernels
     where there is one), written into ``logdir`` as a Chrome trace
-    (``trace.json``); a no-op when ``logdir`` is None."""
+    (``trace.json``) in which the steps' spans (``deeplip.step``,
+    ``deeplip.input``, ``deeplip.forward``, ``deeplip.backward``,
+    ``deeplip.optimizer``, ``deeplip.embed``) are ranges, and their totals
+    over the region by name (``core.spans.totals``) as ``spans.json``; a
+    no-op when ``logdir`` is None."""
     if not logdir:
         yield
         return
@@ -103,6 +109,9 @@ def profile_trace(logdir: str | None):
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    spans.reset()
     with torch.profiler.profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "spans.json"), "w") as fh:
+        json.dump(spans.totals(), fh, indent=1)

@@ -53,6 +53,7 @@ import torch
 
 from deeplip_tpu_torch.core.device import resolve_device
 from deeplip_tpu_torch.core.mesh import Mesh, all_reduce, local_mesh, replicate
+from deeplip_tpu_torch.core.spans import span
 from deeplip_tpu_torch.data.video_dataset import VideoClipBatches
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore
 from deeplip_tpu_torch.losses.softmax import softmax_cross_entropy
@@ -115,15 +116,17 @@ class VideoTrainer:
         batch is the global one, its rows a multiple of the batch ranks
         (:meth:`pad_to_ranks`): the draws cover all of it, and this rank
         steps on its rows."""
-        dh, dw = V.crop_offsets(clips_u8, self.crop_size, generator)
-        flip = V.flip_flags(clips_u8.shape[0], generator)
-        rows = self.mesh.rows(clips_u8.shape[0])
-        clips, lens, labs = (t[rows].to(self.device, non_blocking=True)
-                             for t in (clips_u8, lengths, labels))
-        # a pad row repeats the global batch's row 0, not this rank's
-        fill = lengths[0].to(self.device) if self.mesh.data_group is not None else None
-        x = self._train_frames(clips, lens, dh[rows], dw[rows], flip[rows], fill)
-        return self.train_step_frames(x, lens, labs)
+        with span("deeplip.step", self.device):
+            with span("deeplip.input", self.device):
+                dh, dw = V.crop_offsets(clips_u8, self.crop_size, generator)
+                flip = V.flip_flags(clips_u8.shape[0], generator)
+                rows = self.mesh.rows(clips_u8.shape[0])
+                clips, lens, labs = (t[rows].to(self.device, non_blocking=True)
+                                     for t in (clips_u8, lengths, labels))
+                # a pad row repeats the global batch's row 0, not this rank's
+                fill = lengths[0].to(self.device) if self.mesh.data_group is not None else None
+                x = self._train_frames(clips, lens, dh[rows], dw[rows], flip[rows], fill)
+            return self._step_frames(x, lens, labs)
 
     def pad_to_ranks(self, batch: dict) -> dict:
         """A host batch padded to a multiple of the batch ranks, as the JAX
@@ -159,6 +162,10 @@ class VideoTrainer:
         0 are left out of the loss and the accuracy. Returns the step's
         ``loss`` and ``acc`` as tensors on the device; the gradients stay in
         the parameters' ``.grad``."""
+        with span("deeplip.step", self.device):
+            return self._step_frames(x, lengths, labels)
+
+    def _step_frames(self, x, lengths, labels) -> dict:
         self._rate.fill_(self.schedule(self.step))
         metrics = self._frames_step(x, lengths, labels, self._rate)
         self.step += 1
@@ -194,20 +201,23 @@ class VideoTrainer:
         it."""
         self.model.train()
         mesh = self.mesh
-        valid = (lengths > 0).to(torch.float32)
-        # the global count of valid rows: pad rows may all fall on one rank
-        denom = torch.clamp(all_reduce(valid.sum(), mesh.data_group), min=1.0)
         with fp32_math():
-            with mesh.batch_stats():
-                logits = self.model(x, lengths=torch.clamp(lengths, min=1),
-                                    compute_dtype=self.compute_dtype)
-            per_ex = softmax_cross_entropy(logits, labels, reduction="none")
-            loss = (per_ex * valid).sum() / denom
-            acc = ((logits.argmax(-1) == labels) * valid).sum() / denom
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            mesh.reduce_gradients(self.model.parameters())
-            self.optimizer.step(rate)
+            with span("deeplip.forward", self.device):
+                valid = (lengths > 0).to(torch.float32)
+                # the global count of valid rows: pad rows may all fall on one rank
+                denom = torch.clamp(all_reduce(valid.sum(), mesh.data_group), min=1.0)
+                with mesh.batch_stats():
+                    logits = self.model(x, lengths=torch.clamp(lengths, min=1),
+                                        compute_dtype=self.compute_dtype)
+                per_ex = softmax_cross_entropy(logits, labels, reduction="none")
+                loss = (per_ex * valid).sum() / denom
+                acc = ((logits.argmax(-1) == labels) * valid).sum() / denom
+            with span("deeplip.backward", self.device):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                mesh.reduce_gradients(self.model.parameters())
+            with span("deeplip.optimizer", self.device):
+                self.optimizer.step(rate)
         return mesh.report(loss=loss.detach(), acc=acc.detach())
 
     def _flush(self, pending: list, generator: torch.Generator, losses: list) -> dict:

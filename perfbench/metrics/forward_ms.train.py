@@ -1,0 +1,11 @@
+"""``forward_ms.train``: device milliseconds a train step spends in the
+program's ``deeplip.forward`` span (the model's forward, the loss and
+accuracy), summed over the traced window and divided by its units
+(``_spans.per_unit``). None on a program without the span or where it ran on
+no card."""
+
+from perfbench.metrics import _spans
+
+
+def read(window):
+    return _spans.per_unit(window, "deeplip.forward", "device_ms")

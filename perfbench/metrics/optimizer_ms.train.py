@@ -1,0 +1,10 @@
+"""``optimizer_ms.train``: device milliseconds a train step spends in the
+program's ``deeplip.optimizer`` span (the SGD or Adam update), summed over the
+traced window and divided by its units (``_spans.per_unit``). None on a
+program without the span or where it ran on no card."""
+
+from perfbench.metrics import _spans
+
+
+def read(window):
+    return _spans.per_unit(window, "deeplip.optimizer", "device_ms")

@@ -11,6 +11,7 @@ import torch
 
 import chip_smoke
 from deeplip_tpu.train import tb_events as jax_tb
+from deeplip_tpu_torch.core import spans
 from deeplip_tpu_torch.train import metrics, tb_events
 
 torch.set_num_threads(1)
@@ -98,10 +99,20 @@ def test_step_logger_writes_tensorboard_beside_the_json_records(tmp_path, monkey
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
     with metrics.profile_trace(None):
-        torch.ones(3).sum()
+        with spans.span("deeplip.forward"):
+            torch.ones(3).sum()
     with metrics.profile_trace(str(tmp_path / "trace")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with spans.span("deeplip.forward"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     with open(tmp_path / "trace" / "trace.json") as fh:
         trace = json.load(fh)
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "aten::mm" in names
+    assert {"aten::mm", "deeplip.forward"} <= names
+    # the region's span totals beside the trace; the span outside any
+    # region recorded nothing
+    with open(tmp_path / "trace" / "spans.json") as fh:
+        totals = json.load(fh)
+    assert set(totals) == {"deeplip.forward"}
+    forward = totals["deeplip.forward"]
+    assert forward["count"] == 1 and forward["device_ms"] is None
+    assert 0 < forward["self_host_ms"] == forward["host_ms"]
