@@ -324,7 +324,8 @@ without the package, it exits non-zero and prints no result. Phases:
    those that the study's epochs, steps and batches make (K1 once an
    extraction batch in the audio study; K3/K4 27 a step, the max-pool's
    backward once a step and its forward once a step and twice an
-   evaluation in the video study; K1 and the max-pool's forward once a
+   evaluation, the frontend conv's weight gradient once a step, in the
+   video study; K1 and the max-pool's forward once a
    step and once an evaluation in the fusion study; none else); and
    ``cli/resample_study.py`` at its defaults: the PCM delta of
    kaiser_best against polyphase within 1e-6 of
@@ -337,8 +338,24 @@ without the package, it exits non-zero and prints no result. Phases:
    and each kernel's launches by study go into
    the ``kernels`` record.
 
-The phases run in the order 1, 2, 14b, 19, 20, 17, 3-5, 18, 11, 6, 9, 7, 8,
-10, 12, 13, 14, 15, 16; each one's wall seconds are logged and kept in the
+21. The frontend Conv3d's weight-gradient kernel
+   (``csrc/conv3d_wgrad_kernel.cu``) against its plain version in float64,
+   within 1e-5 of the float64 result's largest, at (128, 29, 88, 88) x 64
+   and x 24, at bands that do not divide the output rows,
+   at the video study's 44 x 44 crop, at rows of no multiple of four
+   pixels, at one frame and at frames under a band; two runs and two
+   CUDA-graph replays bit-equal at the train step's shapes; 32 channels and
+   float64 refused; kernel, plain and
+   library (``torch.nn.grad.conv3d_weight``, cuDNN's FP32 weight gradient)
+   times beside the least time for its FP32 operations. Then the routing:
+   the routed frontend forward bit-equal to ``conv_nhwc``'s, its weight
+   gradient within the same bar of cuDNN's, one launch a flagship f32 video
+   train step and none for f32 extraction or a bf16 step.
+   ``python3 chip_smoke.py --conv3d-wgrad`` runs phases 1, 2 and 21 alone
+   and prints one JSON line.
+
+The phases run in the order 1, 2, 14b, 19, 20, 17, 3-5, 18, 11, 6, 9, 21, 7,
+8, 10, 12, 13, 14, 15, 16; each one's wall seconds are logged and kept in the
 summary's ``phase_seconds``, and phase 14's by part (corpora, grouped runs,
 timing captures, profiled groups, the reference ``.pth``, the failed
 capture) in ``phase_14_parts_seconds``. The last line is
@@ -420,11 +437,12 @@ from deeplip_tpu_torch.ops import spectral  # noqa: E402
 from deeplip_tpu_torch.data.video_dataset import (VideoClipBatches, load_clip,  # noqa: E402
                                                    scan_clip_dir)
 from deeplip_tpu_torch.ops import video as V  # noqa: E402
-from deeplip_tpu_torch.ops.cuda import bn_prelu, build, fbank, maxpool  # noqa: E402
+from deeplip_tpu_torch.ops.cuda import bn_prelu, build, conv3d_wgrad, fbank, maxpool  # noqa: E402,E501
 from deeplip_tpu_torch.ops.cuda.fbank import (audio_features,  # noqa: E402
                                               audio_features_reference)
 from deeplip_tpu_torch.ops.framing import num_frames, samples_for_frames  # noqa: E402
 from deeplip_tpu_torch.models.norm import TorchBatchNorm  # noqa: E402
+from deeplip_tpu_torch.models.lipreading import frontend_conv  # noqa: E402
 from deeplip_tpu_torch.models.resnet import conv_nhwc  # noqa: E402
 from deeplip_tpu_torch.serve import AVSpeakerVerifier, MicroBatcher, SpeakerVerifier  # noqa: E402
 from deeplip_tpu_torch.train import checkpoint as ckpt  # noqa: E402
@@ -2194,6 +2212,165 @@ def maxpool_phase(peaks, shapes=POOL_SHAPES) -> dict:
     return {"rows": rows}
 
 
+
+# ---------------------------------------------------------------- phase 21
+# ((B, T, H, W), C, what): the train step's clip at both frontend widths,
+# then bands that do not divide Ho (21), the video study's 44 x 44 crop (Wo
+# no multiple of four), rows of no multiple of four pixels, one frame, and
+# frames under a band
+WGRAD_SHAPES = [((128, 29, 88, 88), 64, "train step"), ((128, 29, 88, 88), 24, "train step"),
+                ((3, 7, 42, 40), 64, "odd bands"), ((3, 7, 42, 40), 24, "odd bands"),
+                ((4, 10, 44, 44), 64, "44 x 44 crop"), ((2, 5, 43, 45), 24, "odd frames"),
+                ((2, 1, 88, 88), 64, "one frame"), ((2, 3, 5, 7), 24, "small frames")]
+# |dW - dW in float64| over the float64 dW's largest: f32 sums of 7.2 M
+# products in another order sit near 1e-7; a wrong tap or band reads O(1)
+WGRAD_RTOL = 1e-5
+
+
+def wgrad_error(got: torch.Tensor, want64: torch.Tensor) -> float:
+    return float((got.double() - want64).abs().max() / want64.abs().max())
+
+
+def wgrad_library(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The library yardstick, cuDNN's FP32 weight gradient as the f32 step
+    took it before the kernel: ``convolution_backward`` for the weight alone
+    on the channels-last views, TF32 off."""
+    with fp32_math():
+        return torch.nn.grad.conv3d_weight(x[:, None], (dy.shape[-1], 1, *conv3d_wgrad.KERNEL),
+                                           dy.movedim(-1, 1), conv3d_wgrad.STRIDE,
+                                           conv3d_wgrad.PADDING)
+
+
+def wgrad_replay_equal(dy: torch.Tensor, x: torch.Tensor, want: torch.Tensor) -> bool:
+    """The op captured in a CUDA graph, replayed twice: bit-equal to ``want``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        conv3d_wgrad.conv3d_wgrad(dy, x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = conv3d_wgrad.conv3d_wgrad(dy, x)
+    equal = []
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        equal.append(bit_equal(out, want))
+    del graph
+    return all(equal)
+
+
+def wgrad_route_check() -> dict:
+    """The frontend conv on the card: the routed forward bit-equal to
+    ``conv_nhwc``'s, its weight gradient beside cuDNN's, and the kernel's
+    launches in f32 train steps (one a step), f32 extraction, and bf16 steps
+    (none)."""
+    gen = torch.Generator(device="cuda").manual_seed(2150)
+    clips = torch.randint(0, 256, (16, 29, 96, 96), dtype=torch.uint8, device="cuda",
+                          generator=gen)
+    lengths = torch.full((16,), 29, dtype=torch.int64, device="cuda")
+    labels = torch.randint(0, VIDEO_SPEAKERS, (16,), device="cuda", generator=gen)
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        trainer = VideoTrainer(video_config(), num_classes=VIDEO_SPEAKERS, exp_root=root)
+        conv = trainer.model.frontend3D[0]
+        x = torch.randn((16, 29, 88, 88, 1), device="cuda", generator=gen)
+        dy = torch.randn((16, 29, 44, 44, 64), device="cuda", generator=gen)
+        with fp32_math():
+            conv3d_wgrad.conv3d_wgrad.launches = 0
+            routed = frontend_conv(conv, x)
+            plain = conv_nhwc(conv, x)
+            check(bit_equal(routed, plain), "the routed frontend forward differs from conv_nhwc's")
+            (dw_kernel,) = torch.autograd.grad(routed, conv.weight, dy)
+            (dw_cudnn,) = torch.autograd.grad(plain, conv.weight, dy)
+            check(conv3d_wgrad.conv3d_wgrad.launches == 1, "the routed backward did not launch "
+                  "the kernel once")
+        grad_err = float((dw_kernel - dw_cudnn).abs().max() / dw_cudnn.abs().max())
+        check(grad_err <= WGRAD_RTOL, f"the routed weight gradient is {grad_err:.2e} from cuDNN's")
+        draws = torch.Generator().manual_seed(0)
+        conv3d_wgrad.conv3d_wgrad.launches = 0
+        losses = [float(trainer.train_step(clips, lengths, labels, draws)["loss"])
+                  for _ in range(3)]
+        launches["f32_steps"] = conv3d_wgrad.conv3d_wgrad.launches
+        check(launches["f32_steps"] == 3, f"3 f32 video steps launched the kernel "
+              f"{launches['f32_steps']} times")
+        check(all(math.isfinite(v) for v in losses), f"non-finite f32 losses {losses}")
+        conv3d_wgrad.conv3d_wgrad.launches = 0
+        trainer.frame_features(clips, lengths)
+        launches["f32_extraction"] = conv3d_wgrad.conv3d_wgrad.launches
+        del trainer
+        bf16 = VideoTrainer(video_config(), num_classes=VIDEO_SPEAKERS, exp_root=root,
+                            compute_dtype="bf16")
+        bf16.train_step(clips, lengths, labels, draws)
+        launches["bf16_step"] = conv3d_wgrad.conv3d_wgrad.launches
+        del bf16
+    check(launches["f32_extraction"] == launches["bf16_step"] == 0,
+          f"extraction or a bf16 step launched the kernel: {launches}")
+    release()
+    return {"launches": launches, "routed_vs_cudnn_grad": grad_err, "f32_losses": losses}
+
+
+def conv3d_wgrad_phase(peaks) -> dict:
+    """Phase 21: the frontend Conv3d's weight-gradient kernel against its
+    plain version in float64 at each of :data:`WGRAD_SHAPES`, bit-equal
+    over two runs and, at the train step's shape, over CUDA-graph replays;
+    refusals; kernel, plain and library times beside the bound at the train
+    step's shape; then the frontend's routing on the card."""
+    rows = []
+    for i, (shape, c, what) in enumerate(WGRAD_SHAPES):
+        b, t, h, w = shape
+        gen = torch.Generator(device="cuda").manual_seed(2100 + i)
+        x = torch.randn(shape, device="cuda", generator=gen)
+        dy = torch.randn((b, t, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c), device="cuda",
+                         generator=gen)
+        got = conv3d_wgrad.conv3d_wgrad(dy, x)
+        again = conv3d_wgrad.conv3d_wgrad(dy, x)
+        torch.cuda.synchronize()
+        check(bit_equal(got, again), f"conv3d_wgrad {shape} x {c}: two runs differ")
+        want = conv3d_wgrad.conv3d_wgrad_reference(dy.double(), x.double())
+        row = {"shape": list(shape), "channels": c, "what": what, "err": wgrad_error(got, want)}
+        check(row["err"] <= WGRAD_RTOL, f"conv3d_wgrad {shape} x {c} ({what}): {row['err']:.2e} "
+              f"from float64, bar {WGRAD_RTOL}")
+        if what == "train step":
+            check(wgrad_replay_equal(dy, x, got), f"conv3d_wgrad {shape} x {c}: a graph replay "
+                  "differs from the eager run")
+            row["err_plain"] = wgrad_error(conv3d_wgrad.conv3d_wgrad_reference(dy, x), want)
+            row["err_library"] = wgrad_error(wgrad_library(dy, x), want)
+            del want
+            torch.cuda.empty_cache()
+            row["ms"] = time_ms(lambda: conv3d_wgrad.conv3d_wgrad(dy, x))
+            row["plain_ms"] = time_ms(lambda: conv3d_wgrad.conv3d_wgrad_reference(dy, x),
+                                      iters=5, warmup=1)
+            row["library_ms"] = time_ms(lambda: wgrad_library(dy, x), iters=3, warmup=1)
+            row["bound_ms"] = 2e3 * c * 245 * dy[..., 0].numel() / peaks[0]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+        del x, dy, got, again
+        torch.cuda.empty_cache()
+        rows.append(row)
+        log(f"conv3d_wgrad {shape} x {c} ({what}): " + ", ".join(
+            f"{k} {v:.4g}" for k, v in row.items() if isinstance(v, float)))
+    for c, dtype, error in ((32, torch.float32, ValueError), (64, torch.float64, TypeError)):
+        try:
+            conv3d_wgrad.conv3d_wgrad(torch.zeros((2, 3, 44, 44, c), device="cuda", dtype=dtype),
+                                      torch.zeros((2, 3, 88, 88), device="cuda", dtype=dtype))
+            refused = False
+        except error:
+            refused = True
+        check(refused, f"conv3d_wgrad took {c} channels in {dtype}")
+    return {"rows": rows, "route": wgrad_route_check()}
+
+
+def conv3d_wgrad_only() -> int:
+    """``--conv3d-wgrad``: phases 1, 2 and 21 alone, one JSON line."""
+    dev = device_phase()
+    _, peaks = card_peaks(dev["name"])
+    build_phase()
+    out = conv3d_wgrad_phase(peaks)
+    print(json.dumps({"card": dev["smi"], "conv3d_wgrad": out,
+                      "kernel": conv3d_wgrad_entry(out, None)}), flush=True)
+    return 0
+
 # ---------------------------------------------------------------- phase 7
 VIDEO_SPEAKERS, VIDEO_CLIPS, VIDEO_BATCH = 32, 8, 128
 
@@ -3699,6 +3876,7 @@ def loss_rel(got: list, want: list) -> float:
 def zero_kernel_counts() -> None:
     zero_fbank_counts()
     zero_video_counts()
+    conv3d_wgrad.conv3d_wgrad.launches = 0
 
 
 @contextlib.contextmanager
@@ -4048,6 +4226,7 @@ def grouped_video_run(data: str, root: str, tag: str, dtype: str, k: int,
     _sync()
     wall = time.perf_counter() - t0
     run = {"losses": out["losses"], "wall_s": wall, "launches": video_counts(),
+           "launches_wgrad": conv3d_wgrad.conv3d_wgrad.launches,
            "state": floating_state(trainer.model), "steps": trainer.step,
            "warmups": trainer.grouped.warmup_steps, "graphs": len(trainer.grouped.graphs),
            "replays": sum(e.replays for e in trainer.grouped.graphs.values())}
@@ -4085,7 +4264,7 @@ def grouped_video_phase(smi: str, root: str, device=None, parts: dict | None = N
         d_group = grad_distance(grouped["state"], single["state"])
         row = {"steps": steps, "loss_rel": rel, "distance": d_group,
                "replays": grouped["replays"], "warmups": grouped["warmups"],
-               "launches": grouped["launches"],
+               "launches": grouped["launches"], "launches_wgrad": grouped["launches_wgrad"],
                "walls_s": {"grouped": grouped["wall_s"], "single": single["wall_s"]}}
         if nudged is not None:
             row["nudge_distance"] = grad_distance(nudged["state"], single["state"])
@@ -5860,8 +6039,9 @@ def study_launches(name: str, epochs: int, report: dict) -> dict:
     batches: the audio study launches K1 once an extraction batch (its steps
     take the shared features); the video study K3/K4 at every site of every
     step, P's backward once a step and its forward once a step and twice an
-    evaluation (logits, trunk features); the fusion study K1 and P's
-    forward once a step and once an evaluation."""
+    evaluation (logits, trunk features), the frontend conv's weight gradient
+    once a step (f32); the fusion study K1 and P's forward once a step and
+    once an evaluation."""
     want = dict.fromkeys(report["launches"], 0)
     if name == "audio":
         want["fft"] = epochs * report["eval_batches"]
@@ -5869,7 +6049,7 @@ def study_launches(name: str, epochs: int, report: dict) -> dict:
         steps = epochs * convergence_video_study.STEPS_PER_EPOCH
         want.update(bn_prelu_fwd=VIDEO_BN_LAUNCHES_PER_STEP * steps,
                     bn_prelu_bwd=VIDEO_BN_LAUNCHES_PER_STEP * steps,
-                    maxpool_fwd=steps + 2 * epochs, maxpool_bwd=steps)
+                    maxpool_fwd=steps + 2 * epochs, maxpool_bwd=steps, conv3d_wgrad=steps)
     else:
         steps = epochs * convergence_fusion_study.STEPS_PER_EPOCH
         want.update(fft=steps + epochs, maxpool_fwd=steps + epochs)
@@ -6150,6 +6330,44 @@ def pool_entry(pool: dict, av: dict, video: dict) -> dict:
     }
 
 
+def conv3d_wgrad_entry(wgrad: dict, video_g: dict | None) -> dict:
+    """The frontend Conv3d weight gradient's line of the ``kernels`` record:
+    the kernel at the train step's shape (64 channels), 24 channels beside,
+    and its launches on the main paths."""
+    train = {r["channels"]: r for r in wgrad["rows"] if r["what"] == "train step"}
+    main = train[64]
+    entry = {
+        "name": "conv3d_wgrad",
+        "route": "cuda",
+        "source": "deeplip_tpu_torch/csrc/conv3d_wgrad_kernel.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package leaves the frontend conv to XLA "
+                         "(ops/video.py: frontend_conv3d_s2d); on the card cuDNN's FP32 "
+                         "weight gradient took 55 % of the f32 Lipreading step",
+        "launches_route": wgrad["route"]["launches"],
+        "max_rel_err": max(r["err"] for r in wgrad["rows"]),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "FP32 operations",
+        "library_ms": main["library_ms"],
+        "library_note": "torch.nn.grad.conv3d_weight under fp32_math: cuDNN's FP32 weight "
+                        "gradient, the f32 step's path before the kernel",
+        "per": "one bs 128 x 29 x 88 x 88 f32 Lipreading step's frontend weight gradient",
+        "shape_24_channels": {k: train[24][k] for k in ("ms", "plain_ms", "library_ms",
+                                                        "bound_ms", "err")},
+        "shapes": wgrad["rows"],
+    }
+    if video_g is not None:
+        entry["launches_grouped_video"] = {
+            dtype: {"launches": row["launches_wgrad"], "steps": row["steps"],
+                    "warmup_steps": row["warmups"],
+                    "note": "the steps and the eager warm-up steps: the runner adds each "
+                            "replay's launches"}
+            for dtype, row in video_g.items()}
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -6187,6 +6405,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     bn = phase("6", bn_prelu_phase, peaks)
     pool = phase("9", maxpool_phase, peaks)
+    wgrad = phase("21", conv3d_wgrad_phase, peaks)
     video = phase("7", video_main_path_phase)
     step = phase("8", video_step_phase, video.pop("trainer"), video.pop("full_batch"), bn)
     torch.cuda.empty_cache()
@@ -6319,6 +6538,7 @@ def main() -> int:
     }, bn_entry("bn_prelu_fwd", "fwd", bn, video), bn_entry("bn_prelu_bwd", "bwd", bn, video),
         pool_entry(pool, av, video), totals_entry("bn_prelu_fwd_totals", "fwd", group),
         totals_entry("bn_prelu_bwd_totals", "bwd", group)]}
+    kernels["kernels"].append(conv3d_wgrad_entry(wgrad, grouped["video"]))
     by_name = {e["name"]: e for e in kernels["kernels"]}
     for name in ("fused_fbank", "fused_fbank_v1_configs"):
         by_name[name]["launches_fusion_train"] = fusion["launches"]["fft"]
@@ -6461,6 +6681,7 @@ def main() -> int:
         "n_fft_400_path": entry,
         "fusion_train": fusion,
         "video_bf16": video_bf16,
+        "conv3d_wgrad": wgrad,
         "grouped_dispatch": grouped,
         "variants": variants,
         "kaldi_host_io": kaldi_io,
@@ -6486,4 +6707,6 @@ if __name__ == "__main__":
         sys.exit(study_faults())
     if sys.argv[1:2] == ["--k1-against"]:
         sys.exit(k1_against(sys.argv[2]))
+    if sys.argv[1:2] == ["--conv3d-wgrad"]:
+        sys.exit(conv3d_wgrad_only())
     sys.exit(main())

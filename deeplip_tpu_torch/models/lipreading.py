@@ -10,7 +10,9 @@ for the ShuffleNetV2 one (2048 at ``width_mult: 2.0``).
   BN → PReLU → max-pool (1,3,3)/(1,2,2)/pad (0,1,1) with ``-inf`` padding.
   The JAX package computes the same conv by a space-to-depth rewrite for
   the TPU; here it is a plain ``nn.Conv3d``. In train mode the BN + PReLU
-  pair is the fused op (K3/K4 on the card). The pool is
+  pair is the fused op (K3/K4 on the card). In f32 training the conv's
+  weight gradient is ``csrc/conv3d_wgrad_kernel.cu`` on the card
+  (:func:`frontend_conv`). The pool is
   :func:`deeplip_tpu_torch.ops.cuda.maxpool.maxpool_frontend` on the
   channels-last activation: the ``csrc/maxpool_kernel.cu`` kernels on the
   card, forward and backward, and their plain version
@@ -53,7 +55,21 @@ from deeplip_tpu_torch.models.resnet import ResNetTrunk, bn_act, conv_nhwc, make
 from deeplip_tpu_torch.models.shufflenetv2 import ShuffleNetV2Trunk
 from deeplip_tpu_torch.models.tcn import MultibranchTemporalConvNet, TemporalConvNet
 from deeplip_tpu_torch.ops.cuda import maxpool as P
+from deeplip_tpu_torch.ops.cuda.conv3d_wgrad import conv3d_frontend
 from deeplip_tpu_torch.ops.masked import length_mask
+
+
+def frontend_conv(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
+    """The frontend Conv3d of a channels-last clip. An f32 clip whose conv
+    weight alone needs a gradient (f32 training) takes
+    :func:`~deeplip_tpu_torch.ops.cuda.conv3d_wgrad.conv3d_frontend`, whose
+    weight gradient is the hand-written kernel on the card; any other call
+    (bf16, ``no_grad`` extraction, a frozen encoder, a clip that needs a
+    gradient) takes ``conv_nhwc`` and cuDNN."""
+    if (x.dtype == torch.float32 and torch.is_grad_enabled() and conv.weight.requires_grad
+            and not x.requires_grad):
+        return conv3d_frontend(x, conv.weight)
+    return conv_nhwc(conv, x)
 
 
 class TCNHead(nn.Module):
@@ -126,7 +142,7 @@ class Lipreading(nn.Module):
             x = x.to(compute_dtype)
         b, t = x.shape[0], x.shape[1]
         conv, bn, act = self.frontend3D
-        y = bn_act(bn, act, conv_nhwc(conv, x))
+        y = bn_act(bn, act, frontend_conv(conv, x))
         y = P.maxpool_frontend(y)
         feats = self.trunk(y.reshape((b * t,) + y.shape[2:]))
         return feats.reshape(b, t, -1)

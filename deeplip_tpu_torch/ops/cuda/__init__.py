@@ -1,13 +1,14 @@
 """The hand-written CUDA kernels' wrappers (``fbank``, ``bn_prelu``,
-``maxpool``), their build (``build``), and :func:`launch_counts`."""
+``maxpool``, ``conv3d_wgrad``), their build (``build``), and
+:func:`launch_counts`."""
 
 
 def launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count in this process, by kernel: the
     front-end's FFT, mixed-radix and DFT kernels, K3 and K4 (the fused
-    BN+PReLU forward and backward), and the max-pool's forward and
-    backward."""
-    from deeplip_tpu_torch.ops.cuda import bn_prelu, fbank, maxpool
+    BN+PReLU forward and backward), the max-pool's forward and backward,
+    and the frontend Conv3d's weight gradient."""
+    from deeplip_tpu_torch.ops.cuda import bn_prelu, conv3d_wgrad, fbank, maxpool
 
     return {"fft": fbank.fft_audio_features.launches,
             "mixed": fbank.mixed_fft_audio_features.launches,
@@ -15,4 +16,5 @@ def launch_counts() -> dict[str, int]:
             "bn_prelu_fwd": bn_prelu.bn_prelu_forward.launches,
             "bn_prelu_bwd": bn_prelu.bn_prelu_backward.launches,
             "maxpool_fwd": maxpool.maxpool_forward.launches,
-            "maxpool_bwd": maxpool.maxpool_backward.launches}
+            "maxpool_bwd": maxpool.maxpool_backward.launches,
+            "conv3d_wgrad": conv3d_wgrad.conv3d_wgrad.launches}

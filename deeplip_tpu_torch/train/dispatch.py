@@ -75,7 +75,7 @@ from typing import Callable, Mapping, Sequence
 
 import torch
 
-from deeplip_tpu_torch.ops.cuda import bn_prelu, fbank, maxpool
+from deeplip_tpu_torch.ops.cuda import bn_prelu, conv3d_wgrad, fbank, maxpool
 
 # (object, attribute) of every kernel launch count a train step can move
 KERNEL_COUNTERS = (
@@ -84,7 +84,8 @@ KERNEL_COUNTERS = (
     (bn_prelu.bn_prelu_forward, "launches"), (bn_prelu.bn_prelu_backward, "launches"),
     (bn_prelu.bn_prelu_forward, "totals_launches"),
     (bn_prelu.bn_prelu_backward, "totals_launches"),
-    (maxpool.maxpool_forward, "launches"), (maxpool.maxpool_backward, "launches"))
+    (maxpool.maxpool_forward, "launches"), (maxpool.maxpool_backward, "launches"),
+    (conv3d_wgrad.conv3d_wgrad, "launches"))
 
 Body = Callable[[int, Mapping[str, torch.Tensor], Mapping[str, torch.Tensor]],
                 Mapping[str, torch.Tensor]]
