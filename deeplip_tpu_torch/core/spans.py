@@ -25,12 +25,19 @@ profiler left on for hours holds bounded memory.
 The names, and what each covers:
 
 - ``deeplip.step``: one optimizer step at a single-step entry of the
-  trainers (``train_step``, ``train_step_frames``, ``train_step_feats``);
+  trainers (``train_step``, ``train_step_frames``, ``train_step_feats``,
+  ``head_step``);
 - ``deeplip.input``: the step's input transform (the video crops and flips,
-  the audio rescale and front-end), or an embedding batch's front-end,
-  CMVN and deltas;
-- ``deeplip.forward``: the model's forward with the loss and accuracy, or
-  the embedding and its normalisation;
+  the audio rescale and front-end; a fusion step's front-end with its CMVN,
+  and its clips' eval transform and pad masks), or an embedding batch's
+  front-end, CMVN and deltas;
+- ``deeplip.encode.audio``: a fusion step's frozen audio encoder (the
+  x-vectors of its crops);
+- ``deeplip.encode.video``: a fusion step's frozen video encoder (the frame
+  path, each clip's time mean and each item's clip-group mean);
+- ``deeplip.forward``: the model's forward with the loss and accuracy (a
+  fusion step's head and criterion), or the embedding and its
+  normalisation;
 - ``deeplip.backward``: the backward and the gradients' reduction over the
   ranks;
 - ``deeplip.optimizer``: the optimizer's update;
@@ -45,7 +52,8 @@ import time
 
 import torch
 
-NAMES = frozenset({"deeplip.step", "deeplip.input", "deeplip.forward", "deeplip.backward",
+NAMES = frozenset({"deeplip.step", "deeplip.input", "deeplip.encode.audio",
+                   "deeplip.encode.video", "deeplip.forward", "deeplip.backward",
                    "deeplip.optimizer", "deeplip.embed"})
 FOLD_AT = 4096   # pending event pairs at which the completed ones are folded in
 

@@ -20,6 +20,9 @@ LinearFusion's ``fc2`` under ``extract_feats`` get no gradient, so they
 stay out of the optimizer and never move, as in torch's SGD and the JAX
 package's masked chain. ``compute_dtype='bf16'`` runs both encoders in
 bf16 and feeds the head bf16-rounded embeddings; the criterion stays f32.
+Under a profiler a step's phases are sibling spans (``core.spans``): the
+input (front-end, clip transform and masks), each encoder, the head's
+forward, the backward and the update.
 
 With ``mesh`` (``core.mesh``; one process per card) the head trains
 data-parallel: every rank pads the global batch to a multiple of the batch
@@ -48,6 +51,7 @@ from torch import nn
 
 from deeplip_tpu_torch.core.device import fp32_math, resolve_device
 from deeplip_tpu_torch.core.mesh import Mesh, all_reduce, local_mesh, replicate
+from deeplip_tpu_torch.core.spans import span
 from deeplip_tpu_torch.data.audio_io import read_wav
 from deeplip_tpu_torch.data.video_dataset import load_clip
 from deeplip_tpu_torch.eval.scoring import EmbeddingStore
@@ -284,12 +288,24 @@ class FusionTrainer:
         """``(B, G, T, H, W)`` uint8 -> ``(B, D)`` masked clip-group mean
         embedding; the frames computed in ``compute_dtype`` (default: the
         encoder's parameter type)."""
+        return self._group_mean(self._eval_frames(clips_u8, clip_lengths), clip_lengths,
+                                group_sizes, compute_dtype)
+
+    def _eval_frames(self, clips_u8: torch.Tensor, clip_lengths: torch.Tensor) -> torch.Tensor:
+        """``(B, G, T, H, W)`` uint8 -> ``(B·G, T, h, w, 1)`` eval-transformed
+        frames, the pad frames zeroed."""
         b, g, t = clips_u8.shape[:3]
         x = V.eval_transform(clips_u8.reshape((b * g, t) + clips_u8.shape[3:]),
                              self.crop_size)[..., None]
         # zeroed pad frames equal the frontend conv's own zero padding, so
         # the dense batch matches a per-clip batch-1 loop
-        x = V.mask_pad_frames(x, clip_lengths.reshape(b * g))
+        return V.mask_pad_frames(x, clip_lengths.reshape(b * g))
+
+    def _group_mean(self, x: torch.Tensor, clip_lengths: torch.Tensor, group_sizes: torch.Tensor,
+                    compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Frames of :meth:`_eval_frames` -> ``(B, D)``: the frozen frame path,
+        the time mean per clip and the group mean per item."""
+        b, g = clip_lengths.shape
         dtype = compute_dtype or self._param_dtype(self.video_model)
         feats = self.video_model.frame_features(x, dtype)                # (B*G, T, D)
         clip_emb = _masked_mean(feats, clip_lengths.reshape(b * g))     # time mean per clip
@@ -302,7 +318,9 @@ class FusionTrainer:
     def _audio_embed(self, pcm: torch.Tensor) -> torch.Tensor:
         """The train step's audio x-vectors: the config's features (CMVN
         over each whole crop), the E-TDNN in ``compute_dtype``."""
-        feats = F.extract_features(pcm, self.feat_cfg)
+        return self._audio_xvectors(F.extract_features(pcm, self.feat_cfg))
+
+    def _audio_xvectors(self, feats: torch.Tensor) -> torch.Tensor:
         xv, _ = self.audio_model.extract_embedding(feats, compute_dtype=self.compute_dtype)
         return xv
 
@@ -311,11 +329,17 @@ class FusionTrainer:
                    group_sizes: torch.Tensor, labels: torch.Tensor) -> dict:
         """One SGD step of the head and the criterion from one paired batch
         on the device (under a mesh, this rank's rows): the frozen encoders,
-        then :meth:`head_step`."""
-        with fp32_math(), torch.no_grad():
-            xv = self._audio_embed(pcm)
-            em = self._video_group_embed(clips_u8, clip_lengths, group_sizes, self.compute_dtype)
-        return self.head_step(xv, em, group_sizes, labels)
+        then the head's step (:meth:`head_step`)."""
+        with span("deeplip.step", self.device):
+            with fp32_math(), torch.no_grad():
+                with span("deeplip.input", self.device):
+                    feats = F.extract_features(pcm, self.feat_cfg)
+                    frames = self._eval_frames(clips_u8, clip_lengths)
+                with span("deeplip.encode.audio", self.device):
+                    xv = self._audio_xvectors(feats)
+                with span("deeplip.encode.video", self.device):
+                    em = self._group_mean(frames, clip_lengths, group_sizes, self.compute_dtype)
+            return self._fit_head(xv, em, group_sizes, labels)
 
     def head_step(self, xv: torch.Tensor, em: torch.Tensor, group_sizes: torch.Tensor,
                   labels: torch.Tensor) -> dict:
@@ -325,24 +349,33 @@ class FusionTrainer:
         clips, the backward and the SGD update. Returns the step's ``loss``
         and ``acc`` as tensors on the device; the gradients stay in the
         parameters' ``.grad``."""
+        with span("deeplip.step", self.device):
+            return self._fit_head(xv, em, group_sizes, labels)
+
+    def _fit_head(self, xv, em, group_sizes, labels) -> dict:
         mesh = self.mesh
         with fp32_math():
-            train_dtype = self.compute_dtype or self._param_dtype(self.audio_model)
-            valid = (group_sizes > 0).to(torch.float32)
-            denom = torch.clamp(all_reduce(valid.sum(), mesh.data_group), min=1.0)
-            fused = self._head_apply(xv.to(train_dtype), em.to(train_dtype))
-            # the criterion takes the head's output in f32 (it promotes it to
-            # its parameters' type where they are wider)
-            per_ex, logits = self.criterion(fused.to(torch.float32), labels, reduction="none")
-            loss = (per_ex * valid).sum() / denom
-            acc = ((logits.argmax(-1) == labels) * valid).sum() / denom
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            mesh.reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"]])
-            lr = self.schedule(self.step)
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-            self.optimizer.step()
+            with span("deeplip.forward", self.device):
+                train_dtype = self.compute_dtype or self._param_dtype(self.audio_model)
+                valid = (group_sizes > 0).to(torch.float32)
+                denom = torch.clamp(all_reduce(valid.sum(), mesh.data_group), min=1.0)
+                fused = self._head_apply(xv.to(train_dtype), em.to(train_dtype))
+                # the criterion takes the head's output in f32 (it promotes it
+                # to its parameters' type where they are wider)
+                per_ex, logits = self.criterion(fused.to(torch.float32), labels,
+                                                reduction="none")
+                loss = (per_ex * valid).sum() / denom
+                acc = ((logits.argmax(-1) == labels) * valid).sum() / denom
+            with span("deeplip.backward", self.device):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                mesh.reduce_gradients([p for g in self.optimizer.param_groups
+                                       for p in g["params"]])
+            with span("deeplip.optimizer", self.device):
+                lr = self.schedule(self.step)
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
         self.step += 1
         return mesh.report(loss=loss.detach(), acc=acc.detach())
 

@@ -15,12 +15,15 @@ from torch.profiler import ProfilerActivity, profile
 from deeplip_tpu_torch.core import spans
 from deeplip_tpu_torch.core.config import Config
 from deeplip_tpu_torch.train.audio import AudioExtractor, AudioTrainer
+from deeplip_tpu_torch.train.fusion import FusionTrainer
 from deeplip_tpu_torch.train.video import VideoTrainer
 
 torch.set_num_threads(1)
 
 STEP = ("deeplip.step", "deeplip.input", "deeplip.forward", "deeplip.backward",
         "deeplip.optimizer")
+FUSION_STEP = ("deeplip.step", "deeplip.input", "deeplip.encode.audio", "deeplip.encode.video",
+               "deeplip.forward", "deeplip.backward", "deeplip.optimizer")
 
 
 @pytest.fixture(autouse=True)
@@ -39,6 +42,8 @@ def _deeplip_events(prof):
 
 
 def test_off_a_span_is_the_shared_no_op(monkeypatch):
+    assert set(FUSION_STEP) | {"deeplip.embed"} == spans.NAMES
+
     def no_range(name):
         raise AssertionError("record_function called with no profiler running")
 
@@ -221,10 +226,30 @@ def _embed(tmp_path):
                            torch.tensor([SAMPLES, SAMPLES - 500, SAMPLES - 1000]))
 
 
+def _fusion_trainer(tmp_path, crop: int = 24):
+    return FusionTrainer(AUDIO_CFG["model"], VIDEO_CFG, 4,
+                         audio_data_opts=AUDIO_CFG["data"]["python_data_config"], device="cpu",
+                         exp_root=str(tmp_path), crop_size=(crop, crop), video_hidden_dim=8,
+                         video_trunk_layers=(1, 1, 1, 1))
+
+
+def _fusion_batch(size: int = 28):
+    g = torch.Generator().manual_seed(13)
+    pcm = 0.1 * torch.randn((3, SAMPLES), generator=g)
+    clips = torch.randint(0, 256, (3, 2, 5, size, size), dtype=torch.uint8, generator=g)
+    return (pcm, clips, torch.tensor([[5, 3], [4, 0], [0, 0]]), torch.tensor([2, 1, 0]),
+            torch.tensor([0, 3, 1]))
+
+
+def _fusion_step(tmp_path):
+    return _fusion_trainer(tmp_path).train_step(*_fusion_batch())["loss"]
+
+
 @pytest.mark.parametrize("run,names", [
     (_video_step, STEP), (_audio_step, STEP),
-    (_embed, ("deeplip.embed", "deeplip.input", "deeplip.forward"))],
-    ids=["video_train_step", "audio_train_step", "extractor_embed"])
+    (_embed, ("deeplip.embed", "deeplip.input", "deeplip.forward")),
+    (_fusion_step, FUSION_STEP)],
+    ids=["video_train_step", "audio_train_step", "extractor_embed", "fusion_train_step"])
 def test_one_span_of_each_phase_and_the_same_numbers(run, names, tmp_path):
     plain = run(tmp_path / "plain")
     assert spans.totals() == {}
@@ -239,3 +264,36 @@ def test_one_span_of_each_phase_and_the_same_numbers(run, names, tmp_path):
     assert inner <= outer["host_ms"]
     assert outer["self_host_ms"] == pytest.approx(outer["host_ms"] - inner, abs=1e-6)
     assert sorted(e.name() for e in _deeplip_events(prof)) == sorted(names)
+
+
+def test_a_fusion_steps_phases_are_siblings_that_sum_to_the_step(tmp_path):
+    """Six sibling phases under one ``deeplip.step``: none nests in another,
+    and together they hold all but 1 % of the step's host time; ``head_step``
+    alone records the step and the head's three phases. The crop is the
+    recipe's 88 pixels so that a step's work (≈ 0.3 s on one thread) dwarfs
+    what the profiler's ranges cost the step between its phases (≈ 1 ms in
+    all)."""
+    trainer = _fusion_trainer(tmp_path, crop=88)
+    batch = _fusion_batch(96)
+    trainer.train_step(*batch)   # first calls allocate and dispatch once
+    spans.reset()
+    with _cpu_profile() as prof:
+        trainer.train_step(*batch)
+    got = spans.totals()
+    assert set(got) == set(FUSION_STEP)
+    step, phases = got["deeplip.step"], FUSION_STEP[1:]
+    for name in phases:
+        assert got[name]["self_host_ms"] == got[name]["host_ms"], name   # no child spans
+    total = sum(got[name]["host_ms"] for name in phases)
+    assert total <= step["host_ms"] and total >= 0.99 * step["host_ms"], (total, step)
+    events = sorted((e for e in _deeplip_events(prof) if e.name() != "deeplip.step"),
+                    key=lambda e: e.start_ns())
+    assert [e.name() for e in events] == list(phases)
+    for a, b in zip(events, events[1:]):
+        assert a.start_ns() + a.duration_ns() <= b.start_ns()
+    xv, em = torch.randn(3, 12), torch.randn(3, 512)
+    spans.reset()
+    with _cpu_profile():
+        trainer.head_step(xv, em, batch[3], batch[4])
+    assert set(spans.totals()) == {"deeplip.step", "deeplip.forward", "deeplip.backward",
+                                   "deeplip.optimizer"}
