@@ -27,6 +27,18 @@ bf16 casts of the float32 parameters, BN takes its statistics in >= f32
 and normalises in bf16, and the activations are cast back to >= f32 before
 pooling, so pooling and the FC head run in f32 (f64 runs stay f64). The
 default, None, computes in the input's type.
+
+On the card a block's conv bias, BN and LeakyReLU (``bn_first``) run as one
+fused op on the conv's ``(B, C, T)`` output, the conv then running without
+its bias, :mod:`deeplip_tpu_torch.ops.cuda.tdnn_bn_act` (T): its train
+kernels in train mode, its eval kernel in eval mode when no gradient is
+needed (extraction, a frozen encoder). The fused op rounds
+where the eager ops round (statistics in f32, the normalisation op by op in
+the activation's type), so the blocks compute what they computed before,
+and hand on the same ``(B, T, C)`` view of ``(B, C, T)`` memory. Every
+other call keeps the eager ops: the CPU, f64, ``bn_first: false``, a step under a
+mesh's batch group (whose statistics need an all-reduce that T does not
+take yet), and an eval block whose output needs a gradient.
 """
 
 from __future__ import annotations
@@ -37,11 +49,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deeplip_tpu_torch.core.mesh import batch_group
 from deeplip_tpu_torch.models.initializers import lecun_normal_
 from deeplip_tpu_torch.models.norm import TorchBatchNorm
 from deeplip_tpu_torch.models.pooling import POOLED_WIDTH, pooling_from_name
+from deeplip_tpu_torch.ops.cuda import tdnn_bn_act as T
 
 _NEGATIVE_SLOPE = 0.2
+_FUSED_TYPES = (torch.float32, torch.bfloat16)
 
 
 def context_to_kernel(context: Sequence[int]) -> tuple[int, int]:
@@ -58,6 +73,20 @@ def _act(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=_NEGATIVE_SLOPE)
 
 
+def bn_leaky_ncw(bn: TorchBatchNorm, y: torch.Tensor, conv_bias: torch.Tensor) -> torch.Tensor:
+    """``leaky(bn(y + conv_bias))`` on a conv's ``(B, C, T)`` output without
+    its bias, as T's fused op, returned as ``(B, C, T)``: in train mode the
+    batch statistics it returns feed ``bn``'s running update; in eval mode it
+    applies the running statistics."""
+    if bn.training:
+        out, mean, var = T.tdnn_bn_act_train(y, conv_bias, bn.weight, bn.bias, bn.eps,
+                                             _NEGATIVE_SLOPE)
+        bn.update_running(mean, var, y.numel() // y.shape[1])
+        return out
+    return T.tdnn_bn_act_eval(y, conv_bias, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                              bn.eps, _NEGATIVE_SLOPE)
+
+
 class TDNNBlock(nn.Module):
     """Dilated VALID Conv1d -> BN -> LeakyReLU(0.2) (order per ``bn_first``)
     on ``(B, T, C)``."""
@@ -71,11 +100,25 @@ class TDNNBlock(nn.Module):
         self.bn = TorchBatchNorm(out_dim)
         self.bn_first = bn_first
 
+    def fused(self, x: torch.Tensor) -> bool:
+        """Whether the conv bias, BN and LeakyReLU of input ``x``'s block
+        take T's fused op: an f32 or bf16 activation on the card,
+        ``bn_first``, no batch group, and in eval mode no gradient needed."""
+        if (not x.is_cuda or x.dtype not in _FUSED_TYPES or not self.bn_first
+                or batch_group() is not None):
+            return False
+        return self.bn.training or not (torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters())))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.context_layer
-        # the parameters are cast to the input's (compute) dtype
+        fused = self.fused(x)
+        # the parameters are cast to the input's (compute) dtype; T adds the bias
         y = F.conv1d(x.transpose(1, 2), conv.weight.to(x.dtype),
-                     conv.bias.to(x.dtype), dilation=conv.dilation).transpose(1, 2)
+                     None if fused else conv.bias.to(x.dtype), dilation=conv.dilation)
+        if fused:
+            return bn_leaky_ncw(self.bn, y, conv.bias).transpose(1, 2)
+        y = y.transpose(1, 2)
         if self.bn_first:
             return _act(self.bn(y))
         return self.bn(_act(y))

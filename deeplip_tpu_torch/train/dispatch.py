@@ -75,7 +75,7 @@ from typing import Callable, Mapping, Sequence
 
 import torch
 
-from deeplip_tpu_torch.ops.cuda import bn_prelu, conv3d_wgrad, fbank, maxpool
+from deeplip_tpu_torch.ops.cuda import bn_prelu, conv3d_wgrad, fbank, maxpool, tdnn_bn_act
 
 # (object, attribute) of every kernel launch count a train step can move
 KERNEL_COUNTERS = (
@@ -85,7 +85,9 @@ KERNEL_COUNTERS = (
     (bn_prelu.bn_prelu_forward, "totals_launches"),
     (bn_prelu.bn_prelu_backward, "totals_launches"),
     (maxpool.maxpool_forward, "launches"), (maxpool.maxpool_backward, "launches"),
-    (conv3d_wgrad.conv3d_wgrad, "launches"))
+    (conv3d_wgrad.conv3d_wgrad, "launches"),
+    (tdnn_bn_act.tdnn_bn_act_forward, "launches"), (tdnn_bn_act.tdnn_bn_act_backward, "launches"),
+    (tdnn_bn_act.tdnn_bn_act_eval, "launches"))
 
 Body = Callable[[int, Mapping[str, torch.Tensor], Mapping[str, torch.Tensor]],
                 Mapping[str, torch.Tensor]]
