@@ -20,30 +20,29 @@ without the package, it exits non-zero and prints no result. Phases:
    and 4095), within atol 2e-4 / rtol 1e-3; the per-kernel counters show
    that each case went to the kernel the dispatch rule names (every n_fft
    in [64, 4096] to the FFT route: its power-of-two plan, or its
-   mixed-radix and Bluestein plan at any other size; none to the DFT
-   kernel); log-mel band 0 of the MFCC configs held alone; an empty row
-   equal to the plain guarded zero; each route's largest error named and
-   held against the plain version in float64, and at 441 with 40 filters
-   (single-bin filters) each version's misses of the bar against float64.
-   At the 256 x 3 s batch: the FFT kernel, the DFT kernel forced at n_fft
-   512, the plain version and the plain ``dft='fft'`` front-end (cuFFT) in
-   turns, by CUDA events, beside the least time the card could take for
-   the function and the time of each kernel's own operations;
-   logfbank-60 on the FFT kernel, with its DC bin against float64 beside
-   the plain versions'; at n_fft 400, 480 and 510 the mixed-radix route,
-   the DFT kernel forced, the plain version and ``dft='fft'`` the same way.
+   mixed-radix and Bluestein plan at any other size); log-mel band 0 of
+   the MFCC configs held alone; an empty row equal to the plain guarded
+   zero; each route's largest error named and held against the plain
+   version in float64, and at 441 with 40 filters (single-bin filters)
+   each version's misses of the bar against float64.
+   At the 256 x 3 s batch: the FFT kernel, the plain version and the plain
+   ``dft='fft'`` front-end (cuFFT) in turns, by CUDA events, beside the
+   least time the card could take for the function and the time of the
+   kernel's own operations; logfbank-60 on the FFT kernel, with its DC bin
+   against float64 beside the plain versions'; at n_fft 400, 480 and 510
+   the mixed-radix route, the plain version and ``dft='fft'`` the same way.
 4. The main path through the user's entry points at the flagship E-TDNN
    width (seeded random weights, BN statistics calibrated on one batch
    and then perturbed): a ragged
    PCM16 wav corpus → ``EvalUtteranceSet`` (``eval_set_kwargs`` defaults,
    batch 64) → ``AudioExtractor.extract_embeddings`` → ``cosine_eer``. Launch
-   counts are zeroed just before and read just after: K1 once and T's eval
+   counts are read just before and just after: K1 once and T's eval
    apply once a block a batch. Two batches are
    re-embedded with the plain front-end and must agree to 1e-4.
 5. A first number for the lomgrid sweep shape: 3,541 x 3 s int16
    utterances staged on the card, batch 256, 20,000 gathered cosine trials,
    by CUDA events after a warm-up sweep; 14 FFT-kernel launches a sweep,
-   none of the DFT kernel, and T's eval apply once a block a batch.
+   none of the mixed-radix plan, and T's eval apply once a block a batch.
 6. The fused train-mode BN+PReLU kernels (K3 forward, K4 backward) against
    their plain versions at the five activation shapes of a bs 128 x 29-frame
    Lipreading step, in f32 and bf16: y, mean, var and dx within atol/rtol
@@ -56,7 +55,7 @@ without the package, it exits non-zero and prints no result. Phases:
    synthetic 32-speaker x 8-clip 96x96 uint8 ``.npz`` corpus of 21-29 frames
    → ``scan_clip_dir`` → ``VideoClipBatches`` (batch 128, bucket 8) →
    ``VideoTrainer.train`` (one epoch) → ``extract_clip_embeddings``. K3/K4
-   launch counts are zeroed just before training and read just after: three
+   launch counts are read just before training and just after: three
    launches per site and pass (partial, finalize, apply), nine sites, so 27
    forward and 27 backward per step. K3/K4 are then held against their
    plain versions, with the bars of phase 6, at every shape the training
@@ -97,7 +96,7 @@ without the package, it exits non-zero and prints no result. Phases:
    ``calibrate`` on a written trial list → ``enroll`` 32 speakers x 2 items
    → ``verify`` and ``identify``, with the concat and with
    ``use_fusion_head``. The front-end and max-pool kernels launch once per
-   extraction chunk (counts zeroed before, read after); two chunks are
+   extraction chunk (counts read before and after); two chunks are
    embedded again through the plain versions of both (parts within 1e-4).
    Then ``SpeakerVerifier`` with an AS-norm cohort behind a
    ``MicroBatcher``: concurrent ``verify`` requests from 16 threads against
@@ -116,9 +115,9 @@ without the package, it exits non-zero and prints no result. Phases:
    with its paths pointed at the corpus) → the average of the 2 epochs'
    checkpoints → extraction of a 256-utterance test set held out of training
    and its cosine EER.
-   Front-end launch counts are zeroed just before and read just after: one
+   Front-end launch counts are read just before and just after: one
    FFT-kernel launch per train step and per extraction batch, none of the
-   DFT kernel. K1 against its plain version on every batch of both epochs
+   mixed-radix plan. K1 against its plain version on every batch of both epochs
    (CMVN after, atol 2e-4 / rtol 1e-3) with its time at each crop shape.
    One f32 step through K1 against one through the plain front-end from the
    same state (TF32 off, cuDNN deterministic) at bs 256 x 300: loss within
@@ -144,11 +143,11 @@ without the package, it exits non-zero and prints no result. Phases:
    every 10th training utterance) and its manifest; encoders with seeded
    weights and calibrated BN saved and named by the config's ``resume``
    keys → ``cli/train_fusion.py --mode train`` for 2 epochs → the average
-   of the last 2 → the held-out trial list's EERs. Launch counts zeroed
-   before and read after: one FFT-kernel and one pool-forward launch per
+   of the last 2 → the held-out trial list's EERs. Launch counts read
+   before and after: one FFT-kernel and one pool-forward launch per
    train step and per extraction chunk, and T's eval apply once a block of
    the frozen E-TDNN, none of P backward, K3/K4, T's train kernels or the
-   DFT kernel. LowFER's dead ``U``/``V`` bit-equal before and after. One f32
+   mixed-radix plan. LowFER's dead ``U``/``V`` bit-equal before and after. One f32
    step through K1 and P against one through the plain front-end and pool
    from the same state (TF32 off): loss within 1e-5 relative, the head and
    criterion gradients within 3x what a 1e-6 elementwise nudge of the PCM
@@ -293,7 +292,7 @@ without the package, it exits non-zero and prints no result. Phases:
    E-TDNN (seeded, calibrated) with ``n_fft: 400`` in place of 512 (the
    torchaudio and Whisper size) through ``AudioExtractor.extract_embeddings``
    on a ragged 64-utterance corpus, one launch of the mixed-radix route per
-   batch and none of the others (counts zeroed before, read after), every
+   batch and none of the others (counts read before and after), every
    batch re-embedded through the plain front-end within 1e-4; then one f32
    ``AudioTrainer`` step of ``conf/audio_config.yaml`` at that ``n_fft``
    (bs 256 x 300, TF32 off, cuDNN deterministic) against one through the
@@ -470,12 +469,11 @@ from deeplip_tpu_torch.eval.scoring import EmbeddingStore, cosine_scores  # noqa
 from deeplip_tpu_torch.interop.kaldi import read_scp, write_ark_scp  # noqa: E402
 from deeplip_tpu_torch.losses import softmax as softmax_losses  # noqa: E402
 from deeplip_tpu_torch.ops import features as F  # noqa: E402
-from deeplip_tpu_torch.ops import spectral  # noqa: E402
 from deeplip_tpu_torch.data.video_dataset import (VideoClipBatches, load_clip,  # noqa: E402
                                                    scan_clip_dir)
 from deeplip_tpu_torch.ops import video as V  # noqa: E402
 from deeplip_tpu_torch.ops.cuda import bn_prelu, build, conv3d_wgrad, fbank, maxpool  # noqa: E402,E501
-from deeplip_tpu_torch.ops.cuda import tdnn_bn_act  # noqa: E402
+from deeplip_tpu_torch.ops.cuda import launch_counts, tdnn_bn_act  # noqa: E402
 from deeplip_tpu_torch.ops.cuda.fbank import (audio_features,  # noqa: E402
                                               audio_features_reference)
 from deeplip_tpu_torch.ops.framing import num_frames, samples_for_frames  # noqa: E402
@@ -584,28 +582,19 @@ def front_end_work(b: int, s: int, cfg: F.FeatureConfig) -> tuple[float, float]:
             float(4 * (b * s + b + b * t * d + consts)))
 
 
-def kernel_flops(b: int, s: int, cfg: F.FeatureConfig, kernel: str) -> float:
-    """Operations that one kernel's own algorithm does for a ``(b, s)``
-    batch, beyond what :func:`front_end_work` counts for the function.
-    ``"fft"`` and ``"mixed"``: pre-emphasis of each frame's own samples (2
-    a sample), the DC bin's sum in sample order (3 a sample), the FFT by
-    the route's plan (``fbank.fft_flops``), the untangle of both bins of
-    every pair apart (20 a bin with the power; an odd ``n_fft`` takes the
-    power alone, 3 a bin), the mel sums, and for MFCC the energy, the DCT
-    and the lifter. ``"dft"``: the dense
-    product against the basis columns that are not zero (the sine columns
-    at DC and at Nyquist are, up to rounding), the power (3 a bin), the mel
-    sums, and for MFCC the energy, the DCT and the lifter."""
+def kernel_flops(b: int, s: int, cfg: F.FeatureConfig) -> float:
+    """Operations that the FFT route's own algorithm does for a ``(b, s)``
+    batch, beyond what :func:`front_end_work` counts for the function:
+    pre-emphasis of each frame's own samples (2 a sample), the DC bin's sum
+    in sample order (3 a sample), the FFT by the route's plan
+    (``fbank.fft_flops``), the untangle of both bins of every pair apart (20
+    a bin with the power; an odd ``n_fft`` takes the power alone, 3 a bin),
+    the mel sums, and for MFCC the energy, the DCT and the lifter."""
     t = num_frames(s, cfg.frame_len, cfg.frame_step)
     n = cfg.n_fft // 2
     _, weights = fbank.mel_csr(cfg.num_bin, cfg.n_fft, cfg.rate, cfg.low_freq, cfg.high_freq)
-    if kernel in ("fft", "mixed"):
-        per_frame = (5 * cfg.frame_len + fbank.fft_flops(cfg.n_fft)
-                     + (20 if cfg.n_fft % 2 == 0 else 3) * (n + 1))
-    else:
-        basis = spectral.rdft_fused_matrix(cfg.frame_len, cfg.n_fft)
-        cols = int(np.count_nonzero(np.abs(basis).max(axis=0) > 1e-6))
-        per_frame = 2 * cfg.frame_len * cols + 3 * (n + 1)
+    per_frame = (5 * cfg.frame_len + fbank.fft_flops(cfg.n_fft)
+                 + (20 if cfg.n_fft % 2 == 0 else 3) * (n + 1))
     per_frame += 2 * weights.size
     if cfg.feat_type == "mfcc":
         dct_cols = cfg.num_cep - 1 if cfg.energy else cfg.num_cep
@@ -620,18 +609,19 @@ def bound(work: tuple[float, float], peaks) -> tuple[float, str]:
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-FBANK_KERNELS = {"fft": fbank.fft_audio_features, "mixed": fbank.mixed_fft_audio_features,
-                 "dft": fbank.dft_audio_features}
+# launch_counts() keys by kernel family: the front-end's two plans, the
+# video kernels (K3/K4 and the max-pool), T, and K3/K4's split finalize
+FBANK = ("fft", "mixed")
+VIDEO = ("bn_prelu_fwd", "bn_prelu_bwd", "maxpool_fwd", "maxpool_bwd")
+TDNN = ("tdnn_fwd", "tdnn_bwd", "tdnn_eval")
+TOTALS = ("bn_totals_fwd", "bn_totals_bwd")
 
 
-def zero_fbank_counts() -> None:
-    for kernel in FBANK_KERNELS.values():
-        kernel.launches = 0
-
-
-def fbank_counts() -> dict:
-    """Front-end launches, each kernel's own."""
-    return {k: kernel.launches for k, kernel in FBANK_KERNELS.items()}
+def launches_since(before: dict, keys: tuple) -> dict:
+    """The launches of ``keys`` since ``before``, an earlier reading of
+    ``launch_counts()``."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in keys}
 
 
 @contextlib.contextmanager
@@ -740,11 +730,10 @@ def launch_one(cfg: F.FeatureConfig, x: torch.Tensor, lengths, what: str) -> tor
     """``audio_features`` once, checking from the counters that it went to
     the kernel the dispatch rule names, and to it alone."""
     kind = fbank.front_end_kernel(cfg)
-    before = fbank_counts()
+    before = launch_counts()
     got = audio_features(x, cfg, lengths)
-    after = fbank_counts()
-    moved = {k: after[k] - before[k] for k in after}
-    check(moved == {k: int(k == kind) for k in FBANK_KERNELS},
+    moved = launches_since(before, FBANK)
+    check(moved == {k: int(k == kind) for k in FBANK},
           f"{what}: launches moved {moved}, not one of the {kind} kernel")
     return got
 
@@ -853,52 +842,46 @@ def ill_conditioned_witness() -> dict:
 def mixed_timing(pcm: torch.Tensor, lengths, cfg: F.FeatureConfig, what: str, peaks) -> dict:
     """At the 256 x 3 s batch and ``cfg`` at each ``n_fft`` of
     :data:`MIXED_TIMED`: the mixed-radix route held to the plain version,
-    then it, the DFT kernel forced, the plain version and the plain
-    ``dft='fft'`` in turns by CUDA events, beside the function's bound and
-    each kernel's own operations. The route must beat the DFT kernel and
-    ``dft='fft'``."""
+    then it, the plain version and the plain ``dft='fft'`` in turns by CUDA
+    events, beside the function's bound and the route's own operations. The
+    route must beat ``dft='fft'``."""
     b, s = pcm.shape
     rows = {}
     for n_fft in MIXED_TIMED:
         c = dataclasses.replace(cfg, n_fft=n_fft)
         c_fft = dataclasses.replace(c, dft="fft")
         fns = {"mixed": lambda: audio_features(pcm, c, lengths),
-               "dft": lambda: fbank.dft_audio_features(pcm, c, lengths),
                "plain": lambda: audio_features_reference(pcm, c, lengths),
                "cufft": lambda: audio_features_reference(pcm, c_fft, lengths)}
         want = fns["plain"]()
         err = {"mixed": compare(launch_one(c, pcm, lengths, f"{what}, n_fft {n_fft}"), want,
-                                f"{what}, n_fft {n_fft}"),
-               "dft": compare(fns["dft"](), want, f"{what}, DFT kernel at n_fft {n_fft}")}
+                                f"{what}, n_fft {n_fft}")}
         del want
-        order = ["plain", "mixed", "dft", "cufft", "mixed", "dft", "cufft", "plain"]
+        order = ["plain", "mixed", "cufft", "mixed", "cufft", "plain"]
         runs = [(name, time_ms(fns[name])) for name in order]
         ms = {name: sum(t for q, t in runs if q == name) / 2 for name in fns}
         fn_bound, fn_by = bound(front_end_work(b, s, c), peaks)
         rows[n_fft] = {"ms": ms, "runs_ms": runs, "max_abs_err": err, "bound_ms": fn_bound,
                        "bound_by": fn_by, "plan": [r for r, _ in fbank.fft_plan(n_fft).passes],
                        "bluestein": fbank.fft_plan(n_fft).bluestein,
-                       "algorithm_ops_ms": {k: kernel_flops(b, s, c, k) / peaks[0] * 1e3
-                                            for k in ("mixed", "dft")}}
+                       "algorithm_ops_ms": kernel_flops(b, s, c) / peaks[0] * 1e3}
         r = rows[n_fft]
         log(f"{what}, mfcc-24 at n_fft {n_fft} (plan {r['plan']}"
-            f"{', Bluestein' if r['bluestein'] else ''}; plain, mixed, DFT, dft='fft', mixed, "
-            f"DFT, dft='fft', plain: {', '.join(f'{t:.4f}' for _, t in runs)} ms): mixed-radix "
-            f"route {ms['mixed']:.4f} ms, DFT kernel {ms['dft']:.4f} ms, plain {ms['plain']:.4f} "
-            f"ms, plain dft='fft' {ms['cufft']:.4f} ms; the function's bound {fn_bound:.4f} ms "
-            f"({fn_by}): {fn_bound / ms['mixed']:.1%} of it; the route's own operations "
-            f"{r['algorithm_ops_ms']['mixed']:.4f} ms, the DFT kernel's "
-            f"{r['algorithm_ops_ms']['dft']:.4f} ms; max abs err mixed {err['mixed']:.3e}, DFT "
-            f"{err['dft']:.3e}")
-        check(ms["mixed"] < min(ms["dft"], ms["cufft"]),
+            f"{', Bluestein' if r['bluestein'] else ''}; plain, mixed, dft='fft', mixed, "
+            f"dft='fft', plain: {', '.join(f'{t:.4f}' for _, t in runs)} ms): mixed-radix "
+            f"route {ms['mixed']:.4f} ms, plain {ms['plain']:.4f} ms, plain dft='fft' "
+            f"{ms['cufft']:.4f} ms; the function's bound {fn_bound:.4f} ms ({fn_by}): "
+            f"{fn_bound / ms['mixed']:.1%} of it; the route's own operations "
+            f"{r['algorithm_ops_ms']:.4f} ms; max abs err {err['mixed']:.3e}")
+        check(ms["mixed"] < ms["cufft"],
               f"n_fft {n_fft}: the mixed-radix route ({ms['mixed']:.4f} ms) is not faster than "
-              f"the DFT kernel ({ms['dft']:.4f}) and dft='fft' ({ms['cufft']:.4f})")
+              f"dft='fft' ({ms['cufft']:.4f})")
     return rows
 
 
 def kernel_phase(peaks) -> dict:
     rng = np.random.default_rng(0)
-    max_err = {k: 0.0 for k in FBANK_KERNELS}
+    max_err = dict.fromkeys(FBANK, 0.0)
     worst = {"fft": {"err": -1.0}, "mixed": {"err": -1.0}}
     band0_err = 0.0
     cases = ([(c, KERNEL_FRAMES) for c in KERNEL_CONFIGS]
@@ -908,7 +891,7 @@ def kernel_phase(peaks) -> dict:
         for (feat_type, kw), frame_counts in cases:
             cfg = F.FeatureConfig(feat_type=feat_type, normalize=False, **kw)
             kind = fbank.front_end_kernel(cfg)
-            check(kind != "dft", f"{feat_type} {kw}: phase 3's configs all take the FFT route")
+            check(kind != "plain", f"{feat_type} {kw}: phase 3's configs all take the FFT route")
             for frames in frame_counts:
                 n = samples_for_frames(frames, cfg.win_len, cfg.win_shift, cfg.rate)
                 x = torch.from_numpy((rng.standard_normal((4, n)) * 0.1).astype(np.float32)).cuda()
@@ -954,7 +937,6 @@ def kernel_phase(peaks) -> dict:
         lengths = torch.full((BATCH,), s, dtype=torch.int32, device="cuda")
         cfg_cufft = dataclasses.replace(cfg, dft="fft")
         fft_k = lambda: audio_features(pcm, cfg, lengths)
-        dft_k = lambda: fbank.dft_audio_features(pcm, cfg, lengths)
         plain = lambda: audio_features_reference(pcm, cfg, lengths)
         cufft = lambda: audio_features_reference(pcm, cfg_cufft, lengths)
         check(fbank.front_end_kernel(cfg) == "fft",
@@ -962,13 +944,11 @@ def kernel_phase(peaks) -> dict:
         want = plain()
         what = f"lomgrid batch {BATCH}x{s}"
         err = {"fft": compare(fft_k(), want, what + ", FFT kernel"),
-               "dft": compare(dft_k(), want, what + ", DFT kernel at n_fft 512"),
                "cufft": compare(cufft(), want, what + ", plain dft='fft'")}
         max_err["fft"] = max(max_err["fft"], err["fft"])
-        max_err["dft"] = max(max_err["dft"], err["dft"])
         torch.cuda.synchronize()
-        order = [("plain", plain), ("fft", fft_k), ("dft", dft_k), ("cufft", cufft),
-                 ("fft", fft_k), ("dft", dft_k), ("cufft", cufft), ("plain", plain)]
+        order = [("plain", plain), ("fft", fft_k), ("cufft", cufft),
+                 ("fft", fft_k), ("cufft", cufft), ("plain", plain)]
         runs = [(name, time_ms(fn)) for name, fn in order]
         ms = {name: sum(t for n, t in runs if n == name) / 2 for name in dict(order)}
 
@@ -983,25 +963,22 @@ def kernel_phase(peaks) -> dict:
               "kernel_ms": time_ms(lambda: audio_features(pcm, cfg_v1, lengths))}
         dc = dc_witness(pcm, lengths, cfg_v1, got_v1)
         del got_v1
-        # the mixed-radix route at 400, 480 and 510, with the DFT kernel
-        # forced there
+        # the mixed-radix route at 400, 480 and 510
         mixed = mixed_timing(pcm, lengths, cfg, what, peaks)
         for row in mixed.values():
             max_err["mixed"] = max(max_err["mixed"], row["max_abs_err"]["mixed"])
-            max_err["dft"] = max(max_err["dft"], row["max_abs_err"]["dft"])
     flops, nbytes = front_end_work(BATCH, s, cfg)
     fn_bound, fn_by = bound((flops, nbytes), peaks)
-    algo_ms = {k: kernel_flops(BATCH, s, cfg, k) / peaks[0] * 1e3 for k in ("fft", "dft")}
-    log(f"{what}, mfcc-24 (plain, FFT, DFT at 512, plain dft='fft', FFT, DFT, dft='fft', "
-        f"plain: {', '.join(f'{t:.4f}' for _, t in runs)} ms): FFT kernel {ms['fft']:.4f} ms, "
-        f"DFT kernel {ms['dft']:.4f} ms, against the function's bound {fn_bound:.4f} ms "
-        f"({fn_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB): {fn_bound / ms['fft']:.1%} "
-        f"and {fn_bound / ms['dft']:.1%} of it; their own algorithms' operations alone take "
-        f"{algo_ms['fft']:.4f} and {algo_ms['dft']:.4f} ms; plain {ms['plain']:.4f} ms; plain "
+    algo_ms = kernel_flops(BATCH, s, cfg) / peaks[0] * 1e3
+    log(f"{what}, mfcc-24 (plain, FFT, plain dft='fft', FFT, dft='fft', plain: "
+        f"{', '.join(f'{t:.4f}' for _, t in runs)} ms): FFT kernel {ms['fft']:.4f} ms, "
+        f"against the function's bound {fn_bound:.4f} ms ({fn_by}; {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB): {fn_bound / ms['fft']:.1%} of it; its own algorithm's "
+        f"operations alone take {algo_ms:.4f} ms; plain {ms['plain']:.4f} ms; plain "
         f"dft='fft' (cuFFT + mel/DCT products) {ms['cufft']:.4f} ms; max abs err FFT "
-        f"{err['fft']:.3e}, DFT {err['dft']:.3e}, dft='fft' {err['cufft']:.3e}")
+        f"{err['fft']:.3e}, dft='fft' {err['cufft']:.3e}")
     v1["bound_ms"], v1["bound_by"] = bound(front_end_work(BATCH, s, cfg_v1), peaks)
-    v1["algorithm_ops_ms"] = kernel_flops(BATCH, s, cfg_v1, "fft") / peaks[0] * 1e3
+    v1["algorithm_ops_ms"] = kernel_flops(BATCH, s, cfg_v1) / peaks[0] * 1e3
     log(f"logfbank-60 at that batch: FFT kernel {v1['kernel_ms']:.4f} ms, plain "
         f"{v1['plain_ms']:.4f} ms, bound {v1['bound_ms']:.4f} ms ({v1['bound_by']}; the "
         f"kernel's own operations {v1['algorithm_ops_ms']:.4f} ms)")
@@ -1015,29 +992,30 @@ def kernel_phase(peaks) -> dict:
 MIXED_AT_POWERS = (512, 1024, 2048, 4096)   # power-of-two plans the mixed kernel is timed at
 
 
-def other_fft_kernel(source: str):
+def other_fft_kernel(source: str) -> tuple:
     """Another checkout's ``fbank_fft_kernel.cu``, built with the port's
-    nvcc flags into ``_build/other/``: its ``fbank_fft_features``, typed as
-    this checkout's."""
+    nvcc flags into ``_build/other/``: its ``fbank_fft_features`` as a
+    launch entry, typed and counted as this checkout's."""
     out = build.BUILD_ROOT / "other" / "libfbank_fft_kernel.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build._nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-o",
                            str(out), os.path.abspath(source)], capture_output=True, text=True)
     check(proc.returncode == 0, f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
+    keys, argtypes = fbank._SIGNATURES["fbank_fft_features"]
     fn = ctypes.CDLL(str(out)).fbank_fft_features
-    ours = fbank._fft_kernel()
-    fn.argtypes, fn.restype = ours.argtypes, ours.restype
-    return fn
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn, keys
 
 
-def fft_kernel_with(lib_fn, pcm: torch.Tensor, cfg: F.FeatureConfig, lengths) -> torch.Tensor:
-    """``fbank.fft_audio_features`` launching ``lib_fn`` as its kernel."""
-    saved = fbank._fft_kernel
-    fbank._fft_kernel = lambda: lib_fn
+def fft_kernel_with(entry: tuple, pcm: torch.Tensor, cfg: F.FeatureConfig,
+                    lengths) -> torch.Tensor:
+    """``fbank.fft_audio_features`` launching ``entry`` as its kernel."""
+    saved = fbank._entry
+    fbank._entry = lambda name: entry
     try:
         return fbank.fft_audio_features(pcm, cfg, lengths)
     finally:
-        fbank._fft_kernel = saved
+        fbank._entry = saved
 
 
 def mixed_kernel_forced(pcm: torch.Tensor, cfg: F.FeatureConfig, lengths) -> torch.Tensor:
@@ -1064,7 +1042,7 @@ def k1_against(source: str) -> int:
     """``--k1-against SOURCE``: see the module docstring."""
     dev = device_phase()
     build.build(["fbank_fft_kernel"])
-    ours, other = fbank._fft_kernel(), other_fft_kernel(source)
+    ours, other = fbank._entry("fbank_fft_features"), other_fft_kernel(source)
     rng = np.random.default_rng(0)
     cases = ([(c, KERNEL_FRAMES) for c in KERNEL_CONFIGS]
              + [(c, OTHER_FRAMES) for c in OTHER_CONFIGS])
@@ -1252,21 +1230,19 @@ def main_path_phase() -> dict:
         check(eval_set._resolved_transport == "int16", "PCM16 corpus did not resolve to int16")
         calibrate_bn(extractor, host_batches[len(host_batches) // 2], seed=1)
 
-        zero_fbank_counts()
-        zero_tdnn_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         store = extractor.extract_embeddings(eval_set)
         eer, threshold = extractor.evaluate(trial_path, store)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = fbank_counts()
-        launches = {"fused_fbank": counts["fft"], "fused_fbank_dft": counts["dft"],
-                    "tdnn_eval": tdnn_counts()["tdnn_eval"]}
+        counts, tdnn = launches_since(before, FBANK), launches_since(before, TDNN)
+        launches = {"fused_fbank": counts["fft"], "tdnn_eval": tdnn["tdnn_eval"]}
 
-    check(counts == {"fft": len(host_batches), "dft": 0, "mixed": 0},
+    check(counts == {"fft": len(host_batches), "mixed": 0},
           f"front-end launches {counts} for {len(host_batches)} batches")
-    check(tdnn_counts() == tdnn_want(evals=len(host_batches)),
-          f"T launches {tdnn_counts()} for {len(host_batches)} extraction batches")
+    check(tdnn == tdnn_want(evals=len(host_batches)),
+          f"T launches {tdnn} for {len(host_batches)} extraction batches")
     check(len(store) == len(names), f"{len(store)} embeddings for {len(names)} utterances")
     emb = store.matrix(names)
     check(emb.device.type == "cuda", f"embeddings live on {emb.device}, not cuda")
@@ -1335,16 +1311,15 @@ def sweep_phase(extractor: AudioExtractor) -> dict:
             embs.append(extractor.embed(x, feat_lengths[:n], sample_lengths[:n]))
         return cosine_scores(torch.cat(embs), pairs, normalize=False)
 
-    zero_fbank_counts()
-    zero_tdnn_counts()
+    before = launch_counts()
     scores = sweep()
-    launches = fbank_counts()
+    launches, tdnn = launches_since(before, FBANK), launches_since(before, TDNN)
     n_batches = -(-LOMGRID_UTTS // BATCH)
-    check(launches == {"fft": n_batches, "dft": 0, "mixed": 0},
+    check(launches == {"fft": n_batches, "mixed": 0},
           f"front-end launches {launches} for a sweep of {n_batches} batches")
-    check(tdnn_counts() == tdnn_want(evals=n_batches),
-          f"T launches {tdnn_counts()} for a sweep of {n_batches} batches")
-    launches = {**launches, "tdnn_eval": tdnn_counts()["tdnn_eval"]}
+    check(tdnn == tdnn_want(evals=n_batches),
+          f"T launches {tdnn} for a sweep of {n_batches} batches")
+    launches = {**launches, "tdnn_eval": tdnn["tdnn_eval"]}
     check(bool(torch.isfinite(scores).all()), "non-finite sweep scores")
     sweep_ms = sorted(time_ms(sweep, iters=1, warmup=0) for _ in range(3))
     ms = sweep_ms[1]
@@ -1413,13 +1388,14 @@ def front_end_step_check(trainer: AudioTrainer, pcm: torch.Tensor, labels: torch
     nudged = pcm * (1.0 + NUDGE * torch.randn(pcm.shape, generator=gen, device=dev))
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
-        zero_fbank_counts()
+        before = launch_counts()
         loss_k, grads_k = step(pcm)
-        launches = fbank_counts()
+        launches = launches_since(before, FBANK)
         with plain_front_end():
             loss_p, grads_p = step(pcm)
             loss_n, grads_n = step(nudged)
-        check(fbank_counts() == launches, f"{what}: the plain steps launched a kernel")
+        check(launches_since(before, FBANK) == launches,
+              f"{what}: the plain steps launched a kernel")
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     d_kp, d_np = grad_distance(grads_k, grads_p), grad_distance(grads_n, grads_p)
     log(f"{what}: loss {loss_k:.8f} vs plain {loss_p:.8f} ({loss_rel:.2e} relative, bar "
@@ -1451,11 +1427,11 @@ def mixed_entry_phase(smi: str) -> dict:
                                     **eval_set_kwargs(extractor.feat_cfg, cfg.test))
         host_batches = list(eval_set.batches())
         calibrate_bn(extractor, host_batches[0], seed=1)
-        zero_fbank_counts()
+        before = launch_counts()
         store = extractor.extract_embeddings(eval_set)
         torch.cuda.synchronize()
-        counts = fbank_counts()
-    check(counts == {"fft": 0, "mixed": len(host_batches), "dft": 0},
+        counts = launches_since(before, FBANK)
+    check(counts == {"fft": 0, "mixed": len(host_batches)},
           f"n_fft {ENTRY_N_FFT}: front-end launches {counts} for {len(host_batches)} batches")
     emb = store.matrix(names)
     check(len(store) == len(names) and bool(torch.isfinite(emb).all()),
@@ -1492,11 +1468,10 @@ def mixed_entry_phase(smi: str) -> dict:
             trainer, pcm16[0].float() / 32768.0, labels[0],
             f"audio f32 step at n_fft {ENTRY_N_FFT}, bs {BATCH} x {GROUP_FRAMES} [{smi}]")
         del trainer
-    check(step["launches"] == {"fft": 0, "mixed": 1, "dft": 0},
+    check(step["launches"] == {"fft": 0, "mixed": 1},
           f"n_fft {ENTRY_N_FFT}: a train step launched {step['launches']}")
     release()
     return {"launches": {"extraction": counts["mixed"], "train_step": step["launches"]["mixed"]},
-            "launches_dft": counts["dft"] + step["launches"]["dft"],
             "batches": len(host_batches), "emb_err": emb_err, "step": step}
 
 
@@ -1526,10 +1501,10 @@ BF16_HEAD_ATOL = 2e-6   # the cosine logits vs float64
 BF16_FAULTS = ("bn_stats_bf16", "pool_bf16", "head_bf16", "head_tf32")
 STEP_FRAMES = (200, 300, 400)     # the timed crop lengths
 # device kernels of an audio train step by kind, first match wins: the FFT
-# and DFT front-end kernels, torch's SGD (foreach kernels), cuDNN/cuBLAS
+# front-end kernel, torch's SGD (foreach kernels), cuDNN/cuBLAS
 # (the convolutions and the FC head), the rest of PyTorch's own
 AUDIO_KINDS = [
-    ("K1 (fbank_fft_kernel.cu)", re.compile(r"fbank_(fft|features)_kernel")),
+    ("K1 (fbank_fft_kernel.cu)", re.compile(r"fbank_fft_kernel")),
     ("T (tdnn_bn_act_kernel.cu)", re.compile(r"::tdnn_\w+_kernel\b")),
     ("optimizer (SGD)", re.compile(r"multi_tensor_apply|sgd", re.I)),
     ("cuDNN/cuBLAS", re.compile(r"cudnn|xmma|cublas|gemm|cutlass|wgrad|dgrad|fprop|conv", re.I)),
@@ -1780,17 +1755,18 @@ def audio_step_phase(trainer, smi: str, peaks, faults=BF16_FAULTS,
     nudged = pcm * (1.0 + NUDGE * torch.randn(pcm.shape, generator=gen, device=dev))
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
-        zero_fbank_counts()
-        zero_tdnn_counts()
+        before = launch_counts()
         loss_k, grads_k = step(pcm, None)
-        check(fbank_counts() == {"fft": 1, "dft": 0, "mixed": 0},
-              f"a kernel step launched {fbank_counts()}: one FFT-kernel launch expected")
-        check(tdnn_counts() == tdnn_want(steps=1, blocks=blocks), f"a kernel step launched T "
-              f"{tdnn_counts()}, expected {tdnn_want(steps=1, blocks=blocks)}")
+        fb, tdnn = launches_since(before, FBANK), launches_since(before, TDNN)
+        check(fb == {"fft": 1, "mixed": 0},
+              f"a kernel step launched {fb}: one FFT-kernel launch expected")
+        check(tdnn == tdnn_want(steps=1, blocks=blocks), f"a kernel step launched T "
+              f"{tdnn}, expected {tdnn_want(steps=1, blocks=blocks)}")
         with plain_front_end():
             loss_p, grads_p = step(pcm, None)
             loss_n, grads_n = step(nudged, None)
-        check(fbank_counts() == {"fft": 1, "dft": 0, "mixed": 0}, "the plain steps launched a kernel")
+        check(launches_since(before, FBANK) == {"fft": 1, "mixed": 0},
+              "the plain steps launched a kernel")
         audit: dict = {}
         with bf16_audit(trainer.model, trainer.criterion, audit):
             loss_b, grads_b = step(pcm, torch.bfloat16)
@@ -1967,15 +1943,14 @@ def audio_train_phase(smi: str, peaks) -> dict:
         manifest, trials = write_train_corpus(root)
         corpus_s = time.perf_counter() - t0
         cfg_path = audio_train_config(root, manifest, trials)
-        zero_fbank_counts()
-        zero_tdnn_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         trainer, out = train_audio_cli.main(["--config", cfg_path, "--mode", "train",
                                              "--exp-root", os.path.join(root, "exp"),
                                              "--log-time", "run"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {**fbank_counts(), **tdnn_counts()}
+        counts = launches_since(before, FBANK + TDNN)
         eval_set = EvalUtteranceSet(utterances_from_trials(trials, root),
                                     **eval_set_kwargs(trainer.feat_cfg, trainer.test_opts))
         n_eval = sum(1 for _ in eval_set.batches())
@@ -1987,7 +1962,7 @@ def audio_train_phase(smi: str, peaks) -> dict:
               and trainer.pipeline._resolve_transport() == "int16",
               "the trainer did not take conf/audio_config.yaml's recipe")
         check(steps == TRAIN_EPOCHS * bpe, f"{steps} steps for {TRAIN_EPOCHS} x {bpe} batches")
-        check(counts == {"fft": steps + n_eval, "dft": 0, "mixed": 0,
+        check(counts == {"fft": steps + n_eval, "mixed": 0,
                          **tdnn_want(steps=steps, evals=n_eval)},
               f"front-end and T launches {counts} for {steps} train steps and {n_eval} "
               "extraction batches")
@@ -2387,33 +2362,33 @@ def wgrad_route_check() -> dict:
         conv = trainer.model.frontend3D[0]
         x = torch.randn((16, 29, 88, 88, 1), device="cuda", generator=gen)
         dy = torch.randn((16, 29, 44, 44, 64), device="cuda", generator=gen)
+        wgrad = lambda before: launches_since(before, ("conv3d_wgrad",))["conv3d_wgrad"]
         with fp32_math():
-            conv3d_wgrad.conv3d_wgrad.launches = 0
+            before = launch_counts()
             routed = frontend_conv(conv, x)
             plain = conv_nhwc(conv, x)
             check(bit_equal(routed, plain), "the routed frontend forward differs from conv_nhwc's")
             (dw_kernel,) = torch.autograd.grad(routed, conv.weight, dy)
             (dw_cudnn,) = torch.autograd.grad(plain, conv.weight, dy)
-            check(conv3d_wgrad.conv3d_wgrad.launches == 1, "the routed backward did not launch "
-                  "the kernel once")
+            check(wgrad(before) == 1, "the routed backward did not launch the kernel once")
         grad_err = float((dw_kernel - dw_cudnn).abs().max() / dw_cudnn.abs().max())
         check(grad_err <= WGRAD_RTOL, f"the routed weight gradient is {grad_err:.2e} from cuDNN's")
         draws = torch.Generator().manual_seed(0)
-        conv3d_wgrad.conv3d_wgrad.launches = 0
+        before = launch_counts()
         losses = [float(trainer.train_step(clips, lengths, labels, draws)["loss"])
                   for _ in range(3)]
-        launches["f32_steps"] = conv3d_wgrad.conv3d_wgrad.launches
+        launches["f32_steps"] = wgrad(before)
         check(launches["f32_steps"] == 3, f"3 f32 video steps launched the kernel "
               f"{launches['f32_steps']} times")
         check(all(math.isfinite(v) for v in losses), f"non-finite f32 losses {losses}")
-        conv3d_wgrad.conv3d_wgrad.launches = 0
+        before = launch_counts()
         trainer.frame_features(clips, lengths)
-        launches["f32_extraction"] = conv3d_wgrad.conv3d_wgrad.launches
+        launches["f32_extraction"] = wgrad(before)
         del trainer
         bf16 = VideoTrainer(video_config(), num_classes=VIDEO_SPEAKERS, exp_root=root,
                             compute_dtype="bf16")
         bf16.train_step(clips, lengths, labels, draws)
-        launches["bf16_step"] = conv3d_wgrad.conv3d_wgrad.launches
+        launches["bf16_step"] = wgrad(before)
         del bf16
     check(launches["f32_extraction"] == launches["bf16_step"] == 0,
           f"extraction or a bf16 step launched the kernel: {launches}")
@@ -2677,12 +2652,6 @@ def tdnn_replay_equal() -> bool:
     return all(equal)
 
 
-def tdnn_counts() -> dict:
-    return {"tdnn_fwd": tdnn_bn_act.tdnn_bn_act_forward.launches,
-            "tdnn_bwd": tdnn_bn_act.tdnn_bn_act_backward.launches,
-            "tdnn_eval": tdnn_bn_act.tdnn_bn_act_eval.launches}
-
-
 def tdnn_want(steps: int = 0, probes: int = 0, evals: int = 0,
               blocks: int = TDNN_BLOCKS) -> dict:
     """T's launches for ``steps`` train steps, ``probes`` train-mode
@@ -2691,12 +2660,6 @@ def tdnn_want(steps: int = 0, probes: int = 0, evals: int = 0,
     eval forward."""
     return {"tdnn_fwd": 3 * blocks * (steps + probes), "tdnn_bwd": 4 * blocks * steps,
             "tdnn_eval": blocks * evals}
-
-
-def zero_tdnn_counts() -> None:
-    for fn in (tdnn_bn_act.tdnn_bn_act_forward, tdnn_bn_act.tdnn_bn_act_backward,
-               tdnn_bn_act.tdnn_bn_act_eval):
-        fn.launches = 0
 
 
 def tdnn_plain_forward(x, conv_bias, scale, bias, eps=TDNN_EPS, slope=TDNN_SLOPE):
@@ -2764,21 +2727,21 @@ def tdnn_route_check(trainer: AudioTrainer, pcm: torch.Tensor, labels: torch.Ten
     for tag, ctx in (("fused", contextlib.nullcontext), ("eager", eager_tdnn_blocks)):
         hooks = [blk.register_forward_hook(record(tag)) for blk in trainer.model.tdnn]
         with ctx():
-            zero_tdnn_counts()
+            before = launch_counts()
             trainer.train_step(pcm, labels, trainer.init_margin)
             torch.cuda.synchronize()
-            launches[f"{tag}_train_step"] = tdnn_counts()
-            zero_tdnn_counts()
+            launches[f"{tag}_train_step"] = launches_since(before, TDNN)
+            before = launch_counts()
             extractor.embed(pcm, feat_lengths, sample_lengths)
             torch.cuda.synchronize()
-            launches[f"{tag}_extraction_batch"] = tdnn_counts()
+            launches[f"{tag}_extraction_batch"] = launches_since(before, TDNN)
         for h in hooks:
             h.remove()
     want = {"fused_train_step": {"tdnn_fwd": 3 * TDNN_BLOCKS, "tdnn_bwd": 4 * TDNN_BLOCKS,
                                  "tdnn_eval": 0},
             "fused_extraction_batch": {"tdnn_fwd": 0, "tdnn_bwd": 0, "tdnn_eval": TDNN_BLOCKS},
-            "eager_train_step": dict.fromkeys(tdnn_counts(), 0),
-            "eager_extraction_batch": dict.fromkeys(tdnn_counts(), 0)}
+            "eager_train_step": dict.fromkeys(TDNN, 0),
+            "eager_extraction_batch": dict.fromkeys(TDNN, 0)}
     check(launches == want, f"T launches {launches}, expected {want}")
     check(strides["fused"] == strides["eager"], f"the fused blocks hand on strides "
           f"{strides['fused']}, the eager blocks {strides['eager']}")
@@ -2961,19 +2924,6 @@ def full_clip_batch(clips) -> dict:
     return batch
 
 
-def zero_video_counts() -> None:
-    for wrapper in (bn_prelu.bn_prelu_forward, bn_prelu.bn_prelu_backward,
-                    maxpool.maxpool_forward, maxpool.maxpool_backward):
-        wrapper.launches = 0
-
-
-def video_counts() -> dict:
-    return {"bn_prelu_fwd": bn_prelu.bn_prelu_forward.launches,
-            "bn_prelu_bwd": bn_prelu.bn_prelu_backward.launches,
-            "maxpool_fwd": maxpool.maxpool_forward.launches,
-            "maxpool_bwd": maxpool.maxpool_backward.launches}
-
-
 @contextlib.contextmanager
 def recording_bn_calls(record: list):
     """Append ``(shape, dtype, mean, var)`` of every call of the fused
@@ -3019,12 +2969,12 @@ def video_main_path_phase() -> dict:
 
         calls: list = []
         with recording_bn_calls(calls):
-            zero_video_counts()
+            before = launch_counts()
             t0 = time.perf_counter()
             losses = trainer.train(batches, epochs=1)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = video_counts()
+            launches = launches_since(before, VIDEO)
 
         check(len(losses) == len(shapes) == trainer.step, f"{len(losses)} losses for "
               f"{len(shapes)} batches, step {trainer.step}")
@@ -3192,13 +3142,14 @@ def video_step_phase(trainer: VideoTrainer, batch: dict, bn: dict) -> dict:
 
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
-        zero_video_counts()
+        before = launch_counts()
         loss_k, grads_k, stats_k = step(x)
-        check(video_counts() == {"bn_prelu_fwd": 27, "bn_prelu_bwd": 27, "maxpool_fwd": 1,
-                                 "maxpool_bwd": 1},
-              f"kernel step launched {video_counts()}: 27 BN+PReLU and 1 max-pool kernel "
+        video = launches_since(before, VIDEO)
+        check(video == {"bn_prelu_fwd": 27, "bn_prelu_bwd": 27, "maxpool_fwd": 1,
+                        "maxpool_bwd": 1},
+              f"kernel step launched {video}: 27 BN+PReLU and 1 max-pool kernel "
               "expected per pass")
-        zero_video_counts()
+        before = launch_counts()
         # every other step of this phase pools through the plain version, so
         # that its bars measure K3 and K4 alone; the pool's forward is exact
         # and its backward is held in phase 9
@@ -3206,7 +3157,8 @@ def video_step_phase(trainer: VideoTrainer, batch: dict, bn: dict) -> dict:
             with plain_bn_prelu():
                 loss_p, grads_p, stats_p = step(x)
                 loss_n, grads_n, stats_n = step(x * (1.0 + NUDGE))
-            check(not any(video_counts().values()), "the plain steps launched the kernels")
+            check(not any(launches_since(before, VIDEO).values()),
+                  "the plain steps launched the kernels")
             # K4 alone: both runs of this comparison see bit-equal activations
             with plain_bn_prelu(backward=None):
                 loss_h, grads_h, _ = step(x)
@@ -3512,9 +3464,7 @@ def microbatch_run(root: str, items: dict, audio_ckpt: str, device=None) -> dict
                   "train": {"loss": "LMCL"}, "test": {"batch_size": 64}})
     v = SpeakerVerifier(cfg, checkpoint=audio_ckpt, device=device)
     passes = [0]
-    zero_fbank_counts()
-    zero_tdnn_counts()
-    maxpool.maxpool_forward.launches = 0
+    before = launch_counts()
     with counting_calls(v.extractor, "embed", passes):
         v.set_cohort_files([its[3][0] for its in items.values()], top_k=20)
         eer, thr = v.calibrate(os.path.join(root, "trials.txt"), os.path.join(root, "audio"))
@@ -3548,12 +3498,11 @@ def microbatch_run(root: str, items: dict, audio_ckpt: str, device=None) -> dict
             counts = {"requests": mb.n_requests, "batches": mb.n_batches, "slots": mb.n_slots,
                       "pad_slots": mb.n_pad_slots, "mean_batch_slots": mb.mean_batch_slots}
         check(not mb._thread.is_alive(), "the collector thread outlived close()")
-    fb = fbank_counts()
-    check(fb == {"fft": passes[0], "dft": 0, "mixed": 0}
-          and maxpool.maxpool_forward.launches == 0,
+    fb, tdnn = launches_since(before, FBANK + ("maxpool_fwd",)), launches_since(before, TDNN)
+    check(fb == {"fft": passes[0], "mixed": 0, "maxpool_fwd": 0},
           f"front-end launches {fb} for {passes[0]} extraction passes")
-    check(tdnn_counts() == tdnn_want(evals=passes[0]),
-          f"T launches {tdnn_counts()} for {passes[0]} extraction passes")
+    check(tdnn == tdnn_want(evals=passes[0]),
+          f"T launches {tdnn} for {passes[0]} extraction passes")
     check(counts["batches"] < counts["requests"], f"no batch formed: {counts}")
     score_gap = max(abs(b.score - d.score) for b, d in zip(batched, direct))
     check(all(b.accept == d.accept for b, d in zip(batched, direct)),
@@ -3562,7 +3511,7 @@ def microbatch_run(root: str, items: dict, audio_ckpt: str, device=None) -> dict
     check(emb_gap <= BATCHED_TOL, f"an embedding served in a batch is {emb_gap:.3e} from the "
           f"same request served alone, bar {BATCHED_TOL}")
     check(dev_gap <= 1e-4, f"device scoring {dev_gap:.3e} from host scoring")
-    return {**counts, "launches": fb["fft"], "launches_dft": fb["dft"], "eer": eer, "threshold": thr,
+    return {**counts, "launches": fb["fft"], "eer": eer, "threshold": thr,
             "alone_vs_batched": emb_gap, "score_gap": score_gap,
             "accepts": sum(d.accept for d in direct),
             "verify_host_ms": median(lat["host"]), "verify_device_ms": median(lat["device"]),
@@ -3577,15 +3526,14 @@ def av_serving_phase(device=None) -> dict:
         items = write_av_corpus(root)
         resume = prepare_av_checkpoints(root, items, device)
 
-        zero_fbank_counts()
-        maxpool.maxpool_forward.launches = 0
+        before = launch_counts()
         concat = av_verifier_run(fusion_config(root, resume, False), root, items, True, device)
         head = av_verifier_run(fusion_config(root, resume, True), root, items, False, device)
-        fb = fbank_counts()
-        launches = {"fused_fbank": fb["fft"], "fused_fbank_dft": fb["dft"],
-                    "maxpool_fwd": maxpool.maxpool_forward.launches}
+        fb = launches_since(before, FBANK)
+        launches = {"fused_fbank": fb["fft"],
+                    "maxpool_fwd": launches_since(before, ("maxpool_fwd",))["maxpool_fwd"]}
         chunks = concat["chunks"] + head["chunks"]
-        check(fb == {"fft": chunks, "dft": 0, "mixed": 0} and launches["maxpool_fwd"] == chunks > 0,
+        check(fb == {"fft": chunks, "mixed": 0} and launches["maxpool_fwd"] == chunks > 0,
               f"{launches} for {chunks} extraction chunks")
         check(concat["dim"] == 1024 and head["dim"] == 3 * 512,
               f"fused dims {concat['dim']} (concat) and {head['dim']} (head)")
@@ -3603,9 +3551,9 @@ def av_serving_phase(device=None) -> dict:
         kw = dict(max_clips=2, clip_frames=32, return_parts=True)
         (k_audio, k_video), chunk_ms = timed(lambda: embed_av_items(v.trainer, two, **kw))
         with plain_front_end(), plain_maxpool():
-            before = fbank_counts(), maxpool.maxpool_forward.launches
+            before = launch_counts()
             p_audio, p_video = embed_av_items(v.trainer, two, **kw)
-            check(before == (fbank_counts(), maxpool.maxpool_forward.launches),
+            check(not any(launches_since(before, FBANK + ("maxpool_fwd",)).values()),
                   "the plain path launched a kernel")
         part_err = {"audio": 0.0, "video": 0.0}
         for name, _, _ in two:
@@ -3689,7 +3637,7 @@ FUSION_STEP_LOSS_RTOL = 1e-5      # a K1 + P step vs a plain step, f32
 FUSION_AUDIT_BARS = {"audio_pool_err": 1e-4, "video_mean_err": 1e-4, "criterion_err": 1e-5}
 FUSION_FAULTS = ("audio_pool_bf16", "video_mean_bf16", "criterion_bf16")
 FUSION_KINDS = [
-    ("K1 (fbank_fft_kernel.cu)", re.compile(r"fbank_(fft|features)_kernel")),
+    ("K1 (fbank_fft_kernel.cu)", re.compile(r"fbank_fft_kernel")),
     ("max-pool (maxpool_kernel.cu)", re.compile(r"::maxpool_(fwd|bwd)_kernel\b")),
     ("optimizer (SGD)", re.compile(r"multi_tensor_apply|sgd", re.I)),
     ("cuDNN/cuBLAS", re.compile(r"cudnn|xmma|cublas|gemm|cutlass|wgrad|dgrad|fprop|conv", re.I)),
@@ -3897,14 +3845,12 @@ def fusion_step_phase(trainer, root: str, smi: str, peaks) -> dict:
               *b300[1:]]
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
-        zero_fbank_counts()
-        zero_video_counts()
-        zero_tdnn_counts()
+        before = launch_counts()
         loss_k, grads_k = step(b300, None)
-        counts = {**fbank_counts(), **video_counts()}
-        check(tdnn_counts() == tdnn_want(evals=1), f"a fusion step launched T "
-              f"{tdnn_counts()}: one eval apply a block of the frozen E-TDNN expected")
-        check(counts == {"fft": 1, "dft": 0, "mixed": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
+        counts, tdnn = launches_since(before, FBANK + VIDEO), launches_since(before, TDNN)
+        check(tdnn == tdnn_want(evals=1), f"a fusion step launched T "
+              f"{tdnn}: one eval apply a block of the frozen E-TDNN expected")
+        check(counts == {"fft": 1, "mixed": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
                          "maxpool_fwd": 1, "maxpool_bwd": 0},
               f"a fusion step launched {counts}: one FFT-kernel and one pool-forward launch "
               "expected")
@@ -3912,7 +3858,8 @@ def fusion_step_phase(trainer, root: str, smi: str, peaks) -> dict:
             loss_p, grads_p = step(b300, None)
             with nudged_frames(torch.Generator(device=dev).manual_seed(4)):
                 loss_n, grads_n = step(nudged, None)
-        check({**fbank_counts(), **video_counts()} == counts, "the plain steps launched a kernel")
+        check(launches_since(before, FBANK + VIDEO) == counts,
+              "the plain steps launched a kernel")
         audit: dict = {}
         with fusion_bf16_audit(trainer, audit):
             loss_b, _ = step(b300, torch.bfloat16)
@@ -4052,9 +3999,7 @@ def fusion_train_phase(smi: str, peaks, device=None) -> dict:
             return train(self, *args, **kw)
 
         chunks = [0]
-        zero_fbank_counts()
-        zero_video_counts()
-        zero_tdnn_counts()
+        before = launch_counts()
         FusionTrainer.train = recording_train
         try:
             with counting_calls(FusionTrainer, "extract_pair_embedding", chunks):
@@ -4067,7 +4012,7 @@ def fusion_train_phase(smi: str, peaks, device=None) -> dict:
                 wall = time.perf_counter() - t0
         finally:
             FusionTrainer.train = train
-        counts = {**fbank_counts(), **video_counts(), **tdnn_counts()}
+        counts = launches_since(before, FBANK + VIDEO + TDNN)
         bpe = AVTrainPipeline(trainer.manifest, {}, FUSION_BATCH).batches_per_epoch()
         steps, losses = trainer.step, out["losses"]
         group = trainer.optimizer.param_groups[0]
@@ -4079,7 +4024,7 @@ def fusion_train_phase(smi: str, peaks, device=None) -> dict:
         check(steps == FUSION_EPOCHS * bpe and bpe >= 4 and len(losses) == steps
               and all(math.isfinite(v) for v in losses),
               f"{steps} steps for {FUSION_EPOCHS} x {bpe} batches, losses {losses}")
-        want = {"fft": steps + chunks[0], "dft": 0, "mixed": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
+        want = {"fft": steps + chunks[0], "mixed": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
                 "maxpool_fwd": steps + chunks[0], "maxpool_bwd": 0,
                 **tdnn_want(evals=steps + chunks[0])}
         check(counts == want, f"launches {counts} for {steps} train steps and {chunks[0]} "
@@ -4239,14 +4184,14 @@ def video_bf16_phase(bn: dict, smi: str, device=None) -> dict:
         cfg_path = os.path.join(REPO, "conf", "video_config.json")
         calls: list = []
         with recording_bn_calls(calls):
-            zero_video_counts()
+            before = launch_counts()
             t0 = time.perf_counter()
             trainer, out = train_video_cli.main(
                 ["--config-path", cfg_path, "--data-dir", data, "--compute-dtype", "bf16",
                  "--batch-size", str(VIDEO_BATCH), "--epochs", "1", "--exp-root",
                  os.path.join(root, "exp"), "--log-time", "bf16"] + dev_args)
             wall = time.perf_counter() - t0
-            launches = video_counts()
+            launches = launches_since(before, VIDEO)
         losses, steps = out["losses"], trainer.step
         check(trainer.compute_dtype is torch.bfloat16 and steps >= 2 and len(losses) == steps
               and all(math.isfinite(v) for v in losses), f"bf16 video epoch: {steps} steps, "
@@ -4262,12 +4207,12 @@ def video_bf16_phase(bn: dict, smi: str, device=None) -> dict:
 
         net1 = os.path.join(trainer.exp_dir, "net_1")
         emb_root = os.path.join(root, "embedding")
-        zero_video_counts()
+        before = launch_counts()
         _, ext = train_video_cli.main(
             ["--config-path", cfg_path, "--data-dir", data, "--extract-feats",
              "--batch-size", str(VIDEO_BATCH), "--model-path", net1,
              "--mouth-embedding-out-path", emb_root] + dev_args)
-        extract_launches = video_counts()
+        extract_launches = launches_since(before, VIDEO)
         written = {}
         for d, _, files in os.walk(emb_root):
             for f in files:
@@ -4425,12 +4370,6 @@ def loss_rel(got: list, want: list) -> float:
     return max(abs(g - w) / abs(w) for g, w in zip(got, want))
 
 
-def zero_kernel_counts() -> None:
-    zero_fbank_counts()
-    zero_video_counts()
-    conv3d_wgrad.conv3d_wgrad.launches = 0
-
-
 @contextlib.contextmanager
 def frozen_at_capture(name: str):
     """Plant a fault: the per-step scalar ``name`` keeps, in every replay,
@@ -4513,14 +4452,14 @@ def grouped_audio_run(cfg: dict, root: str, tag: str, grouped: bool, nudged: boo
         trainer.steps_per_dispatch = 1
     if nudged:
         trainer.pipeline = NudgedAudio(trainer.pipeline)
-    zero_kernel_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     losses = trainer.train()
     if trainer.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     runner = trainer.grouped
-    run = {"losses": losses, "wall_s": wall, "launches": fbank_counts(),
+    run = {"losses": losses, "wall_s": wall, "launches": launches_since(before, FBANK),
            "state": floating_state(trainer.model, trainer.criterion),
            "warmups": runner.warmup_steps, "graphs": len(runner.graphs),
            "replays": sum(e.replays for e in runner.graphs.values()),
@@ -4593,7 +4532,7 @@ def grouped_audio_phase(smi: str, root: str, device=None, parts: dict | None = N
     check(all(f["caught_by"] for f in faults.values()),
           f"planted grouped faults passed every bar: {faults}")
     grouped_launch_check(grouped, steps, "grouped f32 audio",
-                         lambda n: {"fft": n, "dft": 0, "mixed": 0})
+                         lambda n: {"fft": n, "mixed": 0})
     with timed_part(parts, "reference_pth"):
         interop = reference_pth_check(grouped.pop("trainer"), root, smi, device)
         release()
@@ -4612,7 +4551,7 @@ def grouped_audio_phase(smi: str, root: str, device=None, parts: dict | None = N
         f"run's (bar {BF16_LOSS_BAR}); launches {bf16_grouped['launches']} [{smi}]")
     check(bf16_rel <= BF16_LOSS_BAR, f"grouped bf16 audio losses {bf16_rel:.3e} from single")
     grouped_launch_check(bf16_grouped, bf16_single["steps"], "grouped bf16 audio",
-                         lambda n: {"fft": n, "dft": 0, "mixed": 0})
+                         lambda n: {"fft": n, "mixed": 0})
     timing = grouped_audio_timing(bf16_grouped.pop("trainer"), smi, parts)
     release()
     return {"steps": steps, "loss_rel": rel, "distance": d_group, "nudge_distance": d_nudge,
@@ -4768,7 +4707,7 @@ def grouped_video_run(data: str, root: str, tag: str, dtype: str, k: int,
                       device=None, keep: bool = False) -> dict:
     dev_args = ["--device", device] if device else []
     torch.manual_seed(0)   # the dropout masks of every run start from one state
-    zero_kernel_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     trainer, out = train_video_cli.main(
         ["--config-path", os.path.join(REPO, "conf", "video_config.json"), "--data-dir", data,
@@ -4777,8 +4716,8 @@ def grouped_video_run(data: str, root: str, tag: str, dtype: str, k: int,
          os.path.join(root, "exp"), "--log-time", tag] + dev_args)
     _sync()
     wall = time.perf_counter() - t0
-    run = {"losses": out["losses"], "wall_s": wall, "launches": video_counts(),
-           "launches_wgrad": conv3d_wgrad.conv3d_wgrad.launches,
+    run = {"losses": out["losses"], "wall_s": wall, "launches": launches_since(before, VIDEO),
+           "launches_wgrad": launches_since(before, ("conv3d_wgrad",))["conv3d_wgrad"],
            "state": floating_state(trainer.model), "steps": trainer.step,
            "warmups": trainer.grouped.warmup_steps, "graphs": len(trainer.grouped.graphs),
            "replays": sum(e.replays for e in trainer.grouped.graphs.values())}
@@ -5127,7 +5066,7 @@ def resnet_phase(root: str, manifest: str, trials: str, smi: str, peaks,
         path = os.path.join(root, f"resnet_{dtype}.json")
         with open(path, "w") as fh:
             json.dump(cfg, fh)
-        zero_fbank_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         trainer, out = train_audio_cli.main(["--config", path, "--mode", "train",
                                              "--exp-root", os.path.join(root, "exp"),
@@ -5135,14 +5074,14 @@ def resnet_phase(root: str, manifest: str, trials: str, smi: str, peaks,
         if trainer.device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = fbank_counts()
+        counts = launches_since(before, FBANK)
         n_eval = sum(1 for _ in EvalUtteranceSet(
             utterances_from_trials(trials, root),
             **eval_set_kwargs(trainer.feat_cfg, trainer.test_opts)).batches())
         losses = out["losses"]
         check(type(trainer.model).__name__ == "AudioResNet"
               and trainer.model.fc2.out_features == 256, "the resnet arch was not built")
-        check(counts == {"fft": trainer.step + n_eval, "dft": 0, "mixed": 0}, f"resnet {dtype}: front-end "
+        check(counts == {"fft": trainer.step + n_eval, "mixed": 0}, f"resnet {dtype}: front-end "
               f"launches {counts} for {trainer.step} steps and {n_eval} extraction batches")
         check(len(losses) == trainer.step and all(math.isfinite(v) for v in losses),
               f"resnet {dtype} losses {losses}")
@@ -5179,13 +5118,13 @@ def attentive_phase(root: str, smi: str, device=None) -> dict:
         calibrate_bn(ext, batch, seed=1)
         args = [torch.from_numpy(batch[k]).to(ext.device)
                 for k in ("pcm", "feat_lengths", "sample_lengths")]
-        zero_fbank_counts()
+        before = launch_counts()
         e_k = ext.embed(*args)
-        launches = fbank_counts()
+        launches = launches_since(before, FBANK)
         with plain_front_end():
             e_p = ext.embed(*args)
         err = float((e_k - e_p).abs().max())
-        check(launches == {"fft": 1, "dft": 0, "mixed": 0}, f"{pooling}: an extraction batch launched "
+        check(launches == {"fft": 1, "mixed": 0}, f"{pooling}: an extraction batch launched "
               f"{launches}")
         check(bool(torch.isfinite(e_k).all()) and err <= EMB_TOL, f"{pooling}: kernel-path "
               f"embeddings {err:.3e} from the plain path, bar {EMB_TOL}")
@@ -5277,19 +5216,20 @@ def shufflenet_step_check(trainer: VideoTrainer, batch: dict, smi: str) -> dict:
 
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
-        zero_video_counts()
+        before = launch_counts()
         loss_k, grads_k, stats_k = step(x)
-        launches = video_counts()
+        launches = launches_since(before, VIDEO)
         check(launches == {"bn_prelu_fwd": 3, "bn_prelu_bwd": 3, "maxpool_fwd": 1,
                            "maxpool_bwd": 1}, f"a ShuffleNet kernel step launched {launches}: "
               "3 + 3 BN+PReLU (one site) and 1 + 1 max-pool expected")
         check(len(stats_k) == 1 and stats_k[0][0] == (VIDEO_BATCH, 29, 44, 44, 24),
               f"fused sites {[s[0] for s in stats_k]}: the 24-channel frontend alone expected")
-        zero_video_counts()
+        before = launch_counts()
         with plain_maxpool(), plain_bn_prelu():
             loss_p, grads_p, stats_p = step(x)
             loss_n, grads_n, stats_n = step(x * (1.0 + NUDGE))
-        check(not any(video_counts().values()), "the plain steps launched the kernels")
+        check(not any(launches_since(before, VIDEO).values()),
+              "the plain steps launched the kernels")
         seen: set = set()
         with trunk_dtypes(trainer.model.trunk, seen):
             loss_b, _, _ = step(x, torch.bfloat16)
@@ -5383,14 +5323,14 @@ def shufflenet_phase(root: str, smi: str, peaks, device=None) -> dict:
     for dtype in ("float32", "bf16"):
         calls: list = []
         with recording_bn_calls(calls):
-            zero_video_counts()
+            before = launch_counts()
             t0 = time.perf_counter()
             trainer, out = train_video_cli.main(
                 ["--config-path", cfg_path, "--data-dir", data, "--compute-dtype", dtype,
                  "--batch-size", str(VIDEO_BATCH), "--epochs", "1", "--exp-root",
                  os.path.join(root, "exp"), "--log-time", f"shufflenet_{dtype}"] + dev_args)
             wall = time.perf_counter() - t0
-            launches = video_counts()
+            launches = launches_since(before, VIDEO)
         steps, losses = trainer.step, out["losses"]
         want = {"bn_prelu_fwd": 3 * steps, "bn_prelu_bwd": 3 * steps, "maxpool_fwd": steps,
                 "maxpool_bwd": steps}
@@ -5408,12 +5348,12 @@ def shufflenet_phase(root: str, smi: str, peaks, device=None) -> dict:
             f"[{smi}]")
     net1 = os.path.join(trainer.exp_dir, "net_1")
     emb_root = os.path.join(root, "embedding")
-    zero_video_counts()
+    before = launch_counts()
     with contextlib.redirect_stdout(open(os.devnull, "w")):
         train_video_cli.main(["--config-path", cfg_path, "--data-dir", data, "--extract-feats",
                               "--batch-size", str(VIDEO_BATCH), "--model-path", net1,
                               "--mouth-embedding-out-path", emb_root] + dev_args)
-    extract_launches = video_counts()
+    extract_launches = launches_since(before, VIDEO)
     written = {os.path.relpath(os.path.join(d, f), emb_root)[:-4]: np.load(os.path.join(d, f))
                ["data"] for d, _, files in os.walk(emb_root) for f in files}
     clips = scan_clip_dir(data)
@@ -5471,11 +5411,11 @@ def stft_phase(smi: str, device=None) -> dict:
                     "model": ETDNN_MODEL_OPTS, "train": {"loss": "LMCL"}, "test": {}})
     ext = AudioExtractor(model, device=device)
     ext.load_state_dict(seeded_state_dict(ext.model, seed=0))
-    zero_fbank_counts()
+    before = launch_counts()
     emb = ext.embed(torch.from_numpy(pcm16).to(dev), torch.from_numpy(feat).to(dev), slen)
-    launches = fbank_counts()
+    launches = launches_since(before, FBANK)
     check(ext.model.tdnn[0].context_layer.in_channels == 257 and tuple(emb.shape) == (BATCH, 512)
-          and bool(torch.isfinite(emb).all()) and launches == {"fft": 0, "dft": 0, "mixed": 0},
+          and bool(torch.isfinite(emb).all()) and launches == {"fft": 0, "mixed": 0},
           f"stft extraction: {tuple(emb.shape)}, launches {launches}")
     log(f"stft front-end (n_fft 512, 257 bins, librosa framing) on a ragged {BATCH} x 1-3 s "
         f"batch: {err:.2e} from float64 (bar {STFT_TOL}); {ms:.4f} ms, K1's MFCC on the same "
@@ -5634,13 +5574,13 @@ def native_loader_epoch(root: str, manifest: str, trials: str, device=None) -> d
               and np.array_equal(a["pcm"], b["pcm"]) and np.array_equal(a["labels"], b["labels"]),
               f"batch {batches}: loader native and loader python differ")
         batches += 1
-    zero_fbank_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     losses = trainer.train(epochs=1)
     _sync()
     wall = time.perf_counter() - t0
-    counts = fbank_counts()
-    check(trainer.step == batches and counts == {"fft": batches, "dft": 0, "mixed": 0},
+    counts = launches_since(before, FBANK)
+    check(trainer.step == batches and counts == {"fft": batches, "mixed": 0},
           f"front-end launches {counts} for {trainer.step} native-loader steps")
     check(all(math.isfinite(v) for v in losses), f"native-loader losses {losses}")
     return {"steps": trainer.step, "batches_equal": batches, "launches": counts,
@@ -5656,7 +5596,7 @@ def write_kaldi_features(root: str, manifest: str, feat_cfg, device) -> tuple[st
     items = [(f"s{s:03d}-u{u}", utt.path) for s, spk in enumerate(speakers)
              for u, utt in enumerate(spk)]
     cfg = dataclasses.replace(feat_cfg, normalize=False, delta=False)
-    zero_fbank_counts()
+    before = launch_counts()
     table = {}
     for i in range(0, len(items), 64):
         chunk = items[i:i + 64]
@@ -5673,7 +5613,7 @@ def write_kaldi_features(root: str, manifest: str, feat_cfg, device) -> tuple[st
         feats = feats.cpu().numpy()
         for row, (name, _) in enumerate(chunk):
             table[name] = feats[row, :int(flen[row])]
-    launches = fbank_counts()
+    launches = launches_since(before, FBANK)
     ark, scp = os.path.join(root, "feats.ark"), os.path.join(root, "feats.scp")
     write_ark_scp(table, ark, scp)
     spk2utt = os.path.join(root, "spk2utt")
@@ -5684,7 +5624,7 @@ def write_kaldi_features(root: str, manifest: str, feat_cfg, device) -> tuple[st
     check([u for u, _ in back] == list(table)
           and all(np.array_equal(a, table[u]) for u, a in back),
           "the ark's features do not read back bit-equal")
-    check(launches == {"fft": -(-len(items) // 64), "dft": 0, "mixed": 0},
+    check(launches == {"fft": -(-len(items) // 64), "mixed": 0},
           f"front-end launches {launches} for the ark's {len(items)} utterances")
     return spk2utt, scp, launches["fft"]
 
@@ -5702,14 +5642,14 @@ def kaldi_train(root: str, spk2utt: str, scp: str, device=None) -> dict:
           and isinstance(trainer.pipeline, KaldiTrainPipeline)
           and trainer.compute_dtype == torch.bfloat16 and trainer.batch_size == BATCH,
           f"the Kaldi trainer: {trainer.n_spk} speakers, pipeline {type(trainer.pipeline)}")
-    zero_fbank_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     losses = trainer.train()
     _sync()
     wall = time.perf_counter() - t0
-    counts = fbank_counts()
+    counts = launches_since(before, FBANK)
     bpe = trainer.pipeline.batches_per_epoch()
-    check(counts == {"fft": 0, "dft": 0, "mixed": 0}, f"the Kaldi steps launched the front-end: {counts}")
+    check(counts == {"fft": 0, "mixed": 0}, f"the Kaldi steps launched the front-end: {counts}")
     check(trainer.step == len(losses) == KALDI_EPOCHS * bpe
           and all(math.isfinite(v) for v in losses), f"Kaldi losses {losses}")
     for tag in (f"net_{e}" for e in range(1, KALDI_EPOCHS + 1)):
@@ -5984,16 +5924,6 @@ def nccl_group(root: str):
     return mesh
 
 
-def totals_counts() -> dict:
-    return {"bn_totals_fwd": bn_prelu.bn_prelu_forward.totals_launches,
-            "bn_totals_bwd": bn_prelu.bn_prelu_backward.totals_launches}
-
-
-def zero_totals_counts() -> None:
-    bn_prelu.bn_prelu_forward.totals_launches = 0
-    bn_prelu.bn_prelu_backward.totals_launches = 0
-
-
 def totals_bound_ms(chunks: int, c: int, peaks, kind: str) -> tuple[float, str]:
     """The least time of a split finalize (both passes): it reads the
     ``(chunks, k, C)`` f32 partials once, writes and reads the ``(k, C)``
@@ -6019,20 +5949,21 @@ def totals_pass_times(x, dy, mean, inv, scale, bias, alpha, eps, group, peaks) -
     is_bf16, stream = bn_prelu._device_args(x)
     ptrs = (mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), alpha.data_ptr())
     fwd_partial, bwd_partial = torch.empty((chunks, 2, c), **f32), torch.empty((chunks, 3, c), **f32)
-    bn_prelu._launch("bn_stats_partial", x.data_ptr(), is_bf16, fwd_partial.data_ptr(), rows, c,
-                     per, chunks, stream)
-    bn_prelu._launch("bn_prelu_bwd_partial", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
-                     bwd_partial.data_ptr(), rows, c, per, chunks, stream)
+    launch = lambda name, *args: build.launch(bn_prelu._entry(name), *args)  # noqa: E731
+    launch("bn_stats_partial", x.data_ptr(), is_bf16, fwd_partial.data_ptr(), rows, c, per,
+           chunks, stream)
+    launch("bn_prelu_bwd_partial", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
+           bwd_partial.data_ptr(), rows, c, per, chunks, stream)
     fwd_totals = torch.empty((2, c), dtype=torch.float64, device=x.device)
     bwd_totals = torch.empty((3, c), dtype=torch.float64, device=x.device)
     stats, sums, means = torch.empty((3, c), **f32), torch.empty((3, c), **f32), \
         torch.empty((2, c), **f32)
 
     def fwd():
-        bn_prelu._launch("bn_stats_totals", fwd_partial.data_ptr(), chunks, c,
-                         fwd_totals.data_ptr(), stream)
-        bn_prelu._launch("bn_stats_from_totals", fwd_totals.data_ptr(), c, rows, eps,
-                         stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(), stream)
+        launch("bn_stats_totals", fwd_partial.data_ptr(), chunks, c, fwd_totals.data_ptr(),
+               stream)
+        launch("bn_stats_from_totals", fwd_totals.data_ptr(), c, rows, eps, stats[0].data_ptr(),
+               stats[1].data_ptr(), stats[2].data_ptr(), stream)
 
     def fwd_plain():
         t = fwd_partial.double().sum(0)
@@ -6041,10 +5972,10 @@ def totals_pass_times(x, dy, mean, inv, scale, bias, alpha, eps, group, peaks) -
         return m.float(), v.float(), torch.rsqrt(v + eps).float()
 
     def bwd():
-        bn_prelu._launch("bn_prelu_bwd_totals", bwd_partial.data_ptr(), chunks, c,
-                         bwd_totals.data_ptr(), sums.data_ptr(), stream)
-        bn_prelu._launch("bn_prelu_bwd_from_totals", bwd_totals.data_ptr(), c, rows,
-                         means.data_ptr(), stream)
+        launch("bn_prelu_bwd_totals", bwd_partial.data_ptr(), chunks, c, bwd_totals.data_ptr(),
+               sums.data_ptr(), stream)
+        launch("bn_prelu_bwd_from_totals", bwd_totals.data_ptr(), c, rows, means.data_ptr(),
+               stream)
 
     def bwd_plain():
         t = bwd_partial.double().sum(0)
@@ -6079,10 +6010,11 @@ def totals_check(mesh, peaks) -> dict:
                 what = f"bn_prelu under the group {shape} {str(dtype)[6:]}"
                 atol, rtol = BN_TOL[dtype]
                 single = fwd(x, scale, bias, alpha, eps)
-                before = (fwd.launches, fwd.totals_launches)
+                before = launch_counts()
                 grouped = fwd(x, scale, bias, alpha, eps, group=group)
-                check((fwd.launches - before[0], fwd.totals_launches - before[1]) == (4, 2),
-                      f"{what}: K3 under a group launched {fwd.launches - before[0]} kernels")
+                moved = launches_since(before, ("bn_prelu_fwd", "bn_totals_fwd"))
+                check(tuple(moved.values()) == (4, 2),
+                      f"{what}: K3 under a group launched {moved} kernels")
                 check(all(bit_equal(a, b) for a, b in zip(grouped, single)),
                       f"{what}: K3's split finalize is not bit-equal to its finalize")
                 y_p, mean_p, var_p = bn_prelu.bn_prelu_reference(x, scale, bias, alpha, eps,
@@ -6093,10 +6025,11 @@ def totals_check(mesh, peaks) -> dict:
                 mean, inv = single[1], single[3]
                 del single, grouped, y_p
                 g_single = bwd(x, dy, mean, inv, scale, bias, alpha)
-                before = (bwd.launches, bwd.totals_launches)
+                before = launch_counts()
                 g_group = bwd(x, dy, mean, inv, scale, bias, alpha, group=group)
-                check((bwd.launches - before[0], bwd.totals_launches - before[1]) == (4, 2),
-                      f"{what}: K4 under a group launched {bwd.launches - before[0]} kernels")
+                moved = launches_since(before, ("bn_prelu_bwd", "bn_totals_bwd"))
+                check(tuple(moved.values()) == (4, 2),
+                      f"{what}: K4 under a group launched {moved} kernels")
                 check(all(bit_equal(a, b) for a, b in zip(g_group, g_single)),
                       f"{what}: K4's split finalize is not bit-equal to its finalize")
                 g_plain = bn_prelu.bn_prelu_backward_reference(x, dy, mean, inv, scale, bias,
@@ -6135,23 +6068,23 @@ def trainer_state(*modules) -> dict:
             for n, v in m.state_dict().items() if v.is_floating_point()}
 
 
-def paired_step(what: str, trainers: dict, step, modules, counts, smi: str) -> dict:
+def paired_step(what: str, trainers: dict, step, modules, keys: tuple, smi: str) -> dict:
     """One step of the trainer without a group and of the one under the
     world-size-1 group, from one state (the same seeded init, the same
     inputs, the card's generator reseeded): loss and every floating
-    parameter and buffer bit-equal. Then ms per step of each, in turns
-    (plain, group, group, plain), by CUDA events."""
+    parameter and buffer bit-equal, and each step's launches of ``keys``
+    and of the split finalize. Then ms per step of each, in turns (plain,
+    group, group, plain), by CUDA events."""
     states = {k: trainer_state(*modules(t)) for k, t in trainers.items()}
     check(all(bit_equal(states["plain"][n], v) for n, v in states["group"].items()),
           f"{what}: the two trainers do not start from one state")
     losses, launches = {}, {}
     for name in ("plain", "group"):
-        zero_kernel_counts()
-        zero_totals_counts()
+        before = launch_counts()
         torch.manual_seed(0)
         losses[name] = step(trainers[name])["loss"]
         _sync()
-        launches[name] = {**counts(), **totals_counts()}
+        launches[name] = launches_since(before, keys + TOTALS)
     after = {k: trainer_state(*modules(t)) for k, t in trainers.items()}
     equal = bit_equal(losses["plain"], losses["group"]) and all(
         bit_equal(after["plain"][n], v) for n, v in after["group"].items())
@@ -6203,7 +6136,7 @@ def group_steps(mesh, root: str, smi: str, device=None) -> dict:
             out["audio"] = paired_step(
                 "audio bf16 (bs 256 x 300)", audio,
                 lambda t: t.train_step(pcm[0], labels[0], t.init_margin),
-                lambda t: (t.model, t.criterion), fbank_counts, smi)
+                lambda t: (t.model, t.criterion), FBANK, smi)
         check(out["audio"]["launches"]["group"]["fft"] == 1, "the audio step skipped K1")
         del audio, pcm, labels
         release()
@@ -6219,7 +6152,7 @@ def group_steps(mesh, root: str, smi: str, device=None) -> dict:
         out["video"] = paired_step(
             "video f32 (bs 128 x 29)", video,
             lambda t: t.train_step(*batch, torch.Generator().manual_seed(5)),
-            lambda t: (t.model,), video_counts, smi)
+            lambda t: (t.model,), VIDEO, smi)
         sites = VIDEO_BN_SITES
         want = {name: {"bn_prelu_fwd": per * sites, "bn_prelu_bwd": per * sites,
                        "bn_totals_fwd": split * sites, "bn_totals_bwd": split * sites,
@@ -6249,8 +6182,7 @@ def group_steps(mesh, root: str, smi: str, device=None) -> dict:
             rng.integers(0, FUSION_SPEAKERS, FUSION_BATCH).astype(np.int64))]
         out["fusion"] = paired_step(
             "fusion f32 (bs 60 x 300)", fusion, lambda t: t.train_step(*fb),
-            lambda t: (t.fusion_head, t.criterion),
-            lambda: {**fbank_counts(), **video_counts()}, smi)
+            lambda t: (t.fusion_head, t.criterion), FBANK + VIDEO, smi)
         del fusion, fb
         release()
     return out
@@ -6275,7 +6207,7 @@ def group_capture(mesh, root: str, smi: str, device=None) -> dict:
                                    n_spk=TRAIN_SPEAKERS, exp_root=os.path.join(root, "exp"),
                                    log_time=f"g_{name}", mesh=mesh)
             margin = trainer.init_margin
-            zero_kernel_counts()
+            before = launch_counts()
             if name == "grouped":
                 losses = [float(v) for v in trainer.train_group(pcm, labels, margin)["loss"]]
                 runner = trainer.grouped
@@ -6287,7 +6219,7 @@ def group_capture(mesh, root: str, smi: str, device=None) -> dict:
                           for i in range(GROUP_AUDIO_K)]
                 extra = {}
             _sync()
-            runs[name] = {"losses": losses, "launches": fbank_counts(),
+            runs[name] = {"losses": losses, "launches": launches_since(before, FBANK),
                           "state": floating_state(trainer.model, trainer.criterion), **extra}
             del trainer
             release()
@@ -6301,7 +6233,7 @@ def group_capture(mesh, root: str, smi: str, device=None) -> dict:
         f"{d_group:.3e} of their norm from theirs, a {NUDGE} nudge moves them {d_nudge:.3e}; K1 launches "
         f"{g['launches']} [{smi}]")
     check(g["graphs"] == 1 and g["replays"] == 1, "the group was not captured and replayed")
-    check(g["launches"] == {"fft": GROUP_AUDIO_K + g["warmups"], "dft": 0, "mixed": 0},
+    check(g["launches"] == {"fft": GROUP_AUDIO_K + g["warmups"], "mixed": 0},
           f"the grouped capture launched {g['launches']}")
     check(rel <= GROUPED_LOSS_RTOL, f"grouped losses under the group {rel:.3e} from single")
     check(0 < d_nudge and d_group <= NUDGE_FACTOR * d_nudge,
@@ -6480,13 +6412,12 @@ def step_rule_text(r: dict) -> str:
 
 def k4_dx_scaled(factor: float):
     """K4 with its dx scaled by ``factor``, a planted fault (the kernel still
-    launches; its wrapper counts under the module's name)."""
+    launches, and is counted)."""
     k4 = bn_prelu.bn_prelu_backward
 
     def faulty(*args, **kwargs):
         dx, *rest = k4(*args, **kwargs)
         return (dx * factor, *rest)
-    faulty.launches = 0
     return faulty
 
 
@@ -7040,13 +6971,6 @@ def main() -> int:
         "launches_microbatch": av["microbatch"]["launches"],
         "launches_audio_train": audio_train["launches"]["fft"],
     }
-    dft_launches = {
-        "launches": main_path["launches"]["fused_fbank_dft"],
-        "launches_sweep": sweep["launches"]["dft"],
-        "launches_av_serving": av["launches"]["fused_fbank_dft"],
-        "launches_microbatch": av["microbatch"]["launches_dft"],
-        "launches_audio_train": audio_train["launches"]["dft"],
-    }
     fbank_common = {
         "route": "cuda",
         "bound_note": "bound_ms is the front-end function's own work (pre-emphasis, one "
@@ -7077,9 +7001,8 @@ def main() -> int:
         "plain_ms": kern["ms"]["plain"],
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],
-        "algorithm_ops_ms": kern["algorithm_ops_ms"]["fft"],
+        "algorithm_ops_ms": kern["algorithm_ops_ms"],
         "cufft_composite_ms": kern["ms"]["cufft"],
-        "dft_kernel_ms": kern["ms"]["dft"],
         "config": "mfcc-24, n_fft 512",
         **fft_source,
     }, {
@@ -7111,41 +7034,18 @@ def main() -> int:
         "largest_error": kern["worst"]["mixed"],
         "ill_conditioned": kern["ill_conditioned"],
         **{key: kern["mixed"][ENTRY_N_FFT]["ms"][k] for key, k in (
-            ("ms", "mixed"), ("plain_ms", "plain"), ("cufft_composite_ms", "cufft"),
-            ("dft_kernel_ms", "dft"))},
+            ("ms", "mixed"), ("plain_ms", "plain"), ("cufft_composite_ms", "cufft"))},
         "bound_ms": kern["mixed"][ENTRY_N_FFT]["bound_ms"],
         "bound_by": kern["mixed"][ENTRY_N_FFT]["bound_by"],
-        "algorithm_ops_ms": kern["mixed"][ENTRY_N_FFT]["algorithm_ops_ms"]["mixed"],
+        "algorithm_ops_ms": kern["mixed"][ENTRY_N_FFT]["algorithm_ops_ms"],
         "by_n_fft": {n: {"plan": r["plan"], "bluestein": r["bluestein"], "ms": r["ms"]["mixed"],
                          "plain_ms": r["ms"]["plain"], "cufft_composite_ms": r["ms"]["cufft"],
-                         "dft_kernel_ms": r["ms"]["dft"], "bound_ms": r["bound_ms"],
-                         "bound_by": r["bound_by"],
-                         "algorithm_ops_ms": r["algorithm_ops_ms"]["mixed"],
+                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                         "algorithm_ops_ms": r["algorithm_ops_ms"],
                          "max_abs_err": r["max_abs_err"]["mixed"]}
                      for n, r in kern["mixed"].items()},
         "config": f"mfcc-24, n_fft {ENTRY_N_FFT}",
         **fft_source,
-    }, {
-        # the DFT kernel: n_fft outside [64, 4096] only, which no path
-        # launches; timed forced at 510 and 512
-        "name": "fused_fbank_dft",
-        "replaces": "deeplip_tpu/ops/pallas/fbank_kernel.py:241",
-        "also_replaces": "deeplip_tpu/ops/pallas/fbank_kernel.py:109",
-        **dft_launches,
-        "launches_n_fft_400_path": entry["launches_dft"],
-        "max_abs_err": kern["max_abs_err"]["dft"],
-        "ms": kern["mixed"][510]["ms"]["dft"],
-        "plain_ms": kern["mixed"][510]["ms"]["plain"],
-        "bound_ms": kern["mixed"][510]["bound_ms"],
-        "bound_by": kern["mixed"][510]["bound_by"],
-        "algorithm_ops_ms": kern["mixed"][510]["algorithm_ops_ms"]["dft"],
-        "cufft_composite_ms": kern["mixed"][510]["ms"]["cufft"],
-        "ms_n_fft_512": kern["ms"]["dft"],
-        "bound_ms_n_fft_512": kern["bound_ms"],
-        "algorithm_ops_ms_n_fft_512": kern["algorithm_ops_ms"]["dft"],
-        "config": "mfcc-24, n_fft 510, forced",
-        "source": "deeplip_tpu_torch/csrc/fbank_kernel.cu",
-        **fbank_common,
     }, bn_entry("bn_prelu_fwd", "fwd", bn, video), bn_entry("bn_prelu_bwd", "bwd", bn, video),
         pool_entry(pool, av, video), totals_entry("bn_prelu_fwd_totals", "fwd", group),
         totals_entry("bn_prelu_bwd_totals", "bwd", group)]}
@@ -7154,8 +7054,7 @@ def main() -> int:
     by_name = {e["name"]: e for e in kernels["kernels"]}
     for name in ("fused_fbank", "fused_fbank_v1_configs"):
         by_name[name]["launches_fusion_train"] = fusion["launches"]["fft"]
-    for name, kernel in (("fused_fbank_mixed_fft", "mixed"), ("fused_fbank_dft", "dft")):
-        by_name[name]["launches_fusion_train"] = fusion["launches"][kernel]
+    by_name["fused_fbank_mixed_fft"]["launches_fusion_train"] = fusion["launches"]["mixed"]
     for name, kind in (("bn_prelu_fwd", "fwd"), ("bn_prelu_bwd", "bwd")):
         by_name[name].update(
             launches_fusion_train=fusion["launches"][name],
@@ -7172,8 +7071,7 @@ def main() -> int:
             "f32": audio_g["launches"]["fft"], "bf16": audio_g["bf16"]["launches"]["fft"],
             "steps": audio_g["steps"], "warmup_steps": {
                 "f32": audio_g["warmups"], "bf16": audio_g["bf16"]["warmups"]}}
-    for name, kernel in (("fused_fbank_mixed_fft", "mixed"), ("fused_fbank_dft", "dft")):
-        by_name[name]["launches_grouped_audio"] = audio_g["launches"][kernel]
+    by_name["fused_fbank_mixed_fft"]["launches_grouped_audio"] = audio_g["launches"]["mixed"]
     for name, key in (("bn_prelu_fwd", "bn_prelu_fwd"), ("bn_prelu_bwd", "bn_prelu_bwd"),
                       ("maxpool_frontend", "maxpool_fwd")):
         by_name[name]["launches_grouped_video"] = {
@@ -7190,7 +7088,7 @@ def main() -> int:
     # phase 15: the variants' launches, and K3/K4 and P at 24 channels
     resnet_runs, shuffle = variants["resnet"]["runs"], variants["shufflenet"]
     route = {"fused_fbank": "fft", "fused_fbank_v1_configs": "fft",
-             "fused_fbank_mixed_fft": "mixed", "fused_fbank_dft": "dft"}
+             "fused_fbank_mixed_fft": "mixed"}
     for name, kernel in route.items():
         by_name[name]["launches_variants"] = {
             **{f"resnet_train_{k}": run["launches"][kernel] for k, run in resnet_runs.items()},
@@ -7232,8 +7130,8 @@ def main() -> int:
     # phase 19: the verification scripts' processes, each kernel's launches by script
     drv = tools["launches"]
     for name, kernel in (("fused_fbank", "fft"), ("fused_fbank_mixed_fft", "mixed"),
-                         ("fused_fbank_dft", "dft"), ("bn_prelu_fwd", "bn_prelu_fwd"),
-                         ("bn_prelu_bwd", "bn_prelu_bwd"), ("maxpool_frontend", "maxpool_fwd")):
+                         ("bn_prelu_fwd", "bn_prelu_fwd"), ("bn_prelu_bwd", "bn_prelu_bwd"),
+                         ("maxpool_frontend", "maxpool_fwd")):
         by_name[name]["launches_verification"] = {d: c.get(kernel, 0) for d, c in drv.items()}
     # K2's counts share K1's counter; the scripts run MFCC-24, no hop-blocked config
     by_name["fused_fbank_v1_configs"]["launches_verification"] = {d: 0 for d in drv}
@@ -7243,8 +7141,8 @@ def main() -> int:
         d: c.get("maxpool_bwd", 0) for d, c in drv.items()}
     # phase 20: the research drivers' processes, each kernel's launches by study
     for name, kernel in (("fused_fbank", "fft"), ("fused_fbank_mixed_fft", "mixed"),
-                         ("fused_fbank_dft", "dft"), ("bn_prelu_fwd", "bn_prelu_fwd"),
-                         ("bn_prelu_bwd", "bn_prelu_bwd"), ("maxpool_frontend", "maxpool_fwd")):
+                         ("bn_prelu_fwd", "bn_prelu_fwd"), ("bn_prelu_bwd", "bn_prelu_bwd"),
+                         ("maxpool_frontend", "maxpool_fwd")):
         by_name[name]["launches_studies"] = {d: c[kernel] for d, c in studies["launches"].items()}
     by_name["fused_fbank_v1_configs"]["launches_studies"] = {d: 0 for d in studies["launches"]}
     by_name["fused_fbank_v1_configs"]["launches_studies_note"] = (

@@ -6,8 +6,7 @@ its tests import both, to hold the two against each other.
 
 Implemented so far: the audio verification path, from PCM16 wavs to a
 cosine-scored EER, with the fused PCM→MFCC front-end as a hand-written CUDA
-kernel (``csrc/fbank_fft_kernel.cu``, and ``csrc/fbank_kernel.cu`` for an
-``n_fft`` that is no power of two); and the video (Lipreading) training step
+kernel (``csrc/fbank_fft_kernel.cu``); and the video (Lipreading) training step
 and clip embedder, with the fused train-mode BN+PReLU forward and backward
 as hand-written CUDA kernels (``csrc/bn_prelu_kernel.cu``); and the
 audio-visual verification serving path (paired extraction, the fusion

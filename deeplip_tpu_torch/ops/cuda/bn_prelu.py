@@ -20,8 +20,8 @@ tensor; no copy is made for the caller), ``C`` a multiple of 4 up to 1024,
 and f32 parameters. On a CPU tensor it runs the plain versions,
 :func:`bn_prelu_reference` and :func:`bn_prelu_backward_reference`, in the
 input's type promoted to at least f32. Each reduction is a partial pass and
-a finalize pass, so a call launches three kernels; ``.launches`` on each
-wrapper counts them.
+a finalize pass, so a call launches three kernels, counted in
+``build.LAUNCHES`` under ``bn_prelu_fwd`` and ``bn_prelu_bwd``.
 
 For bf16 activations the plain versions, like the kernels, compute in f32
 and round ``y`` and ``dx`` to bf16 once.
@@ -32,7 +32,8 @@ as the JAX package's sharded step computes them. Each finalize is then two
 passes, chunk totals to float64 and totals to statistics, with an
 all-reduce of the float64 totals between them (NCCL on the card, gloo on
 the CPU) and the global row count in the second pass: four launches per
-call, two of them the split finalize, counted also in ``.totals_launches``.
+call, two of them the split finalize, counted also under ``bn_totals_fwd``
+and ``bn_totals_bwd``.
 The backward returns this process's own totals as dscale, dbias and dalpha
 (the trainer's one gradient all-reduce sums them) and uses the global
 means in dx. The plain versions take the same all-reduce. Every process
@@ -43,7 +44,6 @@ three kernels, as before.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 
@@ -58,32 +58,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-_SIGNATURES = {
-    "bn_stats_partial": [_P, _I, _P, _L, _I, _L, _I, _P],
-    "bn_stats_finalize": [_P, _I, _I, _L, _F, _P, _P, _P, _P],
-    "bn_stats_totals": [_P, _I, _I, _P, _P],
-    "bn_stats_from_totals": [_P, _I, _L, _F, _P, _P, _P, _P],
-    "bn_prelu_apply": [_P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _P],
-    "bn_prelu_bwd_partial": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _P],
-    "bn_prelu_bwd_finalize": [_P, _I, _I, _L, _P, _P, _P],
-    "bn_prelu_bwd_totals": [_P, _I, _I, _P, _P, _P],
-    "bn_prelu_bwd_from_totals": [_P, _I, _L, _P, _P],
-    "bn_prelu_bwd_apply": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
+_FWD, _BWD = ("bn_prelu_fwd",), ("bn_prelu_bwd",)
+_FWD_TOTALS, _BWD_TOTALS = _FWD + ("bn_totals_fwd",), _BWD + ("bn_totals_bwd",)
+_SIGNATURES = {   # entry -> (launch-count keys, argtypes)
+    "bn_stats_partial": (_FWD, [_P, _I, _P, _L, _I, _L, _I, _P]),
+    "bn_stats_finalize": (_FWD, [_P, _I, _I, _L, _F, _P, _P, _P, _P]),
+    "bn_stats_totals": (_FWD_TOTALS, [_P, _I, _I, _P, _P]),
+    "bn_stats_from_totals": (_FWD_TOTALS, [_P, _I, _L, _F, _P, _P, _P, _P]),
+    "bn_prelu_apply": (_FWD, [_P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _P]),
+    "bn_prelu_bwd_partial": (_BWD, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _P]),
+    "bn_prelu_bwd_finalize": (_BWD, [_P, _I, _I, _L, _P, _P, _P]),
+    "bn_prelu_bwd_totals": (_BWD_TOTALS, [_P, _I, _I, _P, _P, _P]),
+    "bn_prelu_bwd_from_totals": (_BWD_TOTALS, [_P, _I, _L, _P, _P]),
+    "bn_prelu_bwd_apply": (_BWD, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P]),
 }
-
-
-@lru_cache(maxsize=None)
-def _fn(name: str):
-    fn = getattr(build.load("bn_prelu_kernel"), name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, *args) -> None:
-    err = _fn(name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+_entry = build.entries("bn_prelu_kernel", _SIGNATURES)
 
 
 def _work_type(x: torch.Tensor) -> torch.dtype:
@@ -176,8 +165,7 @@ def _device_args(x: torch.Tensor):
 
 def bn_prelu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      alpha: torch.Tensor, eps: float = 1e-5, group=None):
-    """K3: ``(y, mean, var, inv)``, global statistics under ``group``.
-    Counts its kernel launches in ``bn_prelu_forward.launches``."""
+    """K3: ``(y, mean, var, inv)``, global statistics under ``group``."""
     if x.device.type == "cpu":
         y, mean, var = bn_prelu_reference(x, scale, bias, alpha, eps, group)
         return y, mean, var, torch.rsqrt(var + eps)
@@ -194,28 +182,22 @@ def bn_prelu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         is_bf16, stream = _device_args(x)
-        _launch("bn_stats_partial", x.data_ptr(), is_bf16, partial.data_ptr(),
-                rows, c, per, chunks, stream)
-        bn_prelu_forward.launches += 1
+        build.launch(_entry("bn_stats_partial"), x.data_ptr(), is_bf16, partial.data_ptr(),
+                     rows, c, per, chunks, stream)
         if group is None:
-            _launch("bn_stats_finalize", partial.data_ptr(), chunks, c, rows, eps,
-                    mean.data_ptr(), var.data_ptr(), inv.data_ptr(), stream)
-            bn_prelu_forward.launches += 1
+            build.launch(_entry("bn_stats_finalize"), partial.data_ptr(), chunks, c, rows, eps,
+                         mean.data_ptr(), var.data_ptr(), inv.data_ptr(), stream)
         else:
             totals = torch.empty((2, c), dtype=torch.float64, device=x.device)
-            _launch("bn_stats_totals", partial.data_ptr(), chunks, c, totals.data_ptr(),
-                    stream)
-            bn_prelu_forward.launches += 1
-            bn_prelu_forward.totals_launches += 1
+            build.launch(_entry("bn_stats_totals"), partial.data_ptr(), chunks, c,
+                         totals.data_ptr(), stream)
             all_reduce(totals, group)
-            _launch("bn_stats_from_totals", totals.data_ptr(), c, global_rows(x, group), eps,
-                    mean.data_ptr(), var.data_ptr(), inv.data_ptr(), stream)
-            bn_prelu_forward.launches += 1
-            bn_prelu_forward.totals_launches += 1
-        _launch("bn_prelu_apply", x.data_ptr(), is_bf16, mean.data_ptr(),
-                inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), alpha.data_ptr(),
-                y.data_ptr(), rows, c, stream)
-        bn_prelu_forward.launches += 1
+            build.launch(_entry("bn_stats_from_totals"), totals.data_ptr(), c,
+                         global_rows(x, group), eps, mean.data_ptr(), var.data_ptr(),
+                         inv.data_ptr(), stream)
+        build.launch(_entry("bn_prelu_apply"), x.data_ptr(), is_bf16, mean.data_ptr(),
+                     inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), alpha.data_ptr(),
+                     y.data_ptr(), rows, c, stream)
     return y, mean, var, inv
 
 
@@ -224,8 +206,7 @@ def bn_prelu_backward(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
                       alpha: torch.Tensor, group=None):
     """K4: ``(dx, dscale, dbias, dalpha)`` from the forward's ``mean`` and
     ``inv``; under ``group`` dx takes the global means and the parameter
-    sums stay this process's. Counts its kernel launches in
-    ``bn_prelu_backward.launches``."""
+    sums stay this process's."""
     if x.device.type == "cpu":
         return bn_prelu_backward_reference(x, dy, mean, inv, scale, bias, alpha, group)
     if x.device.type != "cuda":
@@ -247,34 +228,21 @@ def bn_prelu_backward(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
             alpha.data_ptr())
     with torch.cuda.device(x.device):
         is_bf16, stream = _device_args(x)
-        _launch("bn_prelu_bwd_partial", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
-                partial.data_ptr(), rows, c, per, chunks, stream)
-        bn_prelu_backward.launches += 1
+        build.launch(_entry("bn_prelu_bwd_partial"), x.data_ptr(), dy.data_ptr(), is_bf16,
+                     *ptrs, partial.data_ptr(), rows, c, per, chunks, stream)
         if group is None:
-            _launch("bn_prelu_bwd_finalize", partial.data_ptr(), chunks, c, rows,
-                    sums.data_ptr(), means.data_ptr(), stream)
-            bn_prelu_backward.launches += 1
+            build.launch(_entry("bn_prelu_bwd_finalize"), partial.data_ptr(), chunks, c, rows,
+                         sums.data_ptr(), means.data_ptr(), stream)
         else:
             totals = torch.empty((3, c), dtype=torch.float64, device=x.device)
-            _launch("bn_prelu_bwd_totals", partial.data_ptr(), chunks, c, totals.data_ptr(),
-                    sums.data_ptr(), stream)
-            bn_prelu_backward.launches += 1
-            bn_prelu_backward.totals_launches += 1
+            build.launch(_entry("bn_prelu_bwd_totals"), partial.data_ptr(), chunks, c,
+                         totals.data_ptr(), sums.data_ptr(), stream)
             all_reduce(totals, group)
-            _launch("bn_prelu_bwd_from_totals", totals.data_ptr(), c, global_rows(x, group),
-                    means.data_ptr(), stream)
-            bn_prelu_backward.launches += 1
-            bn_prelu_backward.totals_launches += 1
-        _launch("bn_prelu_bwd_apply", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
-                means.data_ptr(), dx.data_ptr(), rows, c, stream)
-        bn_prelu_backward.launches += 1
+            build.launch(_entry("bn_prelu_bwd_from_totals"), totals.data_ptr(), c,
+                         global_rows(x, group), means.data_ptr(), stream)
+        build.launch(_entry("bn_prelu_bwd_apply"), x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
+                     means.data_ptr(), dx.data_ptr(), rows, c, stream)
     return dx, sums[1], sums[0], sums[2]
-
-
-bn_prelu_forward.launches = 0
-bn_prelu_backward.launches = 0
-bn_prelu_forward.totals_launches = 0    # of them, the split finalize under a group
-bn_prelu_backward.totals_launches = 0
 
 
 class _BnPReLUTrain(torch.autograd.Function):

@@ -10,6 +10,13 @@ under ``deeplip_tpu_torch/_build/<hash of the sources>/``, so an edited
 source builds anew and an unchanged one is reused. :func:`build` starts one
 ``nvcc`` per missing library, all at once, and waits for them together. A
 missing ``nvcc`` or a failed build raises with the compiler's output.
+
+This module is also where every kernel is launched. A wrapper types its
+library's C entries once, through :func:`entries`, and launches each of
+them through :func:`launch`, which checks the ``cudaError_t`` it returns
+and counts the launch in :data:`LAUNCHES` under the keys the wrapper's
+signature table names for that entry. :func:`add_launches` is the table's
+only other writer, for launches a CUDA graph replays.
 """
 
 from __future__ import annotations
@@ -21,7 +28,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from functools import lru_cache
 from pathlib import Path
+from typing import Callable, Mapping, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -116,3 +125,51 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
                 lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+# Kernel launches in this process, by the kernel (or pair of passes) a
+# wrapper launches: the front-end's FFT and mixed-radix plans, K3 and K4
+# (the fused BN+PReLU forward and backward) and, of their launches, the
+# split finalize under a process group, the max-pool's forward and
+# backward, the frontend Conv3d's weight gradient, and T's train forward,
+# train backward and eval apply (the TDNN blocks' fused BN + LeakyReLU).
+LAUNCHES: dict[str, int] = dict.fromkeys(
+    ("fft", "mixed", "bn_prelu_fwd", "bn_prelu_bwd", "bn_totals_fwd", "bn_totals_bwd",
+     "maxpool_fwd", "maxpool_bwd", "conv3d_wgrad", "tdnn_fwd", "tdnn_bwd", "tdnn_eval"), 0)
+
+
+def entries(library: str,
+            signatures: Mapping[str, tuple[Sequence[str], Sequence]]) -> Callable[[str], tuple]:
+    """A cached loader of ``lib<library>.so``'s C entries. ``signatures``
+    maps an entry's name to ``(keys, argtypes)``: the :data:`LAUNCHES` keys a
+    launch of it counts under and its C argument types. The loader takes an
+    entry's name and returns ``(function, keys)``, the function typed with
+    an ``int`` return (its ``cudaError_t``); the library is built and loaded
+    at the first call, and each entry typed once."""
+    @lru_cache(maxsize=None)
+    def entry(name: str) -> tuple:
+        keys, argtypes = signatures[name]
+        fn = getattr(load(library), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn, keys
+    return entry
+
+
+def launch(entry: tuple, *args) -> None:
+    """Call an entry of :func:`entries` with ``args``; a nonzero
+    ``cudaError_t`` raises, naming the entry, and a launch that returned 0
+    adds one to each of its keys in :data:`LAUNCHES`."""
+    fn, keys = entry
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")
+    for key in keys:
+        LAUNCHES[key] += 1
+
+
+def add_launches(counts: Mapping[str, int]) -> None:
+    """Add ``counts`` to :data:`LAUNCHES`, key by key: the launches a CUDA
+    graph's replay makes without calling :func:`launch`, or, negative, the
+    ones counted while it was captured, which ran no kernel."""
+    for key, n in counts.items():
+        LAUNCHES[key] += n

@@ -25,8 +25,8 @@ with the clip zero outside its frames and pixels.
   needs a gradient: its forward is ``F.conv3d``, its backward the op for
   ``dW`` and no ``dx``.
 
-``conv3d_wgrad.launches`` counts the kernel's launches (one a call; each
-launch is the kernel and its pass that adds the blocks' sums).
+``build.LAUNCHES["conv3d_wgrad"]`` counts the kernel's launches (one a call;
+each launch is the kernel and its pass that adds the blocks' sums).
 """
 
 from __future__ import annotations
@@ -45,15 +45,11 @@ STRIDE = (1, 2, 2)
 PADDING = (2, 3, 3)
 CHANNELS = (24, 64)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-@lru_cache(maxsize=None)
-def _fn(name: str):
-    fn = getattr(build.load("conv3d_wgrad_kernel"), name)
-    fn.argtypes = {"conv3d_wgrad_plan": [_I] * 5 + [_P, _P],
-                   "conv3d_wgrad": [_P] * 4 + [_I] * 7 + [_P]}[name]
-    fn.restype = ctypes.c_int
-    return fn
+_SIGNATURES = {   # entry -> (launch-count keys, argtypes); the plan is a query
+    "conv3d_wgrad_plan": ((), [_I] * 5 + [_P, _P]),
+    "conv3d_wgrad": (("conv3d_wgrad",), [_P] * 4 + [_I] * 7 + [_P]),
+}
+_entry = build.entries("conv3d_wgrad_kernel", _SIGNATURES)
 
 
 @lru_cache(maxsize=None)
@@ -62,10 +58,8 @@ def _plan(device_index: int, b: int, t: int, h: int, w: int, c: int) -> tuple[in
     scratch's number of ``C x 245`` slabs, and the output rows a band."""
     blocks, rows = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
-        err = _fn("conv3d_wgrad_plan")(b, t, h, w, c, ctypes.byref(blocks), ctypes.byref(rows))
-    if err != 0:
-        raise RuntimeError(f"conv3d_wgrad_plan failed for (B, T, H, W, C) = "
-                           f"{(b, t, h, w, c)}: cudaError_t {err}")
+        build.launch(_entry("conv3d_wgrad_plan"), b, t, h, w, c, ctypes.byref(blocks),
+                     ctypes.byref(rows))
     return blocks.value, rows.value
 
 
@@ -131,16 +125,10 @@ def conv3d_wgrad(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     blocks, rows = _plan(dy.device.index, b, t, h, w, c)
     partial = torch.empty((blocks, c * dw[0].numel()), dtype=torch.float32, device=dy.device)
     with torch.cuda.device(dy.device):
-        err = _fn("conv3d_wgrad")(dy.data_ptr(), x.data_ptr(), partial.data_ptr(),
-                                  dw.data_ptr(), b, t, h, w, c, blocks, rows,
-                                  torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv3d_wgrad launch failed: cudaError_t {err}")
-    conv3d_wgrad.launches += 1
+        build.launch(_entry("conv3d_wgrad"), dy.data_ptr(), x.data_ptr(), partial.data_ptr(),
+                     dw.data_ptr(), b, t, h, w, c, blocks, rows,
+                     torch.cuda.current_stream().cuda_stream)
     return dw
-
-
-conv3d_wgrad.launches = 0
 
 
 @register_flop_formula(torch.ops.deeplip.conv3d_wgrad)

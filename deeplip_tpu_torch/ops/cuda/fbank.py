@@ -1,5 +1,5 @@
 """Wrappers of the fused front-end kernels: the FFT route
-(``csrc/fbank_fft_kernel.cu``) and the DFT kernel (``csrc/fbank_kernel.cu``).
+(``csrc/fbank_fft_kernel.cu``).
 
 :func:`audio_features` takes raw f32 PCM ``(B, S)``, ``cfg.preemph`` and
 optional per-row ``sample_lengths``, and returns ``(B, T, D)`` fbank,
@@ -14,13 +14,13 @@ The rule between the kernels (:func:`front_end_kernel`): every ``n_fft``
 from 64 to 4096 (``FFT_SIZES``) takes the FFT route, a power of two
 through the FFT kernel's compile-time radix-16 plan
 (:func:`fft_audio_features`), any other through its mixed-radix and
-Bluestein plan (:func:`mixed_fft_audio_features`); an ``n_fft`` outside
-that range goes to the DFT kernel. All take every ``frame_len <= n_fft``.
+Bluestein plan (:func:`mixed_fft_audio_features`); no kernel takes an ``n_fft``
+outside that range, and a CUDA batch at one is refused. Both plans
+take every ``frame_len <= n_fft``.
 
 The kernels' constants (FFT twiddles, Bluestein's chirp and its filter, the
-mel filterbank per filter, the ``[cos | -sin]`` basis, the DCT and the
-lifter) are made in float64 from ``ops.spectral``, cast to f32 and uploaded
-once per device and config.
+mel filterbank per filter, the DCT and the lifter) are made in float64 from
+``ops.spectral``, cast to f32 and uploaded once per device and config.
 """
 
 from __future__ import annotations
@@ -43,11 +43,12 @@ ODD_RADICES = (3, 5, 7)  # the mixed-radix passes' odd radices
 
 def front_end_kernel(cfg: F.FeatureConfig) -> str:
     """Which kernel a CUDA batch at ``cfg`` launches: ``"fft"`` (a power of
-    two in ``FFT_SIZES``), ``"mixed"`` (any other size there) or ``"dft"``
-    (an ``n_fft`` outside ``FFT_SIZES``)."""
+    two in ``FFT_SIZES``), ``"mixed"`` (any other size there) or none,
+    ``"plain"`` (an ``n_fft`` outside ``FFT_SIZES``, which only a CPU batch
+    takes, through the plain version)."""
     n = cfg.n_fft
     if not FFT_SIZES[0] <= n <= FFT_SIZES[1]:
-        return "dft"
+        return "plain"
     return "fft" if n & (n - 1) == 0 else "mixed"
 
 
@@ -278,31 +279,13 @@ def mel_csr(n_filt: int, n_fft: int, rate: int, low_freq: float = 0.0,
 
 
 # ----------------------------------------------------------------- kernels
-@lru_cache(maxsize=None)
-def _fft_kernel():
-    fn = build.load("fbank_fft_kernel").fbank_fft_features
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@lru_cache(maxsize=None)
-def _mixed_kernel():
-    fn = build.load("fbank_fft_kernel").fbank_mixed_fft_features
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@lru_cache(maxsize=None)
-def _dft_kernel():
-    fn = build.load("fbank_kernel").fbank_features
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {   # entry -> (launch-count keys, argtypes)
+    "fbank_fft_features": (("fft",), [_P] * 8 + [_I] * 11 + [_F, _P]),
+    "fbank_mixed_fft_features": (("mixed",), [_P] * 11 + [ctypes.POINTER(_I)] + [_I] * 13
+                                 + [_F, _P]),
+}
+_entry = build.entries("fbank_fft_kernel", _SIGNATURES)
 
 
 def _upload(device: torch.device, *arrays) -> tuple:
@@ -344,24 +327,6 @@ def _mixed_constants(device: torch.device, n_fft: int, num_bin: int, rate: int,
     return plan, radices, (tw, tw_unt, c, filt) + rest
 
 
-@lru_cache(maxsize=None)
-def _dft_constants(device: torch.device, frame_len: int, n_fft: int, num_bin: int,
-                   rate: int, low_freq: float, high_freq: float | None,
-                   num_cep: int, ceplifter: int):
-    """``(l_pad, basis, mel, dct, lift)`` on ``device``; the basis rows are
-    zero-padded to ``l_pad``, a multiple of 4, for the kernel's float4 reads."""
-    l_pad = -(-frame_len // 4) * 4
-    basis = np.zeros((l_pad, 2 * (n_fft // 2 + 1)), np.float32)
-    basis[:frame_len] = spectral.rdft_fused_matrix(frame_len, n_fft)
-    arrays = (
-        basis,
-        spectral.mel_filterbank(num_bin, n_fft, rate, low_freq, high_freq),
-        spectral.dct_matrix(num_cep, num_bin),
-        spectral.cepstral_lifter(num_cep, ceplifter),
-    )
-    return (l_pad,) + _upload(device, *(a.astype(np.float32) for a in arrays))
-
-
 def out_dim(cfg: F.FeatureConfig) -> int:
     return cfg.num_cep if cfg.feat_type == "mfcc" else cfg.num_bin
 
@@ -392,16 +357,10 @@ def _kernel_args(pcm: torch.Tensor, cfg: F.FeatureConfig, sample_lengths, what: 
     return lengths, out
 
 
-def _launched(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
-
-
 def fft_audio_features(pcm: torch.Tensor, cfg: F.FeatureConfig,
                        sample_lengths: torch.Tensor | None = None) -> torch.Tensor:
     """The FFT kernel's power-of-two plan on a CUDA batch; raises for an
-    ``n_fft`` it does not take. Counts its launches in
-    ``fft_audio_features.launches``."""
+    ``n_fft`` it does not take."""
     if front_end_kernel(cfg) != "fft":
         raise ValueError(f"the FFT kernel takes a power-of-two n_fft in "
                          f"[{FFT_SIZES[0]}, {FFT_SIZES[1]}], not {cfg.n_fft}")
@@ -414,14 +373,13 @@ def fft_audio_features(pcm: torch.Tensor, cfg: F.FeatureConfig,
         cfg.num_cep, cfg.ceplifter)
     with torch.cuda.device(pcm.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fft_kernel()(
+        build.launch(
+            _entry("fbank_fft_features"),
             pcm.data_ptr(), None if lengths is None else lengths.data_ptr(),
-            tw.data_ptr(), idx.data_ptr(), w.data_ptr(), dct.data_ptr(),
-            lift.data_ptr(), out.data_ptr(), b, s, t, cfg.frame_len, cfg.frame_step,
-            cfg.n_fft, cfg.num_bin, cfg.num_cep, w.numel(), _FEAT_CODES[cfg.feat_type],
-            int(cfg.energy), cfg.preemph, stream)
-    _launched(err, "fbank_fft_features")
-    fft_audio_features.launches += 1
+            tw.data_ptr(), idx.data_ptr(), w.data_ptr(), dct.data_ptr(), lift.data_ptr(),
+            out.data_ptr(), b, s, t, cfg.frame_len, cfg.frame_step, cfg.n_fft, cfg.num_bin,
+            cfg.num_cep, w.numel(), _FEAT_CODES[cfg.feat_type], int(cfg.energy), cfg.preemph,
+            stream)
     return out
 
 
@@ -429,8 +387,7 @@ def mixed_fft_audio_features(pcm: torch.Tensor, cfg: F.FeatureConfig,
                              sample_lengths: torch.Tensor | None = None) -> torch.Tensor:
     """The FFT kernel's mixed-radix and Bluestein plan (:func:`fft_plan`) on
     a CUDA batch, for an ``n_fft`` in ``FFT_SIZES`` that is no power of
-    two; raises for any other. Counts its launches in
-    ``mixed_fft_audio_features.launches``."""
+    two; raises for any other."""
     if front_end_kernel(cfg) != "mixed":
         raise ValueError(f"the mixed-radix FFT takes an n_fft in [{FFT_SIZES[0]}, "
                          f"{FFT_SIZES[1]}] that is no power of two, not {cfg.n_fft}")
@@ -445,38 +402,13 @@ def mixed_fft_audio_features(pcm: torch.Tensor, cfg: F.FeatureConfig,
     ptr = lambda a: None if a is None else a.data_ptr()
     with torch.cuda.device(pcm.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _mixed_kernel()(
+        build.launch(
+            _entry("fbank_mixed_fft_features"),
             pcm.data_ptr(), ptr(lengths), tw.data_ptr(), tw_unt.data_ptr(), ptr(c), ptr(filt),
             idx.data_ptr(), w.data_ptr(), dct.data_ptr(), lift.data_ptr(), out.data_ptr(),
             radices, b, s, t, cfg.frame_len, cfg.frame_step, cfg.n_fft, plan.m,
             len(plan.passes), cfg.num_bin, cfg.num_cep, w.numel(),
             _FEAT_CODES[cfg.feat_type], int(cfg.energy), cfg.preemph, stream)
-    _launched(err, "fbank_mixed_fft_features")
-    mixed_fft_audio_features.launches += 1
-    return out
-
-
-def dft_audio_features(pcm: torch.Tensor, cfg: F.FeatureConfig,
-                       sample_lengths: torch.Tensor | None = None) -> torch.Tensor:
-    """The DFT kernel on a CUDA batch, at any ``n_fft``. Counts its
-    launches in ``dft_audio_features.launches``."""
-    lengths, out = _kernel_args(pcm, cfg, sample_lengths, "dft_audio_features")
-    (b, s), t = pcm.shape, out.shape[1]
-    if b == 0:
-        return out
-    l_pad, basis, mel, dct, lift = _dft_constants(
-        pcm.device, cfg.frame_len, cfg.n_fft, cfg.num_bin, cfg.rate,
-        cfg.low_freq, cfg.high_freq, cfg.num_cep, cfg.ceplifter)
-    with torch.cuda.device(pcm.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _dft_kernel()(
-            pcm.data_ptr(), None if lengths is None else lengths.data_ptr(),
-            basis.data_ptr(), mel.data_ptr(), dct.data_ptr(), lift.data_ptr(),
-            out.data_ptr(), b, s, t, cfg.frame_len, l_pad, cfg.frame_step,
-            cfg.n_fft, cfg.num_bin, cfg.num_cep, _FEAT_CODES[cfg.feat_type],
-            int(cfg.energy), cfg.preemph, stream)
-    _launched(err, "fbank_features")
-    dft_audio_features.launches += 1
     return out
 
 
@@ -501,19 +433,18 @@ def audio_features(pcm: torch.Tensor, cfg: F.FeatureConfig,
                    sample_lengths: torch.Tensor | None = None) -> torch.Tensor:
     """Fused front-end ``(B, S) -> (B, T, D)`` on raw PCM: pre-emphasis at
     ``cfg.preemph``, then, with ``sample_lengths``, zero from each row's
-    length on. A CUDA batch goes to the kernel :func:`front_end_kernel`
-    names, which counts its own launches."""
+    length on. A CPU batch goes to the plain version; a CUDA batch to the
+    kernel :func:`front_end_kernel` names, and is refused where it names
+    none."""
     if cfg.feat_type not in _FEAT_CODES:
         raise NotImplementedError(f"not a mel front-end: {cfg.feat_type!r}")
     if pcm.device.type == "cpu":
         return audio_features_reference(pcm, cfg, sample_lengths)
     if pcm.device.type != "cuda":
         raise ValueError(f"audio_features runs on cuda or cpu, not {pcm.device}")
-    kernel = {"fft": fft_audio_features, "mixed": mixed_fft_audio_features,
-              "dft": dft_audio_features}[front_end_kernel(cfg)]
+    kind = front_end_kernel(cfg)
+    if kind == "plain":
+        raise ValueError(f"no front-end kernel takes n_fft {cfg.n_fft} on a CUDA batch: "
+                         f"the FFT route takes [{FFT_SIZES[0]}, {FFT_SIZES[1]}]")
+    kernel = {"fft": fft_audio_features, "mixed": mixed_fft_audio_features}[kind]
     return kernel(pcm, cfg, sample_lengths)
-
-
-fft_audio_features.launches = 0
-mixed_fft_audio_features.launches = 0
-dft_audio_features.launches = 0

@@ -26,14 +26,13 @@ lipreading.py:158-161``): the kernel that the JAX package's
 On a CUDA tensor each wrapper launches its kernel on the current stream, or
 raises: f32 or bf16, contiguous in ``(N, T, H, W, C)`` order, ``C`` a
 multiple of 4. On a CPU tensor :func:`maxpool_frontend` is the plain
-version, :func:`maxpool_frontend_reference`. ``.launches`` on each wrapper
-counts its kernel launches.
+version, :func:`maxpool_frontend_reference`. ``build.LAUNCHES`` counts the
+kernels' launches under ``maxpool_fwd`` and ``maxpool_bwd``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
@@ -49,14 +48,11 @@ BWD_ROWS = 2
 BWD_STAGE_BYTES = 48 * 1024 - 32
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P]
-
-
-@lru_cache(maxsize=None)
-def _fn(name: str):
-    fn = getattr(build.load("maxpool_kernel"), name)
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+_SIGNATURES = {   # entry -> (launch-count keys, argtypes)
+    "maxpool_forward": (("maxpool_fwd",), _ARGTYPES),
+    "maxpool_backward": (("maxpool_bwd",), _ARGTYPES),
+}
+_entry = build.entries("maxpool_kernel", _SIGNATURES)
 
 
 def pooled_size(n: int) -> int:
@@ -150,16 +146,14 @@ def _launch(name: str, a: torch.Tensor, pos, out: torch.Tensor, in_shape) -> Non
     Wo, stream)."""
     n, t, h, w, c = in_shape
     with torch.cuda.device(a.device):
-        err = _fn(name)(a.data_ptr(), pos, out.data_ptr(), _KERNEL_TYPES[a.dtype],
-                        n * t, h, w, c, pooled_size(h), pooled_size(w),
-                        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+        build.launch(_entry(name), a.data_ptr(), pos, out.data_ptr(), _KERNEL_TYPES[a.dtype],
+                     n * t, h, w, c, pooled_size(h), pooled_size(w),
+                     torch.cuda.current_stream().cuda_stream)
 
 
 def maxpool_forward(x: torch.Tensor, with_pos: bool = False):
     """The forward kernel: ``(y, pos)``; ``pos`` is ``None`` unless
-    ``with_pos``. Counts its launches in ``maxpool_forward.launches``."""
+    ``with_pos``."""
     _check_cuda(x, "maxpool_forward")
     n, t, h, w, c = x.shape
     out_shape = (n, t, pooled_size(h), pooled_size(w), c)
@@ -167,13 +161,12 @@ def maxpool_forward(x: torch.Tensor, with_pos: bool = False):
     pos = torch.empty(out_shape, dtype=torch.uint8, device=x.device) if with_pos else None
     if y.numel():
         _launch("maxpool_forward", x, pos.data_ptr() if with_pos else None, y, x.shape)
-        maxpool_forward.launches += 1
     return y, pos
 
 
 def maxpool_backward(dy: torch.Tensor, pos: torch.Tensor, in_shape) -> torch.Tensor:
     """The backward kernel: ``dx`` of shape ``in_shape`` from ``dy`` and the
-    forward's ``pos``. Counts its launches in ``maxpool_backward.launches``."""
+    forward's ``pos``."""
     _check_cuda(dy, "maxpool_backward")
     n, t, h, w, c = in_shape
     out_shape = (n, t, pooled_size(h), pooled_size(w), c)
@@ -186,14 +179,10 @@ def maxpool_backward(dy: torch.Tensor, pos: torch.Tensor, in_shape) -> torch.Ten
     dx = torch.empty(tuple(in_shape), dtype=dy.dtype, device=dy.device)
     if dy.numel():
         _launch("maxpool_backward", dy, pos.data_ptr(), dx, in_shape)
-        maxpool_backward.launches += 1
     else:
         dx.zero_()
     return dx
 
-
-maxpool_forward.launches = 0
-maxpool_backward.launches = 0
 
 
 class _MaxPoolFrontend(torch.autograd.Function):

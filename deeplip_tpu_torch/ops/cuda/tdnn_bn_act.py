@@ -28,8 +28,9 @@ raises: it takes an f32 or bf16 ``(B, C, T)`` activation, contiguous, and
 f32 ``(C,)`` parameters; no copy is made for the caller. On a CPU tensor it
 runs the plain version (``*_reference``). The train forward launches three
 kernels a call (a partial pass, a finalize, an apply), the backward four
-(the same three and the conv bias's gradient), the eval one; ``.launches``
-on each wrapper counts them.
+(the same three and the conv bias's gradient), the eval one;
+``build.LAUNCHES`` counts them under ``tdnn_fwd``, ``tdnn_bwd`` and
+``tdnn_eval``.
 
 Rounding follows the blocks' eager ops, the recipe of ``models/norm.py``:
 statistics in >= f32, the normalisation op by op in the activation's type,
@@ -49,7 +50,6 @@ taken yet (the blocks keep the eager ops under one).
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
@@ -62,32 +62,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-_SIGNATURES = {
-    "tdnn_bn_stats": [_P, _I, _P, _P, _L, _I, _I, _P],
-    "tdnn_bn_finalize": [_P, _I, _I, _I, _F, _P, _P, _P, _P],
-    "tdnn_bn_act_apply": [_P, _I, _P, _P, _P, _P, _P, _F, _P, _L, _I, _I, _P],
-    "tdnn_bn_act_eval": [_P, _I, _P, _P, _P, _F, _P, _P, _F, _P, _L, _I, _I, _P],
-    "tdnn_bn_act_bwd_stats": [_P, _P, _I, _P, _P, _P, _P, _P, _F, _P, _L, _I, _I, _P],
-    "tdnn_bn_act_bwd_finalize": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "tdnn_bn_act_bwd_apply": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P, _L, _I, _I,
-                              _P],
-    "tdnn_bn_act_bwd_cbias": [_P, _I, _I, _I, _P, _P],
+_FWD, _BWD, _EVAL = ("tdnn_fwd",), ("tdnn_bwd",), ("tdnn_eval",)
+_SIGNATURES = {   # entry -> (launch-count keys, argtypes)
+    "tdnn_bn_stats": (_FWD, [_P, _I, _P, _P, _L, _I, _I, _P]),
+    "tdnn_bn_finalize": (_FWD, [_P, _I, _I, _I, _F, _P, _P, _P, _P]),
+    "tdnn_bn_act_apply": (_FWD, [_P, _I, _P, _P, _P, _P, _P, _F, _P, _L, _I, _I, _P]),
+    "tdnn_bn_act_eval": (_EVAL, [_P, _I, _P, _P, _P, _F, _P, _P, _F, _P, _L, _I, _I, _P]),
+    "tdnn_bn_act_bwd_stats": (_BWD, [_P, _P, _I, _P, _P, _P, _P, _P, _F, _P, _L, _I, _I, _P]),
+    "tdnn_bn_act_bwd_finalize": (_BWD, [_P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "tdnn_bn_act_bwd_apply": (_BWD, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P, _L, _I,
+                                     _I, _P]),
+    "tdnn_bn_act_bwd_cbias": (_BWD, [_P, _I, _I, _I, _P, _P]),
 }
+_entry = build.entries("tdnn_bn_act_kernel", _SIGNATURES)
 _BWD_SUMS = 5   # the backward's per-row sums (csrc kBwdSums)
-
-
-@lru_cache(maxsize=None)
-def _fn(name: str):
-    fn = getattr(build.load("tdnn_bn_act_kernel"), name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, *args) -> None:
-    err = _fn(name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
 def _col(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -180,8 +168,7 @@ def _on(x: torch.Tensor, what: str) -> bool:
 
 def tdnn_bn_act_forward(x: torch.Tensor, conv_bias: torch.Tensor, scale: torch.Tensor,
                         bias: torch.Tensor, eps: float = 1e-5, slope: float = 0.2):
-    """The train forward: ``(y, mean, var, inv)``. Counts its kernel launches
-    in ``tdnn_bn_act_forward.launches``."""
+    """The train forward: ``(y, mean, var, inv)``."""
     if not _on(x, "tdnn_bn_act_forward"):
         y, mean, var = tdnn_bn_act_reference(x, conv_bias, scale, bias, eps, slope)
         return y, mean, var, torch.rsqrt(var + eps)
@@ -194,14 +181,13 @@ def tdnn_bn_act_forward(x: torch.Tensor, conv_bias: torch.Tensor, scale: torch.T
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         is_bf16, stream = _device_args(x)
-        _launch("tdnn_bn_stats", x.data_ptr(), is_bf16, conv_bias.data_ptr(), partial.data_ptr(),
-                b * c, c, t, stream)
-        _launch("tdnn_bn_finalize", partial.data_ptr(), b, c, t, eps, mean.data_ptr(),
-                var.data_ptr(), inv.data_ptr(), stream)
-        _launch("tdnn_bn_act_apply", x.data_ptr(), is_bf16, conv_bias.data_ptr(),
-                mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), slope,
-                y.data_ptr(), b * c, c, t, stream)
-        tdnn_bn_act_forward.launches += 3
+        build.launch(_entry("tdnn_bn_stats"), x.data_ptr(), is_bf16, conv_bias.data_ptr(),
+                     partial.data_ptr(), b * c, c, t, stream)
+        build.launch(_entry("tdnn_bn_finalize"), partial.data_ptr(), b, c, t, eps,
+                     mean.data_ptr(), var.data_ptr(), inv.data_ptr(), stream)
+        build.launch(_entry("tdnn_bn_act_apply"), x.data_ptr(), is_bf16, conv_bias.data_ptr(),
+                     mean.data_ptr(), inv.data_ptr(), scale.data_ptr(), bias.data_ptr(), slope,
+                     y.data_ptr(), b * c, c, t, stream)
     return y, mean, var, inv
 
 
@@ -210,8 +196,7 @@ def tdnn_bn_act_backward(x: torch.Tensor, dy: torch.Tensor, conv_bias: torch.Ten
                          bias: torch.Tensor, slope: float = 0.2, eps: float = 1e-5):
     """The train backward: ``(dx, dconv_bias, dscale, dbias)`` from the
     forward's ``mean`` and ``inv`` (``eps``, the forward's, for the plain
-    version's autograd). Counts its kernel launches in
-    ``tdnn_bn_act_backward.launches``."""
+    version's autograd)."""
     if not _on(x, "tdnn_bn_act_backward"):
         return tdnn_bn_act_backward_reference(x, dy, conv_bias, mean, inv, scale, bias, slope,
                                               eps)
@@ -231,24 +216,22 @@ def tdnn_bn_act_backward(x: torch.Tensor, dy: torch.Tensor, conv_bias: torch.Ten
             bias.data_ptr())
     with torch.cuda.device(x.device):
         is_bf16, stream = _device_args(x)
-        _launch("tdnn_bn_act_bwd_stats", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs, slope,
-                partial.data_ptr(), b * c, c, t, stream)
-        _launch("tdnn_bn_act_bwd_finalize", partial.data_ptr(), is_bf16, b, c, t,
-                inv.data_ptr(), sums.data_ptr(), coef.data_ptr(), stream)
-        _launch("tdnn_bn_act_bwd_apply", x.data_ptr(), dy.data_ptr(), is_bf16, *ptrs,
-                coef.data_ptr(), slope, dx.data_ptr(), cb_partial.data_ptr(), b * c, c, t,
-                stream)
-        _launch("tdnn_bn_act_bwd_cbias", cb_partial.data_ptr(), is_bf16, b, c,
-                sums[2].data_ptr(), stream)
-        tdnn_bn_act_backward.launches += 4
+        build.launch(_entry("tdnn_bn_act_bwd_stats"), x.data_ptr(), dy.data_ptr(), is_bf16,
+                     *ptrs, slope, partial.data_ptr(), b * c, c, t, stream)
+        build.launch(_entry("tdnn_bn_act_bwd_finalize"), partial.data_ptr(), is_bf16, b, c, t,
+                     inv.data_ptr(), sums.data_ptr(), coef.data_ptr(), stream)
+        build.launch(_entry("tdnn_bn_act_bwd_apply"), x.data_ptr(), dy.data_ptr(), is_bf16,
+                     *ptrs, coef.data_ptr(), slope, dx.data_ptr(), cb_partial.data_ptr(),
+                     b * c, c, t, stream)
+        build.launch(_entry("tdnn_bn_act_bwd_cbias"), cb_partial.data_ptr(), is_bf16, b, c,
+                     sums[2].data_ptr(), stream)
     return dx, sums[2], sums[1], sums[0]
 
 
 def tdnn_bn_act_eval(x: torch.Tensor, conv_bias: torch.Tensor, mean: torch.Tensor,
                      var: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      eps: float = 1e-5, slope: float = 0.2) -> torch.Tensor:
-    """The eval apply with the running ``mean`` and ``var``. Counts its
-    kernel launches in ``tdnn_bn_act_eval.launches``."""
+    """The eval apply with the running ``mean`` and ``var``."""
     if not _on(x, "tdnn_bn_act_eval"):
         return tdnn_bn_act_eval_reference(x, conv_bias, mean, var, scale, bias, eps, slope)
     _check_cuda(x, (conv_bias, mean, var, scale, bias), "tdnn_bn_act_eval")
@@ -256,16 +239,10 @@ def tdnn_bn_act_eval(x: torch.Tensor, conv_bias: torch.Tensor, mean: torch.Tenso
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         is_bf16, stream = _device_args(x)
-        _launch("tdnn_bn_act_eval", x.data_ptr(), is_bf16, conv_bias.data_ptr(), mean.data_ptr(),
-                var.data_ptr(), eps, scale.data_ptr(), bias.data_ptr(), slope, y.data_ptr(),
-                b * c, c, t, stream)
-        tdnn_bn_act_eval.launches += 1
+        build.launch(_entry("tdnn_bn_act_eval"), x.data_ptr(), is_bf16, conv_bias.data_ptr(),
+                     mean.data_ptr(), var.data_ptr(), eps, scale.data_ptr(), bias.data_ptr(),
+                     slope, y.data_ptr(), b * c, c, t, stream)
     return y
-
-
-tdnn_bn_act_forward.launches = 0
-tdnn_bn_act_backward.launches = 0
-tdnn_bn_act_eval.launches = 0
 
 
 class _TdnnBnActTrain(torch.autograd.Function):

@@ -273,7 +273,8 @@ def extract_features(
 
     Mel front-ends go through the fused kernels' wrapper
     (``ops.cuda.fbank.audio_features``), which launches a CUDA kernel on a
-    CUDA tensor and runs the plain version on a CPU tensor; ``stft`` runs
+    CUDA tensor (and refuses an ``n_fft`` that no kernel takes) and runs the
+    plain version on a CPU tensor; ``stft`` runs
     :func:`stft_features`.
 
     ``sample_lengths`` marks the true PCM length of each row of a

@@ -35,10 +35,11 @@ path none of them reads a value on the host or allocates pinned memory.
 - A graph keeps the addresses of the state tensors it was captured with;
   a state that was replaced (an optimizer's ``load_state_dict``) makes the
   runner capture again.
-- The kernels' wrappers count launches when they are called, so a capture
-  moves the counts once and a replay not at all. The runner takes back
-  what a capture added and adds it again on every replay, so ``.launches``
-  counts the kernels that ran.
+- The kernels' launches are counted when their wrappers are called
+  (``ops.cuda.launch_counts``), so a capture moves the counts once and a
+  replay not at all. The runner reads the counts before and after a
+  capture, puts them back to the first reading, and adds the difference on
+  every replay, so the counts are of the kernels that ran.
 - A capture that fails raises: there is no eager fallback on the card. On
   the CPU, :meth:`GroupedSteps.run` runs the K steps eagerly, one after
   another, so the grouping can be tested there.
@@ -75,19 +76,7 @@ from typing import Callable, Mapping, Sequence
 
 import torch
 
-from deeplip_tpu_torch.ops.cuda import bn_prelu, conv3d_wgrad, fbank, maxpool, tdnn_bn_act
-
-# (object, attribute) of every kernel launch count a train step can move
-KERNEL_COUNTERS = (
-    (fbank.fft_audio_features, "launches"), (fbank.mixed_fft_audio_features, "launches"),
-    (fbank.dft_audio_features, "launches"),
-    (bn_prelu.bn_prelu_forward, "launches"), (bn_prelu.bn_prelu_backward, "launches"),
-    (bn_prelu.bn_prelu_forward, "totals_launches"),
-    (bn_prelu.bn_prelu_backward, "totals_launches"),
-    (maxpool.maxpool_forward, "launches"), (maxpool.maxpool_backward, "launches"),
-    (conv3d_wgrad.conv3d_wgrad, "launches"),
-    (tdnn_bn_act.tdnn_bn_act_forward, "launches"), (tdnn_bn_act.tdnn_bn_act_backward, "launches"),
-    (tdnn_bn_act.tdnn_bn_act_eval, "launches"))
+from deeplip_tpu_torch.ops.cuda import build, launch_counts
 
 Body = Callable[[int, Mapping[str, torch.Tensor], Mapping[str, torch.Tensor]],
                 Mapping[str, torch.Tensor]]
@@ -115,7 +104,7 @@ class _Captured:
     scalars: dict
     outputs: dict
     state_ptrs: list
-    launches: list = field(default_factory=list)   # counter moves per replay
+    launches: dict = field(default_factory=dict)   # launch counts' moves per replay
     replays: int = 0
 
 
@@ -154,11 +143,9 @@ class GroupedSteps:
     """
 
     def __init__(self, body: Body, state: Callable[[], Sequence[torch.Tensor]],
-                 device: torch.device, prepare: Callable[[], None] = lambda: None,
-                 counters: Sequence[tuple[object, str]] = KERNEL_COUNTERS):
+                 device: torch.device, prepare: Callable[[], None] = lambda: None):
         self.body, self.state, self.prepare = (weak_callable(f) for f in (body, state, prepare))
         self.device = torch.device(device)
-        self.counters = counters
         self.captures = self.device.type == "cuda"
         self.graphs: dict[tuple, _Captured] = {}
         self.warmup_steps = 0
@@ -185,8 +172,7 @@ class GroupedSteps:
             self._fill(entry, inputs, scalars)
             entry.graph.replay()
         entry.replays += 1
-        for (obj, attr), moved in zip(self.counters, entry.launches):
-            setattr(obj, attr, getattr(obj, attr) + moved)
+        build.add_launches(entry.launches)
         return {n: t.clone() for n, t in entry.outputs.items()}
 
     def _steps(self, k: int, inputs, scalars) -> dict[str, torch.Tensor]:
@@ -202,9 +188,6 @@ class GroupedSteps:
             entry.inputs[n].copy_(t, non_blocking=True)
         for n, t in scalars.items():
             entry.scalars[n].copy_(t, non_blocking=True)
-
-    def _counts(self) -> list:
-        return [getattr(obj, attr) for obj, attr in self.counters]
 
     def _capture(self, k: int, inputs, scalars) -> _Captured:
         """The group's graph, captured after its K eager steps and replayed
@@ -222,11 +205,11 @@ class GroupedSteps:
         try:
             want_metrics, want_state = self._warm_up(k, static_in, static_sc)
             self._put_back(state, saved, rng)
-            before = self._counts()
+            before = launch_counts()
             graph, outputs = self._graph_capture(lambda: self._steps(k, static_in, static_sc))
-            entry.launches = [a - b for a, b in zip(self._counts(), before)]
-            for (obj, attr), count in zip(self.counters, before):
-                setattr(obj, attr, count)
+            after = launch_counts()
+            entry.launches = {key: after[key] - n for key, n in before.items() if after[key] != n}
+            build.add_launches({key: -n for key, n in entry.launches.items()})
             failed = self._ooms() - ooms
             if failed:
                 raise RuntimeError(_short_of_memory(failed, k))

@@ -9,6 +9,7 @@ and ``sample_lengths`` against the sequence it replaced.
 """
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,7 @@ import torch
 from deeplip_tpu.ops import features as JF
 from deeplip_tpu_torch.ops import features as TF
 from deeplip_tpu_torch.ops import framing, spectral
-from deeplip_tpu_torch.ops.cuda import fbank
+from deeplip_tpu_torch.ops.cuda import fbank, launch_counts
 
 torch.set_num_threads(1)
 
@@ -146,15 +147,23 @@ def test_emulated_power_matches_jax_fft_power_spectrum():
                                        (32, False), (8192, False), (400, True)])
 def test_dispatch_rule(n_fft, fft):
     """Every n_fft in [64, 4096] takes the FFT route: a power of two its
-    compile-time plan, any other size its mixed-radix plan; the rest the
-    DFT kernel."""
+    compile-time plan, any other size its mixed-radix plan; the rest only
+    the plain version on a CPU batch, and a CUDA batch at one is refused."""
     cfg = TF.FeatureConfig(n_fft=n_fft, win_len=min(0.025, n_fft / 16000))
     power_of_two = n_fft & (n_fft - 1) == 0
     assert fbank.front_end_kernel(cfg) == (
-        "dft" if not fft else "fft" if power_of_two else "mixed")
+        "plain" if not fft else "fft" if power_of_two else "mixed")
     if not (fft and power_of_two):
         with pytest.raises(ValueError, match="power-of-two"):
             fbank.fft_audio_features(torch.zeros(1, 4000), cfg)
+    if not fft:
+        # The refusal comes before any read of the batch, so a stand-in
+        # that only names a CUDA device reaches it on the CPU.
+        on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
+        launches = launch_counts()
+        with pytest.raises(ValueError, match=f"no front-end kernel takes n_fft {n_fft}"):
+            fbank.audio_features(on_card, cfg)
+        assert launches == launch_counts()
 
 
 def _three_passes(sig: torch.Tensor, cfg, lengths: torch.Tensor) -> torch.Tensor:
@@ -194,11 +203,8 @@ def test_only_a_cpu_tensor_reaches_the_plain_version():
     meta = torch.empty((2, 4000), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fbank.audio_features(meta, cfg)
-    for kernel in (fbank.fft_audio_features, fbank.dft_audio_features):
-        with pytest.raises(ValueError, match="runs on cuda"):
-            kernel(torch.zeros(2, 4000), cfg)
-    kernels = (fbank.fft_audio_features, fbank.mixed_fft_audio_features,
-               fbank.dft_audio_features)
-    launches = [k.launches for k in kernels]
+    with pytest.raises(ValueError, match="runs on cuda"):
+        fbank.fft_audio_features(torch.zeros(2, 4000), cfg)
+    launches = launch_counts()
     fbank.audio_features(torch.zeros(2, 4000), cfg)
-    assert launches == [k.launches for k in kernels]
+    assert launches == launch_counts()

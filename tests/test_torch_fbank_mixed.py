@@ -22,7 +22,7 @@ from deeplip_tpu.ops import features as JF
 from deeplip_tpu.ops.pallas.fbank_kernel import _v2_eligible, pallas_audio_features
 from deeplip_tpu_torch.ops import features as TF
 from deeplip_tpu_torch.ops import framing, spectral
-from deeplip_tpu_torch.ops.cuda import fbank
+from deeplip_tpu_torch.ops.cuda import fbank, launch_counts
 
 torch.set_num_threads(1)
 
@@ -202,12 +202,9 @@ def test_other_sizes_take_the_mixed_kernel(n_fft):
         with pytest.raises(ValueError, match="no power of two"):
             fbank.mixed_fft_audio_features(
                 torch.zeros(1, 4000), TF.FeatureConfig(n_fft=other, win_len=0.002))
-    counts = [k.launches for k in (fbank.fft_audio_features, fbank.mixed_fft_audio_features,
-                                   fbank.dft_audio_features)]
+    counts = launch_counts()
     fbank.audio_features(torch.zeros(2, 4000), cfg)
-    assert counts == [k.launches for k in (fbank.fft_audio_features,
-                                           fbank.mixed_fft_audio_features,
-                                           fbank.dft_audio_features)]
+    assert counts == launch_counts()
 
 
 # ------------------------------------------- the plain front-end vs Pallas

@@ -36,6 +36,7 @@ from deeplip_tpu.train.audio import _group_batches as jax_group_batches
 from deeplip_tpu.train.video import VideoTrainer as JaxVideoTrainer
 from deeplip_tpu_torch.core.config import Config
 from deeplip_tpu_torch.data.video_dataset import VideoClipBatches, scan_clip_dir
+from deeplip_tpu_torch.ops.cuda import build, launch_counts
 from deeplip_tpu_torch.train import dispatch
 from deeplip_tpu_torch.train.audio import AudioTrainer, group_batches
 from deeplip_tpu_torch.train.state import torch_adam, torch_sgd
@@ -245,19 +246,36 @@ def test_grouped_video_run_equals_a_single_run(tmp_path):
 
 
 # --------------------------------------------------- the runner's bookkeeping
+def _stub_entry(key: str) -> tuple:
+    """An entry as ``build.entries`` gives it, counted under ``key``, whose
+    C function launches nothing and returns 0."""
+    def stub(*args):
+        return 0
+    return stub, (key,)
+
+
+K1, K3 = _stub_entry("fft"), _stub_entry("bn_prelu_fwd")
+
+
+def _moved(since: dict) -> tuple[int, int]:
+    """K1's and K3's launches since the reading ``since``."""
+    now = launch_counts()
+    return now["fft"] - since["fft"], now["bn_prelu_fwd"] - since["bn_prelu_fwd"]
+
+
 class _StubGraph:
     """Stands in for a CUDA graph: replaying it runs the captured steps
     without calling the kernels' wrappers, so no launch count moves."""
 
-    def __init__(self, fn, outputs, counters, replays):
-        self.fn, self.outputs, self.counters, self.replays = fn, outputs, counters, replays
+    def __init__(self, fn, outputs, replays):
+        self.fn, self.outputs, self.replays = fn, outputs, replays
 
     def replay(self):
-        counts = {k: getattr(self.counters, k) for k in ("k1", "k3")}
+        counts = launch_counts()
         for name, value in self.fn().items():   # into the captured outputs
             self.outputs[name].copy_(value)
-        for k, v in counts.items():
-            setattr(self.counters, k, v)
+        now = launch_counts()
+        build.add_launches({k: counts[k] - now[k] for k in counts})
         self.replays.append(1)
 
 
@@ -275,34 +293,34 @@ class _StubRunner(dispatch.GroupedSteps):
         outputs = fn()
         for t, s in zip(self.state(), saved):
             t.copy_(s)
-        return _StubGraph(fn, outputs, self.counters[0][0], self._replays), outputs
+        return _StubGraph(fn, outputs, self._replays), outputs
 
 
 def test_replay_counts_and_state_with_a_stub_graph():
-    counters = types.SimpleNamespace(k1=0, k3=0)
+    start = launch_counts()
     state = {"w": torch.zeros(3)}
 
     def body(i, inputs, scalars):
-        counters.k1 += 1          # as a kernel's wrapper counts its launch
-        counters.k3 += 27
+        build.launch(K1)          # as a kernel's wrapper launches
+        for _ in range(27):
+            build.launch(K3)
         state["w"] += inputs["x"][i] * scalars["rate"][i]
         return {"loss": state["w"].sum().clone()}
 
     replays = []
-    runner = _StubRunner(body, lambda: [state["w"]], torch.device("cpu"),
-                         counters=((counters, "k1"), (counters, "k3")), replays=replays)
+    runner = _StubRunner(body, lambda: [state["w"]], torch.device("cpu"), replays=replays)
     x = torch.ones(2, 3)
     rate = torch.tensor([1.0, 2.0], dtype=torch.float64)
     out = runner.run({"x": x}, {"rate": rate})
     # the group's 2 steps ran eagerly (their state undone); one replay of 2
     assert runner.warmup_steps == 2 and len(replays) == 1
-    assert (counters.k1, counters.k3) == (2 + 2, 27 * 4)
+    assert _moved(start) == (2 + 2, 27 * 4)
     assert torch.equal(state["w"], torch.full((3,), 3.0))
     assert out["loss"].tolist() == [3.0, 9.0]
     out["loss"].zero_()                   # a copy: the static outputs stay
     out = runner.run({"x": x}, {"rate": torch.tensor([0.5, 0.5], dtype=torch.float64)})
     assert out["loss"].tolist() == [10.5, 12.0] and len(replays) == 2
-    assert (counters.k1, counters.k3) == (6, 27 * 6) and runner.warmup_steps == 2
+    assert _moved(start) == (6, 27 * 6) and runner.warmup_steps == 2
     assert len(runner.graphs) == 1
     # another shape captures anew; a replaced state tensor does too
     runner.run({"x": torch.ones(3, 3)}, {"rate": torch.ones(3, dtype=torch.float64)})
@@ -310,7 +328,7 @@ def test_replay_counts_and_state_with_a_stub_graph():
     state["w"] = state["w"].clone()
     runner.run({"x": x}, {"rate": rate})
     assert runner.warmup_steps == 7 and len(runner.graphs) == 2
-    assert (counters.k1, counters.k3) == (6 + 3 + 3 + 2 + 2, 27 * 16)
+    assert _moved(start) == (6 + 3 + 3 + 2 + 2, 27 * 16)
 
 
 @pytest.mark.parametrize("deterministic", [True, False], ids=["deterministic", "default"])
@@ -322,7 +340,6 @@ def test_a_first_replay_unlike_the_eager_steps_is_refused(deterministic):
     same state, and the runner raises, keeps no graph and leaves the state
     as it was before the group; a graph that agrees is kept. With cuDNN's
     nondeterministic algorithms allowed the check is off."""
-    counters = types.SimpleNamespace(k1=0, k3=0)
     state = {"w": torch.zeros(3)}
     drift = {"by": 0.0}
 
@@ -341,14 +358,13 @@ def test_a_first_replay_unlike_the_eager_steps_is_refused(deterministic):
     class DriftingRunner(_StubRunner):
         def _graph_capture(self, fn):
             graph, outputs = super()._graph_capture(fn)
-            return Drifting(graph.fn, outputs, graph.counters, graph.replays), outputs
+            return Drifting(graph.fn, outputs, graph.replays), outputs
 
     inputs = {"x": torch.ones(2, 3)}
     scalars = {"rate": torch.tensor([1.0, 2.0], dtype=torch.float64)}
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=deterministic, allow_tf32=False):
-        drifting = DriftingRunner(body, lambda: [state["w"]], torch.device("cpu"),
-                                  counters=((counters, "k1"), (counters, "k3")), replays=[])
+        drifting = DriftingRunner(body, lambda: [state["w"]], torch.device("cpu"), replays=[])
         if deterministic:
             with pytest.raises(RuntimeError, match="first replay of a group of 2 steps is not "
                                                    "bit-equal .*largest difference"):
@@ -358,8 +374,7 @@ def test_a_first_replay_unlike_the_eager_steps_is_refused(deterministic):
             drifting.run(inputs, scalars)
             assert len(drifting.graphs) == 1
             state["w"].zero_()
-        agreeing = _StubRunner(body, lambda: [state["w"]], torch.device("cpu"),
-                               counters=((counters, "k1"), (counters, "k3")), replays=[])
+        agreeing = _StubRunner(body, lambda: [state["w"]], torch.device("cpu"), replays=[])
         out = agreeing.run(inputs, scalars)
     assert len(agreeing.graphs) == 1 and out["loss"].tolist() == [3.0, 9.0]
     nan = float("nan")
@@ -502,9 +517,9 @@ def test_a_capture_short_of_memory_is_refused(monkeypatch):
     moved), or the card running out of memory there, makes the runner raise
     and keep no graph, with the launch counts as they were; with none the
     graph is kept."""
-    counters = types.SimpleNamespace(k1=0)
+    start = launch_counts()
     runner = dispatch.GroupedSteps(lambda i, inputs, scalars: {}, lambda: [],
-                                   torch.device("cpu"), counters=((counters, "k1"),))
+                                   torch.device("cpu"))
     runner.captures = True
     stats, failed = {"num_ooms": 0}, {"warm_up": 0, "capture": 0, "raise": 0}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -517,7 +532,8 @@ def test_a_capture_short_of_memory_is_refused(monkeypatch):
         return {"loss": torch.zeros(k)}, []
 
     def capture(fn):
-        counters.k1 += 2
+        build.launch(K1)
+        build.launch(K1)
         stats["num_ooms"] += failed["capture"]
         return types.SimpleNamespace(replay=lambda: None), {"loss": torch.zeros(2)}
 
@@ -530,6 +546,7 @@ def test_a_capture_short_of_memory_is_refused(monkeypatch):
                                                "capturing a group of 2"):
             runner._capture(2, inputs, scalars)
         failed[where] = 0
-    assert counters.k1 == 0
+    assert launch_counts() == start
     entry = runner._capture(2, inputs, scalars)
-    assert entry.graph is not None and entry.launches == [2] and counters.k1 == 0
+    assert entry.graph is not None and entry.launches == {"fft": 2}
+    assert launch_counts() == start

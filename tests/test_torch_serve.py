@@ -463,11 +463,11 @@ def test_build_names_its_temporary_output_per_call(monkeypatch, tmp_path):
     monkeypatch.setattr(build.subprocess, "Popen", FakeProc)
     replaced = []
     monkeypatch.setattr(build.os, "replace", lambda a, b: replaced.append((a, b)))
-    assert build.build(["fbank_kernel"]) == {"fbank_kernel": "ptxas info"}
-    build.build(["fbank_kernel"])
+    assert build.build(["fbank_fft_kernel"]) == {"fbank_fft_kernel": "ptxas info"}
+    build.build(["fbank_fft_kernel"])
     assert len(seen) == 2 and seen[0] != seen[1]
     assert [a for a, _ in replaced] == seen
-    assert all(str(b).endswith("libfbank_kernel.so") for _, b in replaced)
+    assert all(str(b).endswith("libfbank_fft_kernel.so") for _, b in replaced)
 
 
 def test_fp32_math_holds_across_threads():
