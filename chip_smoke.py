@@ -389,8 +389,22 @@ without the package, it exits non-zero and prints no result. Phases:
    faults; one profiled bf16 step. ``python3 chip_smoke.py --tdnn-bn-act``
    runs phases 1, 2 and 22 alone and prints one JSON line.
 
+23. The ResNet trunk's BN + PReLU eval apply (``bn_prelu_eval`` in
+   ``csrc/bn_prelu_kernel.cu``) at the fusion step's site shapes (3,840
+   frames: 44 x 44 x 64, 22 x 22 x 64, 11 x 11 x 128, 6 x 6 x 256,
+   3 x 3 x 512) in the forms each takes (plain, identity residual, BN
+   residual), f32 and bf16: bit-equal to the eager modules it replaces and
+   on a rerun, timed beside them and beside its byte bound (inputs read
+   once, y written once), the frontend site at 70 % of that bound or more,
+   and the sums over a fusion step's 17 sites; the three forms captured in
+   a CUDA graph and replayed twice bit-equal to eager runs; then 17
+   launches an eval ``frame_features`` call of the ResNet-18 Lipreading,
+   bit-equal to the eager trunk, and none in its train step or in the
+   audio ResNet's eval call. ``python3 chip_smoke.py --bn-prelu-eval`` runs
+   phases 1, 2 and 23 alone and prints one JSON line.
+
 The phases run in the order 1, 2, 14b, 19, 20, 17, 3-5, 18, 11, 6, 9, 21,
-22, 7, 8, 10, 12, 13, 14, 15, 16; each one's wall seconds are logged and
+22, 23, 7, 8, 10, 12, 13, 14, 15, 16; each one's wall seconds are logged and
 kept in the summary's ``phase_seconds``, and phase 14's by part (corpora, grouped runs,
 timing captures, profiled groups, the reference ``.pth``, the failed
 capture) in ``phase_14_parts_seconds``. The last line is
@@ -480,7 +494,10 @@ from deeplip_tpu_torch.ops.framing import num_frames, samples_for_frames  # noqa
 from deeplip_tpu_torch.models.norm import TorchBatchNorm  # noqa: E402
 from deeplip_tpu_torch.models import tdnn as tdnn_model  # noqa: E402
 from deeplip_tpu_torch.models.lipreading import frontend_conv  # noqa: E402
-from deeplip_tpu_torch.models.resnet import conv_nhwc  # noqa: E402
+from deeplip_tpu_torch.models import resnet as resnet_model  # noqa: E402
+from deeplip_tpu_torch.models.audio_resnet import AudioResNet  # noqa: E402
+from deeplip_tpu_torch.models.lipreading import Lipreading  # noqa: E402
+from deeplip_tpu_torch.models.resnet import PReLU, conv_nhwc, eval_bn  # noqa: E402
 from deeplip_tpu_torch.serve import AVSpeakerVerifier, MicroBatcher, SpeakerVerifier  # noqa: E402
 from deeplip_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from deeplip_tpu_torch.train import dispatch, flops, tb_events  # noqa: E402
@@ -2878,6 +2895,232 @@ def tdnn_bn_act_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 23
+# The eval apply's sites in a fusion step: (frames, H, W, C) of the frozen
+# Lipreading frame path over 60 items x 2 clip slots x 32 frames at crop 88,
+# and how many sites of each form a step has at that shape
+EVAL_FRAMES = 60 * 2 * 32
+EVAL_SITES = [((EVAL_FRAMES, 44, 44, 64), {"plain": 1}),
+              ((EVAL_FRAMES, 22, 22, 64), {"plain": 2, "identity": 2}),
+              ((EVAL_FRAMES, 11, 11, 128), {"plain": 2, "identity": 1, "bn_residual": 1}),
+              ((EVAL_FRAMES, 6, 6, 256), {"plain": 2, "identity": 1, "bn_residual": 1}),
+              ((EVAL_FRAMES, 3, 3, 512), {"plain": 2, "identity": 1, "bn_residual": 1})]
+# |x| multiples of the least traffic: each input read once, y written once
+EVAL_BYTES = {"plain": 2, "identity": 3, "bn_residual": 3}
+
+
+def video_eval_launches(trunk_layers=(2, 2, 2, 2)) -> int:
+    """The eval apply's launches in an eval ``frame_features`` call of a
+    PReLU ResNet Lipreading: the frontend site and two a block."""
+    return 1 + 2 * sum(trunk_layers)
+
+
+VIDEO_EVAL_LAUNCHES = video_eval_launches()   # ResNet-18
+EVAL_BOUND_SHARE = 0.70           # the frontend site's least share of its bound
+EVAL_REPLAY_SHAPE = (64, 11, 11, 128)
+
+
+def eval_site(shape, form: str, dtype, seed: int) -> tuple:
+    """Seeded ``(x, residual, bn, residual_bn, act)`` of one eval site on the
+    card: activations with a per-channel spread, eval-mode BNs with random
+    running statistics and affine parameters, a PReLU with random slopes;
+    ``residual`` and ``residual_bn`` are None below their form."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    rand = lambda: torch.rand(c, generator=g, device="cuda")
+
+    def act_in():
+        return (torch.randn(shape, generator=g, device="cuda") * (0.5 + 2 * rand())).to(dtype)
+
+    def bn():
+        m = TorchBatchNorm(c).cuda().eval()
+        with torch.no_grad():
+            m.weight.copy_(0.5 + rand())
+            m.bias.copy_(rand() - 0.5)
+            m.running_mean.copy_(rand() - 0.5)
+            m.running_var.copy_(0.5 + 2 * rand())
+        return m
+
+    act = PReLU(c).cuda()
+    with torch.no_grad():
+        act.weight.copy_(0.1 + 0.3 * rand())
+    x, norm = act_in(), bn()
+    residual = None if form == "plain" else act_in()
+    return x, residual, norm, bn() if form == "bn_residual" else None, act
+
+
+def eval_apply(x, residual, bn, residual_bn, act) -> torch.Tensor:
+    return bn_prelu.bn_prelu_eval(x, eval_bn(bn), act.weight, residual,
+                                  None if residual_bn is None else eval_bn(residual_bn))
+
+
+def eval_eager(x, residual, bn, residual_bn, act) -> torch.Tensor:
+    """The eager modules the eval apply replaces: the library yardstick."""
+    z = bn(x)
+    if residual is not None:
+        z = z + (residual if residual_bn is None else residual_bn(residual))
+    return act(z)
+
+
+def bn_prelu_eval_check(shape, form: str, dtype, peaks, seed: int) -> dict:
+    """The eval apply at one site against the eager modules (bit-equal),
+    bit-equal on a rerun, and timed beside them and its byte bound."""
+    site = eval_site(shape, form, dtype, seed)
+    what = f"eval apply {shape} {form} {str(dtype)[6:]}"
+    with torch.no_grad():
+        y, again, ye = eval_apply(*site), eval_apply(*site), eval_eager(*site)
+        row = {"shape": list(shape), "form": form, "dtype": str(dtype)[6:],
+               "bit_equal_eager": bit_equal(y, ye)}
+        check(bit_equal(y, again), f"{what}: not bit-equal on a rerun")
+        check(row["bit_equal_eager"], f"{what}: {rel_max(y, ye):.3e} from the eager modules")
+        del y, again, ye
+        row.update(ms=time_ms(lambda: eval_apply(*site)),
+                   eager_ms=time_ms(lambda: eval_eager(*site), iters=5),
+                   bound_ms=EVAL_BYTES[form] * math.prod(shape) * site[0].element_size()
+                   / peaks[2] * 1e3)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    del site
+    torch.cuda.empty_cache()
+    return row
+
+
+def eval_replay_equal() -> bool:
+    """The three forms in f32 and bf16 captured in one CUDA graph and
+    replayed twice: bit-equal to the same calls run eagerly."""
+    sites = [eval_site(EVAL_REPLAY_SHAPE, form, dtype, 2300 + i)
+             for i, (form, dtype) in enumerate(itertools.product(
+                 ("plain", "identity", "bn_residual"), (torch.float32, torch.bfloat16)))]
+
+    def calls():
+        return [eval_apply(*site) for site in sites]
+
+    with torch.no_grad():
+        want = calls()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            calls()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = calls()
+    equal = []
+    for _ in range(2):
+        for o in out:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        equal.append(all(bit_equal(o, w) for o, w in zip(out, want)))
+    del graph
+    return all(equal)
+
+
+def randomised_bns(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Random running statistics, affine parameters and PReLU slopes."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, TorchBatchNorm):
+                c = m.weight.shape[0]
+                m.weight.copy_(0.5 + torch.rand(c, generator=g, device="cuda"))
+                m.bias.copy_(torch.rand(c, generator=g, device="cuda") - 0.5)
+                m.running_mean.copy_(torch.rand(c, generator=g, device="cuda") - 0.5)
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g, device="cuda"))
+            elif isinstance(m, PReLU):
+                m.weight.copy_(0.1 + 0.3 * torch.rand(m.weight.shape, generator=g,
+                                                      device="cuda"))
+    return module
+
+
+def eval_route_check() -> dict:
+    """The eval apply's launches on the model paths: an eval
+    ``frame_features`` call of the ResNet-18 Lipreading (bit-equal to the
+    eager trunk's), its train step, and an eval call of the audio ResNet."""
+    net = randomised_bns(Lipreading(num_classes=57).cuda(), 2320)
+    clips = torch.rand((2, 8, 88, 88, 1), generator=torch.Generator(device="cuda")
+                       .manual_seed(2321), device="cuda")
+    launches = {}
+    with torch.no_grad(), fp32_math():
+        before = launch_counts()
+        got = net.eval().frame_features(clips)
+        launches["eval_frame_features"] = launches_since(before, ("bn_prelu_eval",))
+        kernel_takes = resnet_model.eval_kernel_takes
+        resnet_model.eval_kernel_takes = lambda *args: False
+        try:
+            want = net.frame_features(clips)
+        finally:
+            resnet_model.eval_kernel_takes = kernel_takes
+        audio = randomised_bns(AudioResNet().cuda(), 2322).eval()
+        before = launch_counts()
+        audio.extract_embedding(torch.randn((4, 200, 24), device="cuda"))
+        launches["audio_resnet_eval"] = launches_since(before, ("bn_prelu_eval",))
+    before = launch_counts()
+    net.train().frame_features(clips).square().mean().backward()
+    launches["train_step"] = launches_since(before, ("bn_prelu_eval",))
+    check(bit_equal(got, want), "an eval frame_features call through the eval apply is "
+          f"{rel_max(got, want):.3e} from the eager trunk")
+    want_launches = {"eval_frame_features": {"bn_prelu_eval": VIDEO_EVAL_LAUNCHES},
+                     "audio_resnet_eval": {"bn_prelu_eval": 0},
+                     "train_step": {"bn_prelu_eval": 0}}
+    check(launches == want_launches, f"eval apply launches {launches}, expected {want_launches}")
+    del net, audio
+    torch.cuda.empty_cache()
+    return {k: v["bn_prelu_eval"] for k, v in launches.items()}
+
+
+def bn_prelu_eval_phase(peaks, smi: str) -> dict:
+    """Phase 23: the eval apply at the fusion step's sites, its graph replay,
+    what it refuses, and its route."""
+    rows = [bn_prelu_eval_check(shape, form, dtype, peaks, 2310 + i)
+            for i, (dtype, (shape, forms)) in enumerate(
+                itertools.product((torch.float32, torch.bfloat16), EVAL_SITES))
+            for form in forms]
+    for r in rows:
+        log(f"eval apply {r['shape']} {r['form']} {r['dtype']}: " + json.dumps(
+            {k: v for k, v in r.items() if k not in ("shape", "form", "dtype")}) + f" [{smi}]")
+    front = rows[0]
+    check(front["share_of_bound"] >= EVAL_BOUND_SHARE,
+          f"the eval apply at the frontend site reads {front['share_of_bound']:.1%} of its "
+          f"bound, bar {EVAL_BOUND_SHARE:.0%}")
+    step = {}
+    for dtype in ("float32", "bfloat16"):
+        counts = {(tuple(shape), form): n for shape, forms in EVAL_SITES
+                  for form, n in forms.items()}
+        step[dtype] = {key: sum(counts[(tuple(r["shape"]), r["form"])] * r[key] for r in rows
+                                if r["dtype"] == dtype) for key in ("ms", "eager_ms", "bound_ms")}
+    check(sum(sum(f.values()) for _, f in EVAL_SITES) == VIDEO_EVAL_LAUNCHES,
+          "the fusion step's sites do not add up to a frame_features call's")
+    replay = eval_replay_equal()
+    check(replay, "eval apply: a CUDA-graph replay differs from the eager calls")
+    refused = []
+    for x, error in ((torch.zeros((4, 8), device="cuda").t(), ValueError),
+                     (torch.zeros((4, 6), device="cuda"), ValueError),
+                     (torch.zeros((4, 8), device="cuda", dtype=torch.float16), TypeError)):
+        p = torch.ones(x.shape[-1], device="cuda")
+        try:
+            bn_prelu.bn_prelu_eval(x, bn_prelu.EvalBN(p, p, p, p, 1e-5), p)
+        except error:
+            refused.append(True)
+    check(refused == [True] * 3,
+          "the eval apply took a non-contiguous, a C = 6 or an fp16 activation")
+    route = eval_route_check()
+    log(f"eval apply, a fusion step's 17 sites (ms): {json.dumps(step)}; graph replay "
+        f"bit-equal {replay}; launches {route} [{smi}]")
+    release()
+    return {"sites": rows, "fusion_step_ms": step, "graph_replay_bit_equal": replay,
+            "launches": route}
+
+
+def bn_prelu_eval_only() -> int:
+    """``--bn-prelu-eval``: phases 1, 2 and 23 alone, one JSON line."""
+    dev = device_phase()
+    _, peaks = card_peaks(dev["name"])
+    build_phase()
+    out = bn_prelu_eval_phase(peaks, dev["smi"])
+    print(json.dumps({"card": dev["smi"], "bn_prelu_eval": out}), flush=True)
+    return 0
+
+
 # ---------------------------------------------------------------- phase 7
 VIDEO_SPEAKERS, VIDEO_CLIPS, VIDEO_BATCH = 32, 8, 128
 
@@ -3531,9 +3774,10 @@ def av_serving_phase(device=None) -> dict:
         head = av_verifier_run(fusion_config(root, resume, True), root, items, False, device)
         fb = launches_since(before, FBANK)
         launches = {"fused_fbank": fb["fft"],
-                    "maxpool_fwd": launches_since(before, ("maxpool_fwd",))["maxpool_fwd"]}
+                    **launches_since(before, ("maxpool_fwd", "bn_prelu_eval"))}
         chunks = concat["chunks"] + head["chunks"]
-        check(fb == {"fft": chunks, "mixed": 0} and launches["maxpool_fwd"] == chunks > 0,
+        check(fb == {"fft": chunks, "mixed": 0} and launches["maxpool_fwd"] == chunks > 0
+              and launches["bn_prelu_eval"] == VIDEO_EVAL_LAUNCHES * chunks,
               f"{launches} for {chunks} extraction chunks")
         check(concat["dim"] == 1024 and head["dim"] == 3 * 512,
               f"fused dims {concat['dim']} (concat) and {head['dim']} (head)")
@@ -4012,7 +4256,7 @@ def fusion_train_phase(smi: str, peaks, device=None) -> dict:
                 wall = time.perf_counter() - t0
         finally:
             FusionTrainer.train = train
-        counts = launches_since(before, FBANK + VIDEO + TDNN)
+        counts = launches_since(before, FBANK + VIDEO + TDNN + ("bn_prelu_eval",))
         bpe = AVTrainPipeline(trainer.manifest, {}, FUSION_BATCH).batches_per_epoch()
         steps, losses = trainer.step, out["losses"]
         group = trainer.optimizer.param_groups[0]
@@ -4026,7 +4270,8 @@ def fusion_train_phase(smi: str, peaks, device=None) -> dict:
               f"{steps} steps for {FUSION_EPOCHS} x {bpe} batches, losses {losses}")
         want = {"fft": steps + chunks[0], "mixed": 0, "bn_prelu_fwd": 0, "bn_prelu_bwd": 0,
                 "maxpool_fwd": steps + chunks[0], "maxpool_bwd": 0,
-                **tdnn_want(evals=steps + chunks[0])}
+                **tdnn_want(evals=steps + chunks[0]),
+                "bn_prelu_eval": VIDEO_EVAL_LAUNCHES * (steps + chunks[0])}
         check(counts == want, f"launches {counts} for {steps} train steps and {chunks[0]} "
               f"extraction chunks; expected {want}")
         drift = {k: float((getattr(trainer.fusion_head, k).detach() - start[k]).abs().max())
@@ -6536,10 +6781,12 @@ def study_launches(name: str, epochs: int, report: dict) -> dict:
     take the shared features); the video study K3/K4 at every site of every
     step, P's backward once a step and its forward once a step and twice an
     evaluation (logits, trunk features), the frontend conv's weight gradient
-    once a step (f32); the fusion study K1 and P's forward once a step and
-    once an evaluation. T at every block of the audio study's E-TDNN in
-    every step and extraction batch, and of the fusion study's frozen one
-    in every step and evaluation."""
+    once a step (f32), and the eval apply at every site of each
+    evaluation's two forwards; the fusion study K1, P's forward and the eval
+    apply at every site of its frozen trunk once a step and once an
+    evaluation. T at every block of the audio study's E-TDNN in every step
+    and extraction batch, and of the fusion study's frozen one in every
+    step and evaluation."""
     want = dict.fromkeys(report["launches"], 0)
     if name == "audio":
         steps = epochs * convergence_study.STEPS_PER_EPOCH
@@ -6550,12 +6797,17 @@ def study_launches(name: str, epochs: int, report: dict) -> dict:
         steps = epochs * convergence_video_study.STEPS_PER_EPOCH
         want.update(bn_prelu_fwd=VIDEO_BN_LAUNCHES_PER_STEP * steps,
                     bn_prelu_bwd=VIDEO_BN_LAUNCHES_PER_STEP * steps,
-                    maxpool_fwd=steps + 2 * epochs, maxpool_bwd=steps, conv3d_wgrad=steps)
+                    maxpool_fwd=steps + 2 * epochs, maxpool_bwd=steps, conv3d_wgrad=steps,
+                    bn_prelu_eval=video_eval_launches(report["recipe"]["arch"]["trunk_layers"])
+                    * 2 * epochs)
     else:
         steps = epochs * convergence_fusion_study.STEPS_PER_EPOCH
+        arch = report["recipe"]["arch"]
         want.update(fft=steps + epochs, maxpool_fwd=steps + epochs,
+                    bn_prelu_eval=video_eval_launches(arch["video"]["trunk_layers"])
+                    * (steps + epochs),
                     **tdnn_want(evals=steps + epochs,
-                                blocks=len(report["recipe"]["arch"]["audio"]["context"])))
+                                blocks=len(arch["audio"]["context"])))
     return want
 
 
@@ -6909,6 +7161,29 @@ def tdnn_entry(tdnn: dict) -> dict:
     }
 
 
+def bn_prelu_eval_entry(bn_eval: dict, fusion: dict, av: dict) -> dict:
+    """The kernels record's entry for the eval apply (phase 23), with its
+    launches on the fusion training and AV serving paths."""
+    return {
+        "name": "bn_prelu_eval",
+        "route": "cuda",
+        "source": "deeplip_tpu_torch/csrc/bn_prelu_kernel.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: XLA fuses the eval-mode trunk's BN, PReLU and "
+                         "residual add on the TPU; on the card they ran as eager passes",
+        "launches_route": bn_eval["launches"],
+        "launches_fusion_train": fusion["launches"]["bn_prelu_eval"],
+        "launches_av_serving": av["launches"]["bn_prelu_eval"],
+        "bit_equal_eager": all(r["bit_equal_eager"] for r in bn_eval["sites"]),
+        "graph_replay_bit_equal": bn_eval["graph_replay_bit_equal"],
+        "per_fusion_step_ms": bn_eval["fusion_step_ms"],
+        "sites": bn_eval["sites"],
+        "bound_by": "bytes (each input read once, y written once)",
+        "library_note": "the eager modules the trunk ran before: TorchBatchNorm in eval "
+                        "mode, the residual add and PReLU",
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -6948,6 +7223,7 @@ def main() -> int:
     pool = phase("9", maxpool_phase, peaks)
     wgrad = phase("21", conv3d_wgrad_phase, peaks)
     tdnn = phase("22", tdnn_bn_act_phase, peaks, dev["smi"])
+    bn_eval = phase("23", bn_prelu_eval_phase, peaks, dev["smi"])
     video = phase("7", video_main_path_phase)
     step = phase("8", video_step_phase, video.pop("trainer"), video.pop("full_batch"), bn)
     torch.cuda.empty_cache()
@@ -7051,6 +7327,7 @@ def main() -> int:
         totals_entry("bn_prelu_bwd_totals", "bwd", group)]}
     kernels["kernels"].append(conv3d_wgrad_entry(wgrad, grouped["video"]))
     kernels["kernels"].append(tdnn_entry(tdnn))
+    kernels["kernels"].append(bn_prelu_eval_entry(bn_eval, fusion, av))
     by_name = {e["name"]: e for e in kernels["kernels"]}
     for name in ("fused_fbank", "fused_fbank_v1_configs"):
         by_name[name]["launches_fusion_train"] = fusion["launches"]["fft"]
@@ -7193,6 +7470,7 @@ def main() -> int:
         "video_bf16": video_bf16,
         "conv3d_wgrad": wgrad,
         "tdnn_bn_act": tdnn,
+        "bn_prelu_eval": bn_eval,
         "grouped_dispatch": grouped,
         "variants": variants,
         "kaldi_host_io": kaldi_io,
@@ -7222,4 +7500,6 @@ if __name__ == "__main__":
         sys.exit(conv3d_wgrad_only())
     if sys.argv[1:2] == ["--tdnn-bn-act"]:
         sys.exit(tdnn_bn_act_only())
+    if sys.argv[1:2] == ["--bn-prelu-eval"]:
+        sys.exit(bn_prelu_eval_only())
     sys.exit(main())

@@ -47,6 +47,24 @@
 // that nothing contracts into an FMA: y differs from the plain version's
 // only through the statistics' rounding, and the backward decides z < 0
 // exactly as the forward did.
+//
+// Eval (no TPU kernel: XLA fuses the eval-mode trunk's BN, PReLU and
+// residual add): one pass over the activation with the running statistics,
+// in one of three forms, for the ResNet trunk's BN + PReLU sites when no
+// gradient is needed (a frozen encoder, extraction, serving):
+//   plain:             y = prelu(bn(a))
+//   identity residual: y = prelu(bn(a) + r)
+//   BN residual:       y = prelu(bn(a) + bn_d(b))
+// with bn(a) = ((a - mean) * rsqrt(var + eps)) * scale + bias. Each op is
+// rounded where the eager ops of TorchBatchNorm, the residual add and PReLU
+// round it, in the activation's type (f32, or bf16 after every op, with the
+// constants cast to bf16 as the eager ops cast them), so y is the eager ops'
+// result bit for bit. Eagerly the same sites make seven to thirteen passes,
+// 58 to 102 bytes an f32 element; here 8 (plain) or 12 (residual).
+// What bounds it on this card: bytes. Each thread keeps one group of V
+// channels (16 bytes: four f32 or eight bf16) and their constants in
+// registers, and strides down the rows of a persistent grid sized to the
+// SMs, with several rows' loads in flight before any store.
 
 #include "vec4.cuh"
 
@@ -354,6 +372,163 @@ bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
+// ---------------------------------------------------------------- eval
+
+// A value rounded to the activation type T, as an eager op in T rounds its
+// result (T's kernels keep the same rule).
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// V channels of T in one 16-byte (or, for bf16 at a C that is no multiple
+// of 8, 8-byte) load or store.
+__device__ __forceinline__ void vload(const float* p, float (&v)[4]) { load4(p, v); }
+__device__ __forceinline__ void vload(const __nv_bfloat16* p, float (&v)[4]) { load4(p, v); }
+__device__ __forceinline__ void vload(const __nv_bfloat16* p, float (&v)[8]) { load8(p, v); }
+__device__ __forceinline__ void vstore(float* p, const float (&v)[4]) { store4(p, v); }
+__device__ __forceinline__ void vstore(__nv_bfloat16* p, const float (&v)[4]) { store4(p, v); }
+__device__ __forceinline__ void vstore(__nv_bfloat16* p, const float (&v)[8]) { store8(p, v); }
+
+// The pointers of one BatchNorm's running statistics and affine parameters.
+struct EvalBN {
+  const float *mean, *var, *scale, *bias;
+  float eps;
+};
+
+// One BatchNorm's constants for a thread's V channels as its eager ops see
+// them: mean, inv = rsqrtf(var + eps) (the eager rsqrt), scale and bias,
+// each cast to T.
+template <typename T, int V>
+struct ChannelBN {
+  float m[V], iv[V], sc[V], bi[V];
+
+  __device__ __forceinline__ void load(const EvalBN& p, int c0) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      m[k] = round_to<T>(__ldg(p.mean + c0 + k));
+      iv[k] = round_to<T>(rsqrtf(__fadd_rn(__ldg(p.var + c0 + k), p.eps)));
+      sc[k] = round_to<T>(__ldg(p.scale + c0 + k));
+      bi[k] = round_to<T>(__ldg(p.bias + c0 + k));
+    }
+  }
+
+  // ((a - mean) * inv) * scale + bias, each op rounded to T
+  __device__ __forceinline__ float apply(float a, int k) const {
+    const float y1 = round_to<T>(__fmul_rn(round_to<T>(__fsub_rn(a, m[k])), iv[k]));
+    return round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(y1, sc[k])), bi[k]));
+  }
+};
+
+constexpr int kPlain = 0, kIdentityResidual = 1, kBNResidual = 2;
+
+// Eval: y = prelu(bn(a) [+ r | + bn_d(r)]) over a (rows, C) activation.
+// Thread t owns channel group t % (C / V) and the rows t / (C / V), +
+// slots, ...: on the first row the grid reads one contiguous span, and each
+// later row moves the span by slots * C. U rows' loads go out before their
+// arithmetic and stores.
+template <typename T, int V, int FORM>
+__global__ void __launch_bounds__(kThreads)
+bn_prelu_eval_kernel(const T* __restrict__ a, const T* __restrict__ r, EvalBN bn, EvalBN bn_d,
+                     const float* __restrict__ alpha, T* __restrict__ y, long long rows,
+                     int C) {
+  constexpr int U = FORM == kPlain ? 4 : 2;
+  const int groups = C / V;
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long slots = (long long)gridDim.x * blockDim.x / groups;
+  long long row = t / groups;
+  if (row >= slots) return;
+  const int c0 = (int)(t % groups) * V;
+  ChannelBN<T, V> k0, kd;
+  k0.load(bn, c0);
+  if constexpr (FORM == kBNResidual) kd.load(bn_d, c0);
+  float al[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) al[k] = round_to<T>(__ldg(alpha + c0 + k));
+
+  auto finish = [&](float (&v)[V], const float (&w)[V]) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      float z = k0.apply(v[k], k);
+      if constexpr (FORM == kIdentityResidual) z = round_to<T>(__fadd_rn(z, w[k]));
+      if constexpr (FORM == kBNResidual) z = round_to<T>(__fadd_rn(z, kd.apply(w[k], k)));
+      v[k] = z >= 0.f ? z : round_to<T>(__fmul_rn(al[k], z));
+    }
+  };
+
+  for (; row + (U - 1) * slots < rows; row += U * slots) {
+    float v[U][V], w[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long i = (row + u * slots) * C + c0;
+      vload(a + i, v[u]);
+      if constexpr (FORM != kPlain) vload(r + i, w[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      finish(v[u], w[u]);
+      vstore(y + (row + u * slots) * C + c0, v[u]);
+    }
+  }
+  for (; row < rows; row += slots) {
+    float v[V], w[V];
+    const long long i = row * C + c0;
+    vload(a + i, v);
+    if constexpr (FORM != kPlain) vload(r + i, w);
+    finish(v, w);
+    vstore(y + i, v);
+  }
+}
+
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return sms;
+}
+
+// The persistent grid: as many blocks as stay resident on the SMs at once,
+// fewer for a small activation, and at least one row slot for every
+// channel group.
+template <typename T, int V, int FORM>
+int launch_eval(const void* a, const void* r, const EvalBN& bn, const EvalBN& bn_d,
+                const float* alpha, void* y, long long rows, int C, cudaStream_t s) {
+  static const int resident = [] {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, bn_prelu_eval_kernel<T, V, FORM>,
+                                                  kThreads, 0);
+    return n > 0 ? n : 1;
+  }();
+  const long long groups = C / V;
+  long long blocks = (rows * groups + kThreads - 1) / kThreads;
+  const long long most = (long long)sm_count() * resident;
+  const long long least = (groups + kThreads - 1) / kThreads;
+  blocks = blocks < most ? blocks : most;
+  blocks = blocks > least ? blocks : least;
+  bn_prelu_eval_kernel<T, V, FORM><<<(int)blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(a), static_cast<const T*>(r), bn, bn_d, alpha, static_cast<T*>(y),
+      rows, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch_eval_form(int form, const void* a, const void* r, const EvalBN& bn,
+                     const EvalBN& bn_d, const float* alpha, void* y, long long rows, int C,
+                     cudaStream_t s) {
+  if (form == kIdentityResidual)
+    return launch_eval<T, V, kIdentityResidual>(a, r, bn, bn_d, alpha, y, rows, C, s);
+  if (form == kBNResidual)
+    return launch_eval<T, V, kBNResidual>(a, r, bn, bn_d, alpha, y, rows, C, s);
+  return launch_eval<T, V, kPlain>(a, r, bn, bn_d, alpha, y, rows, C, s);
+}
+
 int grid_for(long long n4) {
   const long long blocks = (n4 + kThreads - 1) / kThreads;
   return (int)(blocks < kMaxGrid ? (blocks > 0 ? blocks : 1) : kMaxGrid);
@@ -485,6 +660,22 @@ int bn_prelu_bwd_apply(const void* x, const void* dy, int is_bf16,
         static_cast<const float*>(x), static_cast<const float*>(dy),
         mean, inv, scale, bias, alpha, means, static_cast<float*>(dx), n4, C);
   return (int)cudaGetLastError();
+}
+
+// The eval apply. form: 0 plain, 1 identity residual (r added as it is), 2
+// BN residual (bn_d applied to r first); r and the bn_d pointers are unused
+// below their form. The (rows, C) activations are 16-byte aligned, C a
+// multiple of 4.
+int bn_prelu_eval(const void* a, const void* r, int is_bf16, int form, const float* mean,
+                  const float* var, const float* scale, const float* bias, float eps,
+                  const float* mean_d, const float* var_d, const float* scale_d,
+                  const float* bias_d, float eps_d, const float* alpha, void* y,
+                  long long rows, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const EvalBN bn{mean, var, scale, bias, eps}, bn_d{mean_d, var_d, scale_d, bias_d, eps_d};
+  if (!is_bf16) return launch_eval_form<float, 4>(form, a, r, bn, bn_d, alpha, y, rows, C, s);
+  if (C % 8) return launch_eval_form<__nv_bfloat16, 4>(form, a, r, bn, bn_d, alpha, y, rows, C, s);
+  return launch_eval_form<__nv_bfloat16, 8>(form, a, r, bn, bn_d, alpha, y, rows, C, s);
 }
 
 }  // extern "C"

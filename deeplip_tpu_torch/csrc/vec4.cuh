@@ -2,7 +2,8 @@
 // thread owns four neighbouring channels, one float4 or four bf16 in 8
 // bytes, and computes on them in f32. Beside them, plain reads of four or
 // eight channels and of one byte a channel from shared memory (read4,
-// read8, read_bytes), and eight bf16 in one 16-byte store (store8).
+// read8, read_bytes), and eight bf16 in one 16-byte load or store (load8,
+// store8).
 
 #pragma once
 
@@ -24,6 +25,17 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   v[1] = __uint_as_float(t.x & 0xffff0000u);
   v[2] = __uint_as_float(t.y << 16);
   v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  // eight bf16 in one 16-byte load; element 0 sits in the low half of .x
+  const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
 }
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {

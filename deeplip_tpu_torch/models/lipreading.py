@@ -10,7 +10,9 @@ for the ShuffleNetV2 one (2048 at ``width_mult: 2.0``).
   BN → PReLU → max-pool (1,3,3)/(1,2,2)/pad (0,1,1) with ``-inf`` padding.
   The JAX package computes the same conv by a space-to-depth rewrite for
   the TPU; here it is a plain ``nn.Conv3d``. In train mode the BN + PReLU
-  pair is the fused op (K3/K4 on the card). In f32 training the conv's
+  pair is the fused op (K3/K4 on the card); in eval mode on the card with
+  no gradient needed it is one pass of the eval apply, as are the trunk's
+  sites (``models/resnet.py``). In f32 training the conv's
   weight gradient is ``csrc/conv3d_wgrad_kernel.cu`` on the card
   (:func:`frontend_conv`). The pool is
   :func:`deeplip_tpu_torch.ops.cuda.maxpool.maxpool_frontend` on the

@@ -15,8 +15,15 @@ in bf16 with BN statistics in >= f32; the global average pool promotes to
 
 In train mode each ``bn1`` + PReLU pair runs as one fused op,
 :func:`deeplip_tpu_torch.ops.cuda.bn_prelu.bn_prelu_train` (the K3/K4
-kernels on the card), followed by ``bn1``'s running update. Parameter names
-follow the reference torch layout (``conv1``, ``bn1``, ``relu1``, ...,
+kernels on the card), followed by ``bn1``'s running update. In eval mode,
+on the card, with no gradient needed (a frozen encoder, extraction,
+serving), each PReLU site is one pass of
+:func:`deeplip_tpu_torch.ops.cuda.bn_prelu.bn_prelu_eval` with the running
+statistics: ``bn1`` + PReLU, and ``bn2`` + the residual add (the
+downsample's BN folded in) + PReLU, bit for bit the eager ops' result
+(:func:`eval_kernel_takes`). Every other call (the CPU, f64, ReLU blocks,
+an eval block whose output needs a gradient) runs the eager ops.
+Parameter names follow the reference torch layout (``conv1``, ``bn1``, ``relu1``, ...,
 ``downsample.{0,1}``), so ``interop.from_jax.lipreading_state_dict`` loads
 with ``strict=True``.
 """
@@ -53,20 +60,42 @@ def make_act(relu_type: str, channels: int) -> nn.Module:
     raise ValueError(f"relu type {relu_type!r} not implemented")
 
 
+_EVAL_KERNEL_TYPES = (torch.float32, torch.bfloat16)
+
+
+def eval_kernel_takes(x: torch.Tensor, bns, act: nn.Module, params) -> bool:
+    """Whether BN + PReLU sites over the activation ``x`` take the one-pass
+    eval kernel: every BN of ``bns`` in eval mode, ``act`` a PReLU, an f32
+    or bf16 ``x`` on the card, and no gradient needed (grad mode off, or
+    neither ``x`` nor any of ``params`` requires one)."""
+    if (any(bn.training for bn in bns) or not isinstance(act, PReLU) or not x.is_cuda
+            or x.dtype not in _EVAL_KERNEL_TYPES):
+        return False
+    return not (torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in params)))
+
+
+def eval_bn(bn: TorchBatchNorm) -> K.EvalBN:
+    return K.EvalBN(bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+
+
 def bn_act(bn: TorchBatchNorm, act: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``act(bn(x))`` on a ``(..., C)`` activation. In train mode a PReLU
     pair runs as the fused op (K3 forward, K4 backward); the batch
-    statistics it returns then feed ``bn``'s running update. On the card
-    ``x`` comes from a cuDNN convolution of a channels-last input, which is
-    itself channels-last, so its ``(..., C)`` view is contiguous as the
-    kernels require. Inside a mesh's ``batch_stats`` block the statistics
-    and the running update are the global batch's."""
-    if not (bn.training and isinstance(act, PReLU)):
-        return act(bn(x))
-    group = batch_group()
-    y, mean, var = K.bn_prelu_train(x, bn.weight, bn.bias, act.weight, bn.eps, group)
-    bn.update_running(mean, var, global_rows(x, group))
-    return y
+    statistics it returns then feed ``bn``'s running update. In eval mode it
+    is the eval kernel's plain form where :func:`eval_kernel_takes` says so.
+    On the card ``x`` comes from a cuDNN convolution of a channels-last
+    input, which is itself channels-last, so its ``(..., C)`` view is
+    contiguous as the kernels require. Inside a mesh's ``batch_stats`` block
+    the statistics and the running update are the global batch's."""
+    if bn.training and isinstance(act, PReLU):
+        group = batch_group()
+        y, mean, var = K.bn_prelu_train(x, bn.weight, bn.bias, act.weight, bn.eps, group)
+        bn.update_running(mean, var, global_rows(x, group))
+        return y
+    if eval_kernel_takes(x, (bn,), act, (*bn.parameters(), *act.parameters())):
+        return K.bn_prelu_eval(x, eval_bn(bn), act.weight)
+    return act(bn(x))
 
 
 def conv_nhwc(conv: nn.Conv2d | nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
@@ -109,8 +138,12 @@ class BasicBlock(nn.Module):
                 TorchBatchNorm(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = bn_act(self.bn1, self.relu1, conv_nhwc(self.conv1, x))
-        out = self.bn2(conv_nhwc(self.conv2, out))
+        residual_bn = None if self.downsample is None else self.downsample[1]
+        bns = (self.bn2,) if residual_bn is None else (self.bn2, residual_bn)
+        fused = eval_kernel_takes(x, bns, self.relu2, self.parameters())
+        out = conv_nhwc(self.conv2, bn_act(self.bn1, self.relu1, conv_nhwc(self.conv1, x)))
+        if not fused:
+            out = self.bn2(out)
         residual = x
         if self.downsample is not None:
             if self.avg_pool_downsample:
@@ -119,7 +152,13 @@ class BasicBlock(nn.Module):
                 residual = F.avg_pool2d(
                     residual.movedim(-1, 1), self.stride, self.stride,
                     ceil_mode=True, count_include_pad=False).movedim(1, -1)
-            residual = self.downsample[1](conv_nhwc(self.downsample[0], residual))
+            residual = conv_nhwc(self.downsample[0], residual)
+        if fused:
+            # bn2, the residual add (the downsample's BN folded in) and relu2
+            return K.bn_prelu_eval(out, eval_bn(self.bn2), self.relu2.weight, residual,
+                                   None if residual_bn is None else eval_bn(residual_bn))
+        if residual_bn is not None:
+            residual = residual_bn(residual)
         return self.relu2(out + residual)
 
 

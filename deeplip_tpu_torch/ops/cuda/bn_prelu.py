@@ -39,11 +39,23 @@ The backward returns this process's own totals as dscale, dbias and dalpha
 means in dx. The plain versions take the same all-reduce. Every process
 must bring the same number of rows. Without a group each call launches
 three kernels, as before.
+
+:func:`bn_prelu_eval` is the eval apply of the ResNet trunk's BN + PReLU
+sites: one kernel, one pass, the running statistics (an :class:`EvalBN`), in
+three forms: ``prelu(bn(x))``, ``prelu(bn(x) + residual)`` and
+``prelu(bn(x) + residual_bn(residual))``. It computes the eager ops'
+numbers, ``TorchBatchNorm``'s eval op order, the residual add and
+``where(z >= 0, z, α·z)``, each op rounded in the activation's type as the
+eager op rounds it, so an f32 or bf16 activation gets the eager result bit
+for bit. It takes what the other wrappers take (the residual as ``x``'s
+twin) and counts its launch under ``bn_prelu_eval``; on a CPU tensor it
+runs :func:`bn_prelu_eval_reference`, the eager ops themselves.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -60,6 +72,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _FWD, _BWD = ("bn_prelu_fwd",), ("bn_prelu_bwd",)
 _FWD_TOTALS, _BWD_TOTALS = _FWD + ("bn_totals_fwd",), _BWD + ("bn_totals_bwd",)
+_EVAL = ("bn_prelu_eval",)
 _SIGNATURES = {   # entry -> (launch-count keys, argtypes)
     "bn_stats_partial": (_FWD, [_P, _I, _P, _L, _I, _L, _I, _P]),
     "bn_stats_finalize": (_FWD, [_P, _I, _I, _L, _F, _P, _P, _P, _P]),
@@ -71,6 +84,8 @@ _SIGNATURES = {   # entry -> (launch-count keys, argtypes)
     "bn_prelu_bwd_totals": (_BWD_TOTALS, [_P, _I, _I, _P, _P, _P]),
     "bn_prelu_bwd_from_totals": (_BWD_TOTALS, [_P, _I, _L, _P, _P]),
     "bn_prelu_bwd_apply": (_BWD, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P]),
+    "bn_prelu_eval": (_EVAL, [_P, _P, _I, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _F, _P, _P,
+                              _L, _I, _P]),
 }
 _entry = build.entries("bn_prelu_kernel", _SIGNATURES)
 
@@ -271,3 +286,75 @@ def bn_prelu_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     per-channel PReLU with K4 as its backward: ``(y, mean, var)``; ``var``
     is the biased batch variance for the caller's running update."""
     return _BnPReLUTrain.apply(x, scale, bias, alpha, eps, group)
+
+
+class EvalBN(NamedTuple):
+    """A BatchNorm in eval mode as :func:`bn_prelu_eval` reads it: the
+    running ``mean`` and ``var``, ``scale`` (the BN's weight) and ``bias``,
+    f32 ``(C,)``, and ``eps``."""
+    mean: torch.Tensor
+    var: torch.Tensor
+    scale: torch.Tensor
+    bias: torch.Tensor
+    eps: float
+
+
+_NO_BN = EvalBN(None, None, None, None, 0.0)   # the unused second BN of forms 0 and 1
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def bn_eval_reference(x: torch.Tensor, bn: EvalBN) -> torch.Tensor:
+    """``TorchBatchNorm``'s eval ops on a ``(..., C)`` activation, in its
+    type: ``(x − mean)·rsqrt(var + eps)``, then ``·scale + bias``."""
+    inv = torch.rsqrt(bn.var + bn.eps)
+    y = (x - bn.mean.to(x.dtype)) * inv.to(x.dtype)
+    return y * bn.scale.to(x.dtype) + bn.bias.to(x.dtype)
+
+
+def bn_prelu_eval_reference(x: torch.Tensor, bn: EvalBN, alpha: torch.Tensor,
+                            residual: torch.Tensor | None = None,
+                            residual_bn: EvalBN | None = None) -> torch.Tensor:
+    """Plain version of the eval apply, the eager ops it replaces:
+    ``z = bn(x)``, plus ``residual`` (through ``residual_bn`` if given),
+    then the PReLU ``where(z >= 0, z, α·z)``."""
+    z = bn_eval_reference(x, bn)
+    if residual is not None:
+        z = z + (residual if residual_bn is None else bn_eval_reference(residual, residual_bn))
+    return torch.where(z >= 0, z, alpha.to(z.dtype) * z)
+
+
+def bn_prelu_eval(x: torch.Tensor, bn: EvalBN, alpha: torch.Tensor,
+                  residual: torch.Tensor | None = None,
+                  residual_bn: EvalBN | None = None) -> torch.Tensor:
+    """The eval apply: ``prelu(bn(x) [+ residual | + residual_bn(residual)])``
+    with the running statistics, in one pass; ``residual`` has ``x``'s shape,
+    type and layout."""
+    if residual is None and residual_bn is not None:
+        raise ValueError("bn_prelu_eval: residual_bn without a residual")
+    if x.device.type == "cpu":
+        return bn_prelu_eval_reference(x, bn, alpha, residual, residual_bn)
+    if x.device.type != "cuda":
+        raise ValueError(f"bn_prelu_eval runs on cuda or cpu, not {x.device}")
+    _check_cuda(x, (*bn[:4], alpha), "bn_prelu_eval")
+    if residual is not None:
+        if (residual.shape != x.shape or residual.dtype != x.dtype
+                or residual.device != x.device):
+            raise ValueError(f"residual {residual.dtype} {tuple(residual.shape)} does not "
+                             f"match x {x.dtype} {tuple(x.shape)}")
+        _check_cuda(residual, residual_bn[:4] if residual_bn is not None else (),
+                    "bn_prelu_eval")
+    form = 0 if residual is None else 1 if residual_bn is None else 2
+    bn_d = residual_bn if residual_bn is not None else _NO_BN
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    c = x.shape[-1]
+    with torch.cuda.device(x.device):
+        is_bf16, stream = _device_args(x)
+        build.launch(_entry("bn_prelu_eval"), x.data_ptr(), _ptr(residual), is_bf16, form,
+                     *map(_ptr, bn[:4]), bn.eps, *map(_ptr, bn_d[:4]), bn_d.eps,
+                     alpha.data_ptr(), y.data_ptr(), x.numel() // c, c, stream)
+    return y

@@ -130,12 +130,14 @@ def load(name: str) -> ctypes.CDLL:
 # Kernel launches in this process, by the kernel (or pair of passes) a
 # wrapper launches: the front-end's FFT and mixed-radix plans, K3 and K4
 # (the fused BN+PReLU forward and backward) and, of their launches, the
-# split finalize under a process group, the max-pool's forward and
-# backward, the frontend Conv3d's weight gradient, and T's train forward,
-# train backward and eval apply (the TDNN blocks' fused BN + LeakyReLU).
+# split finalize under a process group, the BN+PReLU eval apply of the
+# ResNet trunk's sites, the max-pool's forward and backward, the frontend
+# Conv3d's weight gradient, and T's train forward, train backward and eval
+# apply (the TDNN blocks' fused BN + LeakyReLU).
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("fft", "mixed", "bn_prelu_fwd", "bn_prelu_bwd", "bn_totals_fwd", "bn_totals_bwd",
-     "maxpool_fwd", "maxpool_bwd", "conv3d_wgrad", "tdnn_fwd", "tdnn_bwd", "tdnn_eval"), 0)
+     "bn_prelu_eval", "maxpool_fwd", "maxpool_bwd", "conv3d_wgrad", "tdnn_fwd", "tdnn_bwd",
+     "tdnn_eval"), 0)
 
 
 def entries(library: str,

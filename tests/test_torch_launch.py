@@ -63,7 +63,8 @@ def test_every_entry_counts_under_a_key_that_launch_counts_reports():
     assert counted == set(reported)
     assert sorted(reported) == sorted([
         "fft", "mixed", "bn_prelu_fwd", "bn_prelu_bwd", "bn_totals_fwd", "bn_totals_bwd",
-        "maxpool_fwd", "maxpool_bwd", "conv3d_wgrad", "tdnn_fwd", "tdnn_bwd", "tdnn_eval"])
+        "bn_prelu_eval", "maxpool_fwd", "maxpool_bwd", "conv3d_wgrad", "tdnn_fwd", "tdnn_bwd",
+        "tdnn_eval"])
 
 
 def test_add_launches_is_the_tables_other_writer(monkeypatch):
