@@ -41,7 +41,15 @@ The names, and what each covers:
 - ``deeplip.backward``: the backward and the gradients' reduction over the
   ranks;
 - ``deeplip.optimizer``: the optimizer's update;
-- ``deeplip.embed``: one ``AudioExtractor.embed`` call.
+- ``deeplip.embed``: one ``AudioExtractor.embed`` call;
+- ``deeplip.ecapa.res2net``: inside an ECAPA-TDNN forward
+  (``models/ecapa.py``), one SE-Res2Block's split, its chain of dilated
+  convolutions, the adds between them and the concatenation;
+- ``deeplip.ecapa.se``: one SE-Res2Block's squeeze-excitation gate, the
+  gated product and the residual add;
+- ``deeplip.ecapa.pool``: the multi-layer aggregation, the attentive
+  statistics pooling, its BN and the FC + BN head. Their backward stays
+  whole in ``deeplip.backward``.
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ import torch
 
 NAMES = frozenset({"deeplip.step", "deeplip.input", "deeplip.encode.audio",
                    "deeplip.encode.video", "deeplip.forward", "deeplip.backward",
-                   "deeplip.optimizer", "deeplip.embed"})
+                   "deeplip.optimizer", "deeplip.embed", "deeplip.ecapa.res2net",
+                   "deeplip.ecapa.se", "deeplip.ecapa.pool"})
 FOLD_AT = 4096   # pending event pairs at which the completed ones are folded in
 
 OFF = contextlib.nullcontext()   # the span while no profiler runs

@@ -14,6 +14,7 @@ _EXPORTS = {
     "MultiHeadAttentivePooling": "pooling",
     "TDNNBlock": "tdnn",
     "SpeakerEmbNet": "tdnn",
+    "ECAPATDNN": "ecapa",
     "ResNetTrunk": "resnet",
     "BasicBlock": "resnet",
     "TemporalConvNet": "tcn",

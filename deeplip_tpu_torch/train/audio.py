@@ -2,8 +2,8 @@
 package's ``AudioTrainer`` (``deeplip_tpu/train/audio.py``).
 
 :class:`AudioTrainer` trains the config's ``model.arch`` (the TDNN/E-TDNN
-with any of the five poolings, or the spectrogram ResNet, ``arch:
-resnet``) on speaker-balanced random crops
+with any of the five poolings, the ECAPA-TDNN, ``arch: ecapa``, or the
+spectrogram ResNet, ``arch: resnet``) on speaker-balanced random crops
 (``data.audio_pipeline.AudioTrainPipeline``). One train step ships the PCM
 batch once (int16 where that is value-exact) and does everything else on
 the device: the int16 → f32 rescale, the front-end (the fused FFT kernel on
@@ -82,6 +82,7 @@ from deeplip_tpu_torch.losses.softmax import (AAMSoftmax, LMCL, build_criterion,
                                               sharded_softmax_loss)
 from deeplip_tpu_torch.losses.triplet import OnlineTripletLoss
 from deeplip_tpu_torch.models.audio_resnet import AudioResNet
+from deeplip_tpu_torch.models.ecapa import ECAPATDNN
 from deeplip_tpu_torch.models.tdnn import SpeakerEmbNet
 from deeplip_tpu_torch.ops import features as F
 from deeplip_tpu_torch.ops.masked import length_mask
@@ -166,11 +167,14 @@ def claim_staged(tensors, done, device: torch.device):
 
 
 def build_audio_model(model_opts, feature_dim: int) -> torch.nn.Module:
-    """The config's ``model.arch``: the TDNN/E-TDNN over ``feature_dim``
-    features, or the spectrogram ResNet (one input channel)."""
+    """The config's ``model.arch``: the TDNN/E-TDNN or the ECAPA-TDNN over
+    ``feature_dim`` features, or the spectrogram ResNet (one input
+    channel)."""
     arch = model_opts.get("arch", "etdnn")
     if arch in ("tdnn", "etdnn"):
         return SpeakerEmbNet.from_config(model_opts, input_dim=feature_dim)
+    if arch == "ecapa":
+        return ECAPATDNN.from_config(model_opts, input_dim=feature_dim)
     if arch == "resnet":
         return AudioResNet.from_config(model_opts)
     raise NotImplementedError(f"audio arch {arch!r}")

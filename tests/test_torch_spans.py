@@ -24,6 +24,7 @@ STEP = ("deeplip.step", "deeplip.input", "deeplip.forward", "deeplip.backward",
         "deeplip.optimizer")
 FUSION_STEP = ("deeplip.step", "deeplip.input", "deeplip.encode.audio", "deeplip.encode.video",
                "deeplip.forward", "deeplip.backward", "deeplip.optimizer")
+ECAPA = ("deeplip.ecapa.res2net", "deeplip.ecapa.se", "deeplip.ecapa.pool")
 
 
 @pytest.fixture(autouse=True)
@@ -42,7 +43,9 @@ def _deeplip_events(prof):
 
 
 def test_off_a_span_is_the_shared_no_op(monkeypatch):
-    assert set(FUSION_STEP) | {"deeplip.embed"} == spans.NAMES
+    assert set(FUSION_STEP) | {"deeplip.embed"} | set(ECAPA) == spans.NAMES
+    for name in spans.NAMES:
+        assert f"``{name}``" in spans.__doc__, name
 
     def no_range(name):
         raise AssertionError("record_function called with no profiler running")
@@ -216,6 +219,18 @@ def _audio_step(tmp_path):
     return trainer.train_step(pcm, torch.tensor([0, 5, 2, 2]), 0.2)["loss"]
 
 
+ECAPA_CFG = {**AUDIO_CFG, "model": {"arch": "ecapa", "ecapa": {
+    "channels": 16, "scale": 4, "se_channels": 8, "attention_channels": 8, "mfa_channels": 24,
+    "embedding_dim": 12}}}
+
+
+def _ecapa_step(tmp_path):
+    g = torch.Generator().manual_seed(5)
+    pcm = torch.randint(-3000, 3000, (4, SAMPLES), dtype=torch.int16, generator=g)
+    trainer = AudioTrainer(Config(ECAPA_CFG), device="cpu", n_spk=6, exp_root=str(tmp_path))
+    return trainer.train_step(pcm, torch.tensor([0, 5, 2, 2]), 0.2)["loss"]
+
+
 def _embed(tmp_path):
     g = torch.Generator().manual_seed(9)
     pcm = torch.randint(-3000, 3000, (3, SAMPLES), dtype=torch.int16, generator=g)
@@ -264,6 +279,28 @@ def test_one_span_of_each_phase_and_the_same_numbers(run, names, tmp_path):
     assert inner <= outer["host_ms"]
     assert outer["self_host_ms"] == pytest.approx(outer["host_ms"] - inner, abs=1e-6)
     assert sorted(e.name() for e in _deeplip_events(prof)) == sorted(names)
+
+
+def test_an_ecapa_step_records_its_blocks_inside_the_forward(tmp_path):
+    """One ECAPA-TDNN train step under a CPU profiler: the three blocks'
+    Res2Net chains and SE gates and the one pooling inside
+    ``deeplip.forward``, none in the backward; with no profiler none."""
+    plain = _ecapa_step(tmp_path / "plain")
+    assert spans.totals() == {}
+    with _cpu_profile() as prof:
+        traced = _ecapa_step(tmp_path / "traced")
+    assert torch.equal(plain, traced)
+    got = spans.totals()
+    assert set(got) == set(STEP) | set(ECAPA)
+    assert {n: got[n]["count"] for n in ECAPA} == {"deeplip.ecapa.res2net": 3,
+                                                   "deeplip.ecapa.se": 3, "deeplip.ecapa.pool": 1}
+    assert sum(got[n]["host_ms"] for n in ECAPA) <= got["deeplip.forward"]["host_ms"]
+    events = _deeplip_events(prof)
+    forward = next(e for e in events if e.name() == "deeplip.forward")
+    end = forward.start_ns() + forward.duration_ns()
+    for e in events:
+        if e.name() in ECAPA:
+            assert forward.start_ns() <= e.start_ns() and e.start_ns() + e.duration_ns() <= end
 
 
 def test_a_fusion_steps_phases_are_siblings_that_sum_to_the_step(tmp_path):
